@@ -2,14 +2,17 @@
 
 The flags of ``bcg_tpu/cli.py`` that this port serves: the game's shape,
 model, seed, network and channel, prefix caching and length buckets,
-guided grammar, results and checkpoints, plus ``--device``: the game
-runs on the CUDA card unless ``--device cpu`` is given.  The other
+guided grammar, the KV-cache dtype (bfloat16 or int8), fast-forward and
+speculative decoding, results and checkpoints, plus ``--device``: the
+game runs on the CUDA card unless ``--device cpu`` is given.  The other
 flags come back with the ROADMAP item that ports what they switch on
-(parallelism A13, quantization and the int8 cache A8, fast-forward and
-speculative decoding A7, the fake backend and fault injection A11).
+(parallelism A13, weight quantization and the int4 cache A8, the fake
+backend and fault injection A11).
 
     python -m bcg_tpu_torch.cli --honest 8 --byzantine 2 --model bcg-tpu/bench-8b
     python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu
+    python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu \
+        --fast-forward --kv-cache-dtype int8
 """
 
 from __future__ import annotations
@@ -47,11 +50,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plots", action="store_true", help="Save per-run plots (value trajectories, agreement)")
     p.add_argument("--checkpoint-every-round", action="store_true", help="Write a resumable checkpoint after each round")
     p.add_argument("--resume", type=str, default=None, help="Resume from checkpoint file")
+    p.add_argument("--kv-cache-dtype", type=str, default=None, choices=["bfloat16", "int8"],
+                   help="KV cache storage dtype (int8 halves decode cache traffic)")
     p.add_argument("--no-prefix-caching", action="store_true",
                    help="Disable system-prompt KV prefix caching")
     p.add_argument("--fine-suffix-buckets", action="store_true",
                    help="Finer suffix-length buckets (1536/3072 rungs): less pad "
                         "traffic in the decode window, more distinct shapes")
+    p.add_argument("--fast-forward", action="store_true",
+                   help="Forced-chain fast-forward decoding (skeleton tokens ride the sampled token's weight pass)")
+    p.add_argument("--spec-decode", action="store_true",
+                   help="Prompt-lookup speculative decoding: n-gram drafts from the "
+                        "row's own history verified K+1 tokens per weight pass "
+                        "(token-identical at temperature 0; supersedes --fast-forward)")
     p.add_argument("--compact-json", action="store_true",
                    help="Compact-JSON generation grammar (no inter-token whitespace)")
     p.add_argument("--shared-core-votes", action="store_true",
@@ -97,10 +108,16 @@ def config_from_args(args) -> BCGConfig:
     engine = dataclasses.replace(base.engine, backend="torch")
     if args.model:
         engine = dataclasses.replace(engine, model_name=resolve_model_name(args.model))
+    if args.kv_cache_dtype:
+        engine = dataclasses.replace(engine, kv_cache_dtype=args.kv_cache_dtype)
     if args.no_prefix_caching:
         engine = dataclasses.replace(engine, prefix_caching=False)
     if args.fine_suffix_buckets:
         engine = dataclasses.replace(engine, fine_suffix_buckets=True)
+    if args.fast_forward:
+        engine = dataclasses.replace(engine, decode_fast_forward=True)
+    if args.spec_decode:
+        engine = dataclasses.replace(engine, spec_decode=True)
     if args.compact_json:
         engine = dataclasses.replace(engine, guided_compact_json=True)
     network = base.network

@@ -1,0 +1,67 @@
+// Decode attention over the int8 KV cache for Hopper (sm_90a), single
+// step and chunk.
+//
+// Replaces: bcg_tpu/ops/decode_attention.py::_decode_kernel_allheads (the
+// pallas_call of _quantized_attention), reached from decode_attention
+// (rows = G) and chunk_decode_attention (rows = K * G) when k_scale is
+// given.  It serves the int8-cache decode of the plain, fast-forward and
+// speculative loops.
+//
+// Computes out [B, Kq, H, Dh] (Kq = 1 for a single step) from q
+// [B, Kq, H, Dh], the int8 cache k/v [B, Hkv, S, Dh] with f32
+// per-(position, kv head) scales [B, Hkv, S], and the mask [B, Mk, S]
+// (Mk = 1: one row shared by every query row; Mk = Kq: query row r reads
+// row r / G).  Each value is dequantized in registers as the TPU kernel
+// does it — float(v) * scale, rounded to bf16 — before either product.
+// The TPU wrappers pad a non-power-of-two group up to the next power of
+// two (a Mosaic constraint); the rows here need no padding.
+//
+// What bounds it on this card: the cache window is read once per step,
+// now 2 * S * (Dh + 4) bytes per kv head (int8 values plus scales), about
+// half of the bf16 cache's bytes, for 4 * Kq * G * S * Dh operations —
+// still far under the tensor cores' ~295 operations per byte, so it is
+// bound by memory bytes.  The design (decode_tile.cuh) streams one kv
+// head's consecutive positions (128 bytes apart in this layout) with
+// 16-byte loads, dequantizes into shared memory, and runs both products
+// on tensor cores (mma.sync m16n8k16).  One block per (b, kv head): 80 at
+// the bench shape, under the 132 SMs, so halving the bytes is not
+// expected to show until a split-S pass fills the card.
+
+#include "decode_tile.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(bcg_tile::kThreads)
+decode_int8_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k,
+                   const void* __restrict__ v, const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale, const uint8_t* __restrict__ mask,
+                   __nv_bfloat16* __restrict__ out, int S, int H, int Hkv, int Kq, int Mk,
+                   long long kv_bstride, long long kv_hstride, long long kv_sstride,
+                   long long sc_bstride, long long sc_hstride, float scale) {
+  bcg_tile::decode_tile_body<true>(q, k, v, k_scale, v_scale, mask, out, S, H, Hkv, Kq, Mk,
+                                   kv_bstride, kv_hstride, kv_sstride, sc_bstride, sc_hstride,
+                                   scale);
+}
+
+}  // namespace
+
+extern "C" int bcg_decode_attention_int8(const void* q, const void* k, const void* v,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* mask, void* out, int B, int S, int H,
+                                         int Hkv, int Kq, int Mk, long long kv_bstride,
+                                         long long kv_hstride, long long kv_sstride,
+                                         long long sc_bstride, long long sc_hstride,
+                                         float scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(decode_int8_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bcg_tile::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hkv, B);
+  decode_int8_kernel<<<grid, bcg_tile::kThreads, bcg_tile::kSmemBytes,
+                       (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(out), S, H, Hkv, Kq, Mk, kv_bstride, kv_hstride, kv_sstride,
+      sc_bstride, sc_hstride, scale);
+  return (int)cudaGetLastError();
+}

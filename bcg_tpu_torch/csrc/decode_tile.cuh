@@ -1,0 +1,359 @@
+// Shared body of the chunk and int8 decode-attention kernels (sm_90a).
+//
+// One block per (kv head hk, batch row b) computes, for the R = Kq * G
+// query rows of that kv head (Kq chunk positions times the GQA group
+// G = H / Hkv, position-major: row r is chunk position r / G, query head
+// hk * G + r % G):
+//   out[r] = sum_s softmax_s(scale * q[r].k[s], mask[r / G or 0][s]) * v[s]
+// over the whole cache window.  The arithmetic is the Pallas decode
+// kernel's: masked scores take the -1e30 sentinel, p = exp(s - m) * mask
+// (a fully masked row gives 0), l sums the f32 p, the p.v product takes
+// p rounded to bf16, and out = acc / (l == 0 ? 1 : l).
+//
+// Layout.  K/V are read through (batch, head, position) strides, so one
+// body serves the bf16 cache [B, S, Hkv, Dh] (positions Hkv*Dh apart)
+// and the int8 cache [B, Hkv, S, Dh] (positions Dh bytes apart) with f32
+// scales [B, Hkv, S].  An int8 value is dequantized as the TPU kernel
+// does it: float(v) * scale, rounded to bf16 (q's type) before either
+// product.
+//
+// Design.  Four warps; the R rows are cut into nM = ceil(R / 16) m-tiles
+// of the mma.sync m16n8k16 shape (bf16 in, f32 accumulate), so 16-20
+// rows never sit in per-thread arrays sized by R: each warp holds one
+// 16-row tile (q as A fragments, 32 registers; acc 16 x 128 f32, 64
+// registers).  The 4 / nM warps that share an m-tile split the positions
+// of each block iteration between them (32 positions a warp), each with
+// its own online-softmax state, and the splits are merged once at the
+// end through shared memory.  Every iteration stages 32 * (4 / nM)
+// positions of K and V (dequantized to bf16 for the int8 cache; each
+// thread keeps 4 + 4 16-byte loads in flight before storing any) and the
+// mask rows in shared memory; an iteration with no live (row, position)
+// pair loads no K/V.  No TMA and no overlap of one iteration's loads with
+// the previous one's math yet.  Head dim 128; R up to 64.
+#pragma once
+
+#include "common.cuh"
+
+namespace bcg_tile {
+
+constexpr int kDh = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kWN = 32;                       // positions per warp per iteration
+constexpr int kSuper = kWarps * kWN;          // most positions per iteration
+constexpr int kMaxRows = 64;                  // R = Kq * G
+constexpr int kStride = kDh + 8;              // smem row stride (bf16), padded vs bank conflicts
+constexpr size_t kSmemBytes =
+    (size_t)(kMaxRows + 2 * kSuper) * kStride * sizeof(__nv_bfloat16) +
+    (size_t)kMaxRows * kSuper;
+
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Cache row chunks into shared memory as bf16, in two steps so that a
+// batch of loads is in flight before any is used: load() reads 16 bytes
+// (bf16: 8 values; int8: 16 values and their position's f32 scale),
+// store() writes them dequantized (int8: float(v) * scale, rounded to
+// bf16).
+template <bool kInt8>
+struct KVChunk;
+
+template <>
+struct KVChunk<false> {
+  static constexpr int kVals = 8;
+  uint4 raw;
+  __device__ __forceinline__ void load(const void* base, const float*, long long s_stride,
+                                       int s, int col, bool in_range) {
+    raw = make_uint4(0u, 0u, 0u, 0u);
+    if (in_range) {
+      raw = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) +
+                                            (long long)s * s_stride + col);
+    }
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* dst) const {
+    *reinterpret_cast<uint4*>(dst) = raw;
+  }
+};
+
+template <>
+struct KVChunk<true> {
+  static constexpr int kVals = 16;
+  uint4 raw;
+  float sc;
+  __device__ __forceinline__ void load(const void* base, const float* scales,
+                                       long long s_stride, int s, int col, bool in_range) {
+    raw = make_uint4(0u, 0u, 0u, 0u);
+    sc = 0.f;
+    if (in_range) {
+      raw = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(base) +
+                                            (long long)s * s_stride + col);
+      sc = scales[s];
+    }
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* dst) const {
+    uint4 lo, hi;
+    const int8_t* v8 = reinterpret_cast<const int8_t*>(&raw);
+    uint32_t* l32 = reinterpret_cast<uint32_t*>(&lo);
+    uint32_t* h32 = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      l32[i] = bcg::pack_bf16x2((float)v8[2 * i] * sc, (float)v8[2 * i + 1] * sc);
+      h32[i] = bcg::pack_bf16x2((float)v8[8 + 2 * i] * sc, (float)v8[9 + 2 * i] * sc);
+    }
+    *reinterpret_cast<uint4*>(dst) = lo;
+    *reinterpret_cast<uint4*>(dst + 8) = hi;
+  }
+};
+
+constexpr int kLoadBatch = 4;   // chunks of K and of V in flight per thread
+
+template <bool kInt8>
+__device__ __forceinline__ void decode_tile_body(
+    const __nv_bfloat16* __restrict__ q,      // [B, Kq, H, Dh]
+    const void* __restrict__ k,               // bf16 [B, S, Hkv, Dh] / int8 [B, Hkv, S, Dh], strided
+    const void* __restrict__ v,
+    const float* __restrict__ k_scale,        // int8 only: [B, Hkv, S] (positions contiguous)
+    const float* __restrict__ v_scale,
+    const uint8_t* __restrict__ mask,         // [B, Mk, S], Mk = 1 or Kq
+    __nv_bfloat16* __restrict__ out,          // [B, Kq, H, Dh]
+    int S, int H, int Hkv, int Kq, int Mk,
+    long long kv_bstride, long long kv_hstride, long long kv_sstride,
+    long long sc_bstride, long long sc_hstride, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + kMaxRows * kStride;
+  __nv_bfloat16* Vs = Ks + kSuper * kStride;
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + kSuper * kStride);   // [Mk][kSuper]
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int G = H / Hkv;
+  const int R = Kq * G;
+  const int nM = (R + 15) / 16;
+  const int nSplit = kWarps / nM;
+  const int P = nSplit * kWN;                 // positions per iteration
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;     // mma fragment row group / column pair
+  const int mt = warp % nM, sp = warp / nM;
+  const bool active = sp < nSplit;            // nM = 3 leaves warp 3 to loading only
+  const int wr = mt * 16;                     // this warp's first row
+  const int wp0 = sp * kWN;                   // this warp's first position in an iteration
+
+  auto q_row = [&](int r) -> long long {
+    return (((long long)b * Kq + r / G) * H + hk * G + r % G) * kDh;
+  };
+
+  for (int c = tid; c < nM * 16 * (kDh / 8); c += kThreads) {
+    const int r = c / (kDh / 8), col = (c % (kDh / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R) val = *reinterpret_cast<const uint4*>(q + q_row(r) + col);
+    *reinterpret_cast<uint4*>(Qs + r * kStride + col) = val;
+  }
+  __syncthreads();
+
+  uint32_t qa[kDh / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    const __nv_bfloat16* base = Qs + (wr + g) * kStride + kk * 16 + t4 * 2;
+    qa[kk][0] = *reinterpret_cast<const uint32_t*>(base);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
+    qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
+  }
+  // The mask row of each of this thread's two fragment rows (g, g + 8);
+  // -1 for rows past R, which stay fully masked.
+  int mrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i;
+    mrow[i] = r < R ? (Mk == 1 ? 0 : r / G) : -1;
+  }
+
+  float o[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {bcg::kNegInf, bcg::kNegInf};
+  float l_run[2] = {0.f, 0.f};
+
+  const uint8_t* mb = mask + (long long)b * Mk * S;
+  const long long kv_off = (long long)b * kv_bstride + (long long)hk * kv_hstride;
+  const long long sc_off = (long long)b * sc_bstride + (long long)hk * sc_hstride;
+  const void* kb;
+  const void* vb;
+  if (kInt8) {
+    kb = static_cast<const int8_t*>(k) + kv_off;
+    vb = static_cast<const int8_t*>(v) + kv_off;
+  } else {
+    kb = static_cast<const __nv_bfloat16*>(k) + kv_off;
+    vb = static_cast<const __nv_bfloat16*>(v) + kv_off;
+  }
+  const float* ksb = kInt8 ? k_scale + sc_off : nullptr;
+  const float* vsb = kInt8 ? v_scale + sc_off : nullptr;
+  constexpr int kVals = KVChunk<kInt8>::kVals;
+  constexpr int kChunks = kDh / kVals;        // 16-byte loads per cache row
+
+  for (int s0 = 0; s0 < S; s0 += P) {
+    __syncthreads();   // the previous iteration's K/V/mask are no longer read
+    int live = 0;
+    for (int c = tid; c < Mk * P; c += kThreads) {
+      const int r = c / P, col = c % P;
+      const int s = s0 + col;
+      const uint8_t mv = s < S ? mb[(long long)r * S + s] : 0;
+      Ms[r * kSuper + col] = mv;
+      live |= mv;
+    }
+    if (!__syncthreads_or(live)) continue;
+
+    for (int c0 = tid; c0 < P * kChunks; c0 += kLoadBatch * kThreads) {
+      KVChunk<kInt8> kc[kLoadBatch], vc[kLoadBatch];
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int c = c0 + u * kThreads;
+        const int r = c / kChunks, col = (c % kChunks) * kVals;
+        const int s = s0 + r;
+        const bool ok = c < P * kChunks && s < S;
+        kc[u].load(kb, ksb, kv_sstride, s, col, ok);
+        vc[u].load(vb, vsb, kv_sstride, s, col, ok);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c < P * kChunks) {
+          const int r = c / kChunks, col = (c % kChunks) * kVals;
+          kc[u].store(Ks + r * kStride + col);
+          vc[u].store(Vs + r * kStride + col);
+        }
+      }
+    }
+    __syncthreads();
+    if (!active || s0 + wp0 >= S) continue;
+
+    // scores = q . k^T for the warp's 16 rows x 32 positions.
+    float sc[kWN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kWN / 8; ++j) {
+        const __nv_bfloat16* kr = Ks + (wp0 + j * 8 + g) * kStride + kk * 16 + t4 * 2;
+        uint32_t bf[2];
+        bf[0] = *reinterpret_cast<const uint32_t*>(kr);
+        bf[1] = *reinterpret_cast<const uint32_t*>(kr + 8);
+        mma_16816(sc[j], qa[kk], bf);
+      }
+    }
+
+    // Scale, mask, running max (element e: row g + 8*(e>=2), col 8j + 2*t4 + (e&1)).
+    float mk[kWN / 8][4];
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int mr = mrow[e >> 1];
+        const int col = wp0 + j * 8 + t4 * 2 + (e & 1);
+        mk[j][e] = (mr >= 0 && Ms[mr * kSuper + col]) ? 1.f : 0.f;
+        const float val = mk[j][e] != 0.f ? sc[j][e] * scale : bcg::kNegInf;
+        sc[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) alpha[i] = expf(m_run[i] - mx[i]);
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[j][e] - mx[e >> 1]) * mk[j][e];
+        sc[j][e] = p;
+        rs[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l_run[i] = alpha[i] * l_run[i] + rs[i];
+      m_run[i] = mx[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // acc += p(bf16) . v: the score accumulators of n-tiles 2kk, 2kk+1
+    // are the A fragment of position chunk kk.
+#pragma unroll
+    for (int kk = 0; kk < kWN / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = bcg::pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[1] = bcg::pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[2] = bcg::pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[3] = bcg::pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      const unsigned short* vr =
+          reinterpret_cast<const unsigned short*>(Vs) + (wp0 + kk * 16 + t4 * 2) * kStride + g;
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n) {
+        uint32_t bf[2];
+        bf[0] = (uint32_t)vr[n * 8] | ((uint32_t)vr[n * 8 + kStride] << 16);
+        bf[1] = (uint32_t)vr[n * 8 + 8 * kStride] | ((uint32_t)vr[n * 8 + 9 * kStride] << 16);
+        mma_16816(o[n], pa, bf);
+      }
+    }
+  }
+
+  // Merge the position splits of each m-tile: m = max m_i, l = sum
+  // alpha_i l_i, acc = sum alpha_i acc_i with alpha_i = exp(m_i - m).
+  __syncthreads();   // K/V tiles are dead: their space holds the partials
+  float* Os = reinterpret_cast<float*>(Ks);    // [kWarps][16][kDh]
+  float* Mrun = Os + kWarps * 16 * kDh;        // [kWarps][16]
+  float* Lrun = Mrun + kWarps * 16;
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rl = g + 8 * i;
+      float* orow = Os + (warp * 16 + rl) * kDh + t4 * 2;
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n) {
+        orow[n * 8] = o[n][2 * i];
+        orow[n * 8 + 1] = o[n][2 * i + 1];
+      }
+      if (t4 == 0) {
+        Mrun[warp * 16 + rl] = m_run[i];
+        Lrun[warp * 16 + rl] = l_run[i];
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < R * kDh; idx += kThreads) {
+    const int r = idx / kDh, d = idx % kDh;
+    const int rt = r / 16, rl = r % 16;
+    float m = bcg::kNegInf;
+    for (int s = 0; s < nSplit; ++s) m = fmaxf(m, Mrun[(rt + s * nM) * 16 + rl]);
+    float l = 0.f, acc = 0.f;
+    for (int s = 0; s < nSplit; ++s) {
+      const int w = rt + s * nM;
+      const float a = expf(Mrun[w * 16 + rl] - m);
+      l += a * Lrun[w * 16 + rl];
+      acc += a * Os[(w * 16 + rl) * kDh + d];
+    }
+    out[q_row(r) + d] = __float2bfloat16(acc / (l == 0.f ? 1.f : l));
+  }
+}
+
+}  // namespace bcg_tile

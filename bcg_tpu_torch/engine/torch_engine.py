@@ -17,12 +17,22 @@ Serving design, as in the JAX engine:
   every :data:`_DONE_CHECK` steps instead of every step (the extra steps
   only rewrite EOS into finished rows), so the card is not idled by a
   synchronisation per token.
+* Two more decode loops, as in the JAX engine: forced-chain
+  fast-forward (``decode_fast_forward``: each step carries the sampled
+  token plus its DFA-forced continuation, :meth:`_ff_decode_loop`) and
+  prompt-lookup speculative decoding (``spec_decode``,
+  ``engine/speculative.spec_decode_loop``).  Their write positions and
+  per-row counts stay on the device: the only host read in any loop is
+  the "all rows done" poll.
+* The dense KV cache is bf16, or int8 with per-(position, kv head)
+  scales (``kv_cache_dtype="int8"``), under all three loops.
 * Attention and sampling run the port's hand-written CUDA kernels on a
   CUDA device, and their plain versions on the CPU (tests).
 
-Only the default ``EngineConfig`` path is ported: bf16 weights and a
-dense bf16 KV cache.  Every knob outside it raises ``NotImplementedError``
-naming the ROADMAP item that brings it; none is ignored.
+Ported: bf16 weights, a dense bf16 or int8 KV cache, the plain,
+fast-forward and speculative loops.  Every knob outside that raises
+``NotImplementedError`` naming the ROADMAP item that brings it; none is
+ignored.
 """
 
 from __future__ import annotations
@@ -46,9 +56,11 @@ from bcg_tpu_torch.engine.chat_template import (
 )
 from bcg_tpu_torch.engine.interface import InferenceEngine, per_row_settings as _per_row
 from bcg_tpu_torch.engine.tokenizer import Tokenizer, tokenizer_for_model
-from bcg_tpu_torch.guided.processor import GuidedBatch, compile_schema
+from bcg_tpu_torch.engine.speculative import spec_decode_loop, spec_decode_slots
+from bcg_tpu_torch.guided.processor import FF_CHUNK, GuidedBatch, compile_schema
 from bcg_tpu_torch.models.configs import ModelSpec, spec_for_model
 from bcg_tpu_torch.models.transformer import (
+    decode_chunk,
     decode_step,
     init_kv_cache,
     prefill,
@@ -75,6 +87,15 @@ class BudgetError(ValueError):
     """A request whose token budget cannot fit the context window — the
     ONLY generation-time error the engine turns into per-row
     ``{"error": ...}`` results; anything else propagates."""
+
+
+def _ff_decode_slots(max_new: int) -> int:
+    """Cache tail allocation for the fast-forward loop's compacted writes:
+    the write position advances by 1 + the widest row chain per
+    iteration, with the in-loop capacity guard falling back to single-token
+    advances whenever the worst-case remainder would no longer fit, so
+    1.5x the token budget plus two chunk windows always suffices."""
+    return (3 * max_new) // 2 + 2 * FF_CHUNK
 
 
 def _pad_batch(real_B: int) -> int:
@@ -127,7 +148,8 @@ class TorchEngine(InferenceEngine):
         self.spec = spec or spec_for_model(config.model_name)
         if self.spec is None:
             raise ValueError(f"No architecture spec for model {config.model_name!r}")
-        self._check_config(config)
+        self.kv_cache_dtype = self._check_config(config)
+        self.kv_int8 = self.kv_cache_dtype == "int8"
         self.tokenizer: Tokenizer = tokenizer_for_model(config.model_name)
         self.max_model_len = config.max_model_len
         self.prefill_chunk = int(getattr(config, "prefill_chunk", 0) or 0)
@@ -152,10 +174,29 @@ class TorchEngine(InferenceEngine):
         self.params = params
         # Compute dtype follows the weights (bf16 served; the CPU parity
         # tests pass f32 weights, as the JAX engine accepts them); the KV
-        # cache is bf16 either way, as in the JAX engine.
+        # cache is bf16 or int8 either way, as in the JAX engine.
         self.kv_dtype = torch.bfloat16
         self._param_bytes = sum(_nbytes(t) for t in self.params.values())
-        self._kv_slot_bytes = self.spec.num_kv_heads * self.spec.head_dim * 4
+        # Bytes of one cache slot of one layer: k and v, plus (int8) their
+        # two f32 scales per kv head.
+        Hkv, Dh = self.spec.num_kv_heads, self.spec.head_dim
+        self._kv_slot_bytes = Hkv * (2 * Dh + 8) if self.kv_int8 else Hkv * Dh * 4
+
+        # Decode loops (see the module docstring).  Speculative decoding
+        # supersedes fast-forward when both are set; the env flags
+        # override the config fields, as in the JAX engine.
+        self.fast_forward = bool(getattr(config, "decode_fast_forward", False))
+        self.spec_decode = bool(getattr(config, "spec_decode", False)) or env_flag("BCG_TPU_SPEC")
+        self.spec_k = (envflags.get_int("BCG_TPU_SPEC_K") if envflags.is_set("BCG_TPU_SPEC_K")
+                       else int(getattr(config, "spec_k", 4)))
+        self.spec_ngram = (envflags.get_int("BCG_TPU_SPEC_NGRAM")
+                           if envflags.is_set("BCG_TPU_SPEC_NGRAM")
+                           else int(getattr(config, "spec_ngram", 3)))
+        if self.spec_decode and (self.spec_k < 1 or self.spec_ngram < 1):
+            raise ValueError(
+                f"spec_k={self.spec_k} / spec_ngram={self.spec_ngram}: "
+                "speculative decoding needs both >= 1"
+            )
 
         # Sampling noise: an explicit generator on the engine's device
         # (the JAX engine's PRNGKey(fake_seed)).
@@ -164,6 +205,16 @@ class TorchEngine(InferenceEngine):
 
         self.last_decode_steps = 0
         self.total_decode_steps = 0
+        # Draft tokens proposed / accepted by the speculative loop, over
+        # real rows (the engine.spec.* metrics wait for ROADMAP A12).
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        # Steps the plain loop takes for the same outputs (one per token
+        # up to the batch's longest row): the fast-forward and
+        # speculative loops' weight passes are measured against it.
+        self.total_plain_steps = 0
+        # Largest decode-batch KV cache allocated (bytes).
+        self.max_kv_cache_bytes = 0
         self.total_rows = 0
         self.failed_rows = 0
         self.prefill_seconds = 0.0
@@ -206,9 +257,10 @@ class TorchEngine(InferenceEngine):
     # ------------------------------------------------------------ config
 
     @staticmethod
-    def _check_config(config) -> None:
+    def _check_config(config) -> str:
         """The JAX engine's config resolution, narrowed to what the port
-        serves: every knob outside the ported path raises."""
+        serves: every knob outside the ported path raises.  Returns the
+        KV-cache dtype (``"bfloat16"`` or ``"int8"``)."""
         if getattr(config, "dtype", "bfloat16") not in ("bfloat16", "bf16"):
             raise ValueError(
                 f"dtype={config.dtype!r}: serving computes in bfloat16"
@@ -223,7 +275,7 @@ class TorchEngine(InferenceEngine):
                 f"kv_cache_dtype={kv_raw!r}: expected 'bfloat16'/'bf16', "
                 "'int8' or 'int4'"
             )
-        if kv_raw != "bfloat16":
+        if kv_raw == "int4":
             raise _not_ported(f"kv_cache_dtype={kv_raw!r}", "A8")
         if config.quantization not in (None, "int8", "int4"):
             raise ValueError(
@@ -234,10 +286,6 @@ class TorchEngine(InferenceEngine):
             raise _not_ported(f"quantization={config.quantization!r}", "A8")
         if getattr(config, "paged_kv", False) or env_flag("BCG_TPU_PAGED_KV"):
             raise _not_ported("paged_kv", "A9")
-        if getattr(config, "decode_fast_forward", False):
-            raise _not_ported("decode_fast_forward", "A7")
-        if getattr(config, "spec_decode", False) or env_flag("BCG_TPU_SPEC"):
-            raise _not_ported("spec_decode", "A7")
         for name in ("tensor_parallel_size", "data_parallel_size",
                      "sequence_parallel_size"):
             if int(getattr(config, name, 1)) > 1:
@@ -258,6 +306,7 @@ class TorchEngine(InferenceEngine):
                 f"fused_sampler={raw_fs!r}: the PyTorch engine always runs "
                 "the fused sampler kernel ('auto')"
             )
+        return kv_raw
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -322,8 +371,12 @@ class TorchEngine(InferenceEngine):
             p: n for p, n in self._prefix_lens_memo.items() if p in live
         }
 
+    def _new_cache(self, batch: int, length: int):
+        return init_kv_cache(self.spec, batch, length, self.kv_dtype, self.device,
+                             quantized=self.kv_int8)
+
     def _store_entry(self, key, entry) -> None:
-        entry["bytes"] = _nbytes(entry["kv"].buf)
+        entry["bytes"] = entry["kv"].nbytes()
         self._prefix_bytes += entry["bytes"]
         self._prefix_cache[key] = entry
         self._prefix_active.add(key)
@@ -355,7 +408,7 @@ class TorchEngine(InferenceEngine):
         valid = np.zeros((1, Pb), dtype=bool)
         tokens[0, Pb - len(toks):] = toks
         valid[0, Pb - len(toks):] = True
-        cache = init_kv_cache(self.spec, 1, Pb, self.kv_dtype, self.device)
+        cache = self._new_cache(1, Pb)
         _, kv = self._prefill_possibly_chunked(tokens, valid, Pb, cache)
         entry = {
             "kv": kv, "valid": valid[0], "len": len(toks), "bucket": Pb,
@@ -375,12 +428,16 @@ class TorchEngine(InferenceEngine):
                         tail: int):
         """Batch cache ``[B, P + tail]`` whose slots ``[0, Pb)`` of row ``i``
         hold entry ``gid[i]``'s prefix KV (zero past each entry's bucket
-        and in the tail) — one copy per distinct entry, all layers at once."""
+        and in the tail; int8 scales one there) — one copy per distinct
+        entry, all layers at once, in either cache layout."""
         P = max(e["bucket"] for e in entries)
-        cache = init_kv_cache(self.spec, len(gid), P + tail, self.kv_dtype, self.device)
+        cache = self._new_cache(len(gid), P + tail)
         for u, e in enumerate(entries):
             rows = torch.as_tensor(np.nonzero(gid == u)[0], device=self.device)
-            cache.buf[:, :, rows, : e["bucket"]] = e["kv"].buf
+            src = e["kv"]
+            cache.buf.narrow(cache.seq_dim, 0, e["bucket"])[:, :, rows] = src.buf
+            if cache.quantized:
+                cache.scales.narrow(cache.seq_dim, 0, e["bucket"])[:, :, rows] = src.scales
         return cache
 
     def _get_core_entry(self, prefix: str, core: str,
@@ -459,7 +516,9 @@ class TorchEngine(InferenceEngine):
                                 decode_slots: Optional[int] = None):
         """Assemble a batch whose cache slots ``[0, P)`` hold each row's
         prefix KV (from the prefix cache) and whose suffix is left-padded
-        into ``[P, P+Ls)``.  ``None`` when any prefix cannot be cached."""
+        into ``[P, P+Ls)``; each row's prefix tokens ride along for the
+        speculative drafter's history.  ``None`` when any prefix cannot be
+        cached."""
         limit = self.max_model_len - max(budgets) - 1
         rows = []
         seam_memo: Dict[Tuple[str, str], bool] = {}
@@ -514,11 +573,14 @@ class TorchEngine(InferenceEngine):
         cache = self._assemble_cache([entries[k] for k in uniq], gid, tail)
         prefix_valid = np.zeros((B, P), dtype=bool)
         prefix_lens = np.zeros((B,), dtype=np.int32)
+        prefix_toks = []
         for i, (p, c, _) in enumerate(rows):
             e = entries[(p, c)]
             prefix_valid[i, : e["bucket"]] = e["valid"]
             prefix_lens[i] = e["len"]
-        return tokens, valid, Ls, cache, prefix_valid, prefix_lens, P, P + tail
+            prefix_toks.append(e["toks"])
+        return (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks,
+                P, P + tail)
 
     # -------------------------------------------------------------- prefill
 
@@ -603,13 +665,109 @@ class TorchEngine(InferenceEngine):
             cur = torch.where(done, cur, tok)
         return out.cpu().numpy(), int(steps)
 
-    def _decode_batch(self, parts, batch, real_B, temps, budgets, top_p) -> List[str]:
+    def _ff_decode_loop(self, cache, first_logits, valid_mask, prompt_lens, L: int,
+                        batch: GuidedBatch, temps, budgets, max_new: int, top_p: float):
+        """The forced-chain fast-forward loop (the JAX engine's
+        ``_build_ff_decode_loop``): every iteration samples ONE token and
+        rides its DFA-forced continuation (up to FF_CHUNK-1 skeleton
+        tokens) through the same weight pass (``decode_chunk``).  The
+        cache write position advances by 1 + the iteration's widest row
+        chain (compacted; shorter chains leave masked gaps inside the
+        window) and stays a device tensor, written with ``index_copy_``.
+        Greedy output is token-identical to the plain loop.  Returns
+        ``(out [B, max_new] int32 on the host, steps)``."""
+        K = FF_CHUNK
+        spec = self.spec
+        eos = self.tokenizer.eos_id
+        dev = self.device
+        sampler = make_fused_sampler(eos, top_p)
+        row_temp = self._dev(np.asarray(temps, np.float32))
+        row_budget = self._dev(np.asarray(budgets, np.int32))
+        B = first_logits.shape[0]
+        tail_slots = _ff_decode_slots(max_new)
+        dfa = batch.dfa_ids.long()
+        jr = torch.arange(K, device=dev)[None, :]
+        # One spare column: the target of every dropped write.
+        out = torch.full((B, max_new + K), eos, dtype=torch.int32, device=dev)
+        wp = torch.full((), L, dtype=torch.int64, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        emitted = torch.zeros((B,), dtype=torch.int32, device=dev)
+        states = batch.init_states.to(torch.int32)
+        eos_t = torch.full((B,), eos, dtype=torch.int32, device=dev)
+        zero = torch.zeros((B,), dtype=torch.int32, device=dev)
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+        logits = first_logits
+        for i in range(max_new):
+            if i % _DONE_CHECK == 0 and bool(done.all()):
+                break
+            steps += (~done.all()).to(torch.int32)
+            tok, ns = sampler(logits, states, self._gen, emitted, batch.tables,
+                              batch.accepting, batch.min_budget, batch.dfa_ids,
+                              row_temp, row_budget)
+            tok = torch.where(done, eos_t, tok)
+            finished = tok == eos
+            cns = ns.clamp(min=0).long()
+            # Capacity guard: chains switch off once the compacted write
+            # position could no longer fit the worst-case remainder (each
+            # later iteration advancing one slot, every write needing a K
+            # window).  A forced state has one legal token, so the sampler
+            # then emits the chain one token per iteration: same output.
+            room_ok = (wp - L) <= tail_slots - 2 * K - (max_new - i - 1)
+            cl = torch.where(done | finished | ~room_ok, zero, batch.chain_len[dfa, cns])
+            chunk = torch.cat([tok[:, None].long(), batch.chain_tok[dfa, cns].long()], dim=1)
+            chunk_valid = (jr == 0) | (jr - 1 < cl[:, None])
+            write_idx = torch.where(chunk_valid & ~done[:, None], emitted[:, None] + jr,
+                                    max_new + K - 1)
+            out.scatter_(1, write_idx, chunk.to(torch.int32))
+            positions = (prompt_lens + emitted)[:, None] + jr
+            logits, cache = decode_chunk(self.params, spec, chunk, chunk_valid, wp,
+                                         positions, cache, valid_mask)
+            valid_mask.index_copy_(1, wp + jr[0], chunk_valid)
+            emitted = torch.where(done, emitted, emitted + 1 + cl)
+            # Compacted advance: the next window starts right after this
+            # iteration's widest row.
+            wp = wp + 1 + torch.where(done, zero, cl).max()
+            next_states = torch.where(room_ok, batch.chain_next[dfa, cns], cns.to(torch.int32))
+            states = torch.where(done, states, next_states.to(torch.int32))
+            states = torch.where(finished, torch.full_like(states, -1), states)
+            done = done | finished
+        return out[:, :max_new].cpu().numpy(), int(steps)
+
+    def _spec_decode_loop(self, cache, first_logits, valid_mask, prompt_lens, L: int,
+                          batch: GuidedBatch, temps, budgets, max_new: int, top_p: float,
+                          hist: np.ndarray):
+        """The speculative loop (``engine/speculative.spec_decode_loop``)
+        over this batch.  Returns ``(out, steps, drafted [B],
+        accepted [B])`` on the host."""
+        eos = self.tokenizer.eos_id
+        out, steps, drafted, accepted = spec_decode_loop(
+            self.params, self.spec, cache, first_logits, valid_mask, prompt_lens, L, batch,
+            self._dev(np.asarray(temps, np.float32)), self._dev(np.asarray(budgets, np.int32)),
+            self._dev(hist), self._gen, sampler=make_fused_sampler(eos, top_p), eos_id=eos,
+            top_p=top_p, max_new=max_new, k=self.spec_k, n=self.spec_ngram,
+            done_check=_DONE_CHECK,
+        )
+        return (out.cpu().numpy(), int(steps), drafted.cpu().numpy(),
+                accepted.cpu().numpy())
+
+    def _decode_batch(self, parts, batch, real_B, temps, budgets, top_p,
+                      free: bool = False) -> List[str]:
         """Prefill + guided decode for a batch-padded list of
         ``(prefix, core, suffix)`` prompt parts (the dense path of the JAX
-        engine's ``_decode_batch_impl``)."""
+        engine's ``_decode_batch_impl``).  Speculative decoding applies
+        to both the guided and the ``free`` path and supersedes
+        fast-forward; fast-forward skips the free path, whose permissive
+        automaton has no forced chains."""
         B = len(parts)
         max_new = max(budgets)
-        decode_slots = max_new + 1
+        use_spec = self.spec_decode
+        use_ff = not use_spec and self.fast_forward and not free
+        if use_spec:
+            decode_slots = spec_decode_slots(max_new, self.spec_k)
+        elif use_ff:
+            decode_slots = _ff_decode_slots(max_new)
+        else:
+            decode_slots = max_new + 1
         self._check_kv_budget(B, budgets, decode_slots)
         t0 = time.perf_counter()
         prepped = None
@@ -626,8 +784,10 @@ class TorchEngine(InferenceEngine):
                         stacklevel=2,
                     )
                     self._prefix_fallback_warned = True
+        prefix_toks = None
         if prepped is not None:
-            tokens, valid, Ls, cache, prefix_valid, prefix_lens, P, S = prepped
+            (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
+             S) = prepped
             first_logits, cache = self._prefill_possibly_chunked(
                 tokens, valid, Ls, cache,
                 prefix_valid=prefix_valid, prefix_lens=prefix_lens,
@@ -641,18 +801,37 @@ class TorchEngine(InferenceEngine):
             full_prompts = [p + c + t for p, c, t in parts]
             tokens, valid, L = self._prepare_batch(full_prompts, budgets)
             S = L + decode_slots
-            cache = init_kv_cache(self.spec, B, S, self.kv_dtype, self.device)
+            cache = self._new_cache(B, S)
             first_logits, cache = self._prefill_possibly_chunked(tokens, valid, L, cache)
             valid_mask = np.zeros((B, S), dtype=bool)
             valid_mask[:, :L] = valid
             prompt_lens = valid.sum(axis=1).astype(np.int32)
         self._sync()
         t1 = time.perf_counter()
-        out_np, steps = self._decode_loop(
-            cache, first_logits, self._dev(valid_mask), self._dev(prompt_lens),
-            L, batch, temps, budgets, max_new, top_p,
-        )
-        del cache
+        loop_args = (cache, first_logits, self._dev(valid_mask), self._dev(prompt_lens),
+                     L, batch, temps, budgets, max_new, top_p)
+        if use_spec:
+            # Token history for the prompt-lookup drafter: row i's prompt
+            # tokens (prefix entry tokens, then the suffix) at
+            # [0, prompt_lens[i]), -1 elsewhere.
+            hist = np.full((B, L + max_new), -1, dtype=np.int32)
+            for i in range(B):
+                row = tokens[i][valid[i]]
+                if prefix_toks is not None:
+                    row = np.concatenate([prefix_toks[i], row])
+                hist[i, : len(row)] = row
+            out_np, steps, drafted, accepted = self._spec_decode_loop(*loop_args, hist)
+            self.spec_drafted += int(drafted[:real_B].sum())
+            self.spec_accepted += int(accepted[:real_B].sum())
+        elif use_ff:
+            out_np, steps = self._ff_decode_loop(*loop_args)
+        else:
+            out_np, steps = self._decode_loop(*loop_args)
+        self.max_kv_cache_bytes = max(self.max_kv_cache_bytes, cache.nbytes())
+        is_eos = out_np == self.tokenizer.eos_id
+        row_len = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1), max_new)
+        self.total_plain_steps += int(min(max_new - 1, row_len.max()))
+        del cache, loop_args
         t2 = time.perf_counter()
         self.last_decode_steps = steps
         self.total_decode_steps += steps
@@ -661,6 +840,7 @@ class TorchEngine(InferenceEngine):
         if _TIMING:
             print(
                 f"[engine] decode B={B} L={L} S={S} max_new={max_new} "
+                f"loop={'spec' if use_spec else 'ff' if use_ff else 'plain'} "
                 f"steps={steps} prefill={t1 - t0:.3f}s decode={t2 - t1:.3f}s "
                 f"prefix={'hit' if prepped is not None else 'miss'}",
                 flush=True, file=sys.stderr,
@@ -727,7 +907,7 @@ class TorchEngine(InferenceEngine):
             return out
         real_B, B, parts, temps, budgets = _pad_rows(parts, temps, budgets)
         batch = GuidedBatch.permissive(B, self.spec.vocab_size, device=self.device)
-        texts = self._decode_batch(parts, batch, real_B, temps, budgets, top_p)
+        texts = self._decode_batch(parts, batch, real_B, temps, budgets, top_p, free=True)
         return [t.strip() for t in texts]
 
     # ---------------------------------------------------------- memory budget
@@ -741,7 +921,13 @@ class TorchEngine(InferenceEngine):
         return self.config.hbm_utilization * self._mem_limit - self._param_bytes - reserve
 
     def _decode_reserve(self, max_new: int) -> int:
-        """Decode-tail cache slots for ``max_new`` output tokens."""
+        """Worst-case decode-tail cache slots for ``max_new`` output tokens
+        under the CONFIGURED loop: speculative over-allocates its K+1
+        verify window, fast-forward its compacted chain tail."""
+        if self.spec_decode:
+            return spec_decode_slots(max_new, self.spec_k)
+        if self.fast_forward:
+            return _ff_decode_slots(max_new)
         return max_new + 1
 
     def worst_case_decode_window(self) -> int:

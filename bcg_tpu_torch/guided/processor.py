@@ -98,15 +98,54 @@ _TABLE_CACHE_MAX = 8
 # min-budget table; any real budget (max_tokens) is far below it.
 _MINB_INF = np.iinfo(np.int16).max
 
+# Forced-chain fast-forward chunk: after each sampled token, up to
+# FF_CHUNK-1 DFA-forced tokens (states with exactly one legal token —
+# JSON skeleton) are processed in the same decode step.
+FF_CHUNK = 4
+
+
+def _forced_chains(transitions: np.ndarray, accepting: np.ndarray):
+    """Per-state forced-token chains of length <= FF_CHUNK-1.
+
+    A state is *forced* when it is non-accepting and allows exactly one
+    token (EOS is an alternative at accepting states, so those are choice
+    points).  Returns (chain_tok [S, FF_CHUNK-1] int32,
+    chain_len [S] int32, chain_next [S] int32): the forced continuation
+    STARTING at each state, the number of forced tokens, and the state
+    reached after consuming them.  Chains may traverse forced cycles —
+    bounded by FF_CHUNK-1, and unreachable in practice because tokens
+    entering a no-accept cycle are masked by guaranteed-parse budgets.
+    """
+    S = transitions.shape[0]
+    allowed = transitions >= 0
+    cnt = allowed.sum(axis=1)
+    forced = (cnt == 1) & ~accepting
+    ftok = np.argmax(allowed, axis=1).astype(np.int32)      # valid iff forced
+    fnext = transitions[np.arange(S), ftok].astype(np.int32)
+
+    chain_tok = np.zeros((S, FF_CHUNK - 1), dtype=np.int32)
+    chain_len = np.zeros(S, dtype=np.int32)
+    chain_next = np.arange(S, dtype=np.int32)
+    cur = np.arange(S, dtype=np.int32)
+    for j in range(FF_CHUNK - 1):
+        ext = forced[cur] & (chain_len == j)
+        chain_tok[ext, j] = ftok[cur[ext]]
+        chain_next[ext] = fnext[cur[ext]]
+        chain_len[ext] += 1
+        cur = np.where(ext, fnext[cur], cur)
+    return chain_tok, chain_len, chain_next
+
 
 class GuidedBatch:
     """Stacked DFAs + per-sequence assignment, on a torch device.
 
     ``tables`` int16 (int32 past 32K states) ``[n_dfa, n_states, V]``,
     ``accepting`` bool ``[n_dfa, n_states]``, ``min_budget`` int16
-    ``[n_dfa, n_states, V]``, ``dfa_ids`` / ``init_states`` int32 ``[B]``.
-    The forced-chain tables of the fast-forward loop are not built: that
-    loop is not ported yet (ROADMAP A7)."""
+    ``[n_dfa, n_states, V]``, ``dfa_ids`` / ``init_states`` int32 ``[B]``,
+    and the forced-chain tables of the fast-forward and speculative loops
+    (:func:`_forced_chains`): ``chain_tok`` int32
+    ``[n_dfa, n_states, FF_CHUNK-1]``, ``chain_len`` / ``chain_next``
+    int32 ``[n_dfa, n_states]``."""
 
     def __init__(self, guides: List[SchemaGuide], device="cpu"):
         """``guides[i]`` is the guide for batch row i.  Distinct guides are
@@ -141,6 +180,9 @@ class GuidedBatch:
             # acceptance; _MINB_INF where t is forbidden — the decode-step
             # feasibility test is one row-gather + compare.
             minb = np.full((len(unique), s_max, vocab), _MINB_INF, dtype=np.int16)
+            chain_tok = np.zeros((len(unique), s_max, FF_CHUNK - 1), dtype=np.int32)
+            chain_len = np.zeros((len(unique), s_max), dtype=np.int32)
+            chain_next = np.tile(np.arange(s_max, dtype=np.int32), (len(unique), 1))
             starts = np.zeros(len(unique), dtype=np.int32)
             for i, g in enumerate(unique):
                 td = g.token_dfa
@@ -151,6 +193,10 @@ class GuidedBatch:
                 minb[i, : td.num_states] = np.where(
                     valid, np.minimum(nd, _MINB_INF), _MINB_INF
                 ).astype(np.int16)
+                ct, cl, cn = _forced_chains(td.transitions, td.accepting)
+                chain_tok[i, : td.num_states] = ct
+                chain_len[i, : td.num_states] = cl
+                chain_next[i, : td.num_states] = cn
                 starts[i] = td.start
             # State counts are small (<100 for the BCG schemas); int16
             # halves the device footprint of the stacked table.
@@ -161,12 +207,16 @@ class GuidedBatch:
                 torch.from_numpy(accepting).to(device),
                 torch.from_numpy(minb).to(device),
                 starts,
+                torch.from_numpy(chain_tok).to(device),
+                torch.from_numpy(chain_len).to(device),
+                torch.from_numpy(chain_next).to(device),
             )
             with _table_cache_lock:
                 _table_cache[cache_key] = hit
                 while len(_table_cache) > _TABLE_CACHE_MAX:
                     _table_cache.popitem(last=False)
-        self.tables, self.accepting, self.min_budget, starts = hit
+        (self.tables, self.accepting, self.min_budget, starts,
+         self.chain_tok, self.chain_len, self.chain_next) = hit
         ids = np.array(dfa_ids, dtype=np.int32)
         self.dfa_ids = torch.from_numpy(ids).to(device)
         self.init_states = torch.from_numpy(starts[ids]).to(device)
@@ -202,6 +252,10 @@ class GuidedBatch:
         self.tables = torch.zeros((1, 1, vocab_size), dtype=torch.int16, device=device)
         self.accepting = torch.ones((1, 1), dtype=torch.bool, device=device)
         self.min_budget = torch.ones((1, 1, vocab_size), dtype=torch.int16, device=device)
+        # No state of the permissive automaton is forced.
+        self.chain_tok = torch.zeros((1, 1, FF_CHUNK - 1), dtype=torch.int32, device=device)
+        self.chain_len = torch.zeros((1, 1), dtype=torch.int32, device=device)
+        self.chain_next = torch.zeros((1, 1), dtype=torch.int32, device=device)
         self.dfa_ids = torch.zeros((batch_size,), dtype=torch.int32, device=device)
         self.init_states = torch.zeros((batch_size,), dtype=torch.int32, device=device)
         self.num_unique = 1

@@ -11,19 +11,25 @@ PyTorch — the port of ``bcg_tpu/models/transformer.py``.
   mixed dtypes implicitly (an f32 query against a bf16 cache), this
   module promotes explicitly to the same result type, so f32 weights on
   the CPU reproduce the JAX numbers.
+* The KV cache is bf16 ``[B, S, Hkv, Dh]``, or int8 ``[B, Hkv, S, Dh]``
+  with f32 per-(position, kv head) scales ``[B, Hkv, S]``
+  (``init_kv_cache(quantized="int8")``); the scale entries mark an int8
+  entry.
 * Attention goes through the hand-written kernels' wrappers
   (:mod:`bcg_tpu_torch.ops.attention` for prefill,
-  :mod:`bcg_tpu_torch.ops.decode_attention` for the decode step), which
-  launch the CUDA kernel on a CUDA tensor and run the plain version on a
-  CPU tensor.
+  :mod:`bcg_tpu_torch.ops.decode_attention` for the decode step and the
+  decode chunks of the fast-forward and speculative loops), which launch
+  the CUDA kernel on a CUDA tensor and run the plain version on a CPU
+  tensor.
 * Where JAX returns a NEW cache, this module writes the cache IN PLACE
-  and returns the same entries (see :func:`_write_cache`).
+  and returns the same entries (see :func:`_write_cache`).  A write slot
+  may be a device tensor, so the decode loops never read it back.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,19 +37,51 @@ import torch.nn.functional as F
 
 from bcg_tpu_torch.models.configs import ModelSpec
 from bcg_tpu_torch.ops.attention import flash_attention
-from bcg_tpu_torch.ops.decode_attention import decode_attention
+from bcg_tpu_torch.ops.decode_attention import (
+    chunk_decode_attention,
+    chunk_decode_attention_int8,
+    decode_attention,
+    decode_attention_int8,
+    dequantize_kv,
+    quantize_kv,
+)
 
 TransformerParams = Dict[str, torch.Tensor]  # flat: logical name -> tensor
 
 
 class KVCache(list):
-    """Per-layer ``{"k", "v"}`` dense caches ``[B, S, Hkv, Dh]``, all views
-    of ONE buffer ``buf`` ``[num_layers, 2, B, S, Hkv, Dh]`` — one memset
-    to allocate, one copy to move a prefix entry into a batch cache."""
+    """Per-layer dense cache entries, all views of ONE buffer ``buf`` —
+    one memset to allocate, one copy to move a prefix entry into a batch
+    cache.  bf16: ``{"k", "v"}`` ``[B, S, Hkv, Dh]`` of ``buf``
+    ``[num_layers, 2, B, S, Hkv, Dh]``.  int8: ``{"k", "v"}``
+    ``[B, Hkv, S, Dh]`` of ``buf`` ``[num_layers, 2, B, Hkv, S, Dh]`` and
+    ``{"k_scale", "v_scale"}`` ``[B, Hkv, S]`` of ``scales``
+    ``[num_layers, 2, B, Hkv, S]``."""
 
-    def __init__(self, buf: torch.Tensor):
-        super().__init__({"k": buf[li, 0], "v": buf[li, 1]} for li in range(buf.shape[0]))
+    def __init__(self, buf: torch.Tensor, scales: Optional[torch.Tensor] = None):
+        super().__init__(
+            {"k": buf[li, 0], "v": buf[li, 1]} if scales is None else
+            {"k": buf[li, 0], "v": buf[li, 1], "k_scale": scales[li, 0],
+             "v_scale": scales[li, 1]}
+            for li in range(buf.shape[0])
+        )
         self.buf = buf
+        self.scales = scales
+
+    @property
+    def quantized(self) -> bool:
+        return self.scales is not None
+
+    @property
+    def seq_dim(self) -> int:
+        """The S axis of ``buf`` (and, int8, of ``scales``)."""
+        return 4 if self.quantized else 3
+
+    def nbytes(self) -> int:
+        n = self.buf.numel() * self.buf.element_size()
+        if self.scales is not None:
+            n += self.scales.numel() * self.scales.element_size()
+        return n
 
 
 _NEG_INF = -1e30
@@ -191,41 +229,128 @@ def dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
 # ------------------------------------------------------------------ forward
 
 def init_kv_cache(spec: ModelSpec, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> KVCache:
-    """Zero-filled dense bf16 cache: per layer ``{"k", "v"}``
-    ``[B, S, Hkv, Dh]`` (see :class:`KVCache`)."""
-    shape = (batch, max_len, spec.num_kv_heads, spec.head_dim)
-    return KVCache(torch.zeros((spec.num_layers, 2) + shape, dtype=dtype, device=device))
+                  dtype=torch.bfloat16, device="cpu", quantized=False) -> KVCache:
+    """Zero-filled dense cache (see :class:`KVCache`): bf16 ``{"k", "v"}``
+    ``[B, S, Hkv, Dh]``, or with ``quantized`` (True or ``"int8"``) int8
+    ``[B, Hkv, S, Dh]`` — one kv head's positions adjacent, so a kernel
+    streams them with 16-byte loads — plus f32 scales ``[B, Hkv, S]``
+    initialised to ones.  ``"int4"`` is not ported (ROADMAP A8)."""
+    if quantized == "int4":
+        raise NotImplementedError("int4 KV cache: not ported to the PyTorch engine yet "
+                                  "(ROADMAP A8)")
+    L, Hkv, Dh = spec.num_layers, spec.num_kv_heads, spec.head_dim
+    if quantized:
+        return KVCache(
+            torch.zeros((L, 2, batch, Hkv, max_len, Dh), dtype=torch.int8, device=device),
+            torch.ones((L, 2, batch, Hkv, max_len), dtype=torch.float32, device=device),
+        )
+    shape = (batch, max_len, Hkv, Dh)
+    return KVCache(torch.zeros((L, 2) + shape, dtype=dtype, device=device))
+
+
+def kv_is_int4(entry: Dict) -> bool:
+    """True for a packed-int4 KV entry: its scales are bf16 where the int8
+    arm's are f32 (the JAX package's layout marker)."""
+    return "k_scale" in entry and entry["k_scale"].dtype == torch.bfloat16
+
+
+def _kv_quantizer(entry: Dict):
+    """The fresh-KV quantizer a quantized entry needs (int8: absmax per
+    (position, kv head)); ``[B, T, Hkv, Dh] -> (int8, [B, T, Hkv] f32)``."""
+    if kv_is_int4(entry):
+        raise NotImplementedError("int4 KV cache: not ported to the PyTorch engine yet "
+                                  "(ROADMAP A8)")
+    return quantize_kv
+
+
+def _kv_dequantizer(entry: Dict):
+    """The matching ``(values, scale) -> f32`` dequantizer."""
+    if kv_is_int4(entry):
+        raise NotImplementedError("int4 KV cache: not ported to the PyTorch engine yet "
+                                  "(ROADMAP A8)")
+    return dequantize_kv
 
 
 def _write_cache(entry: Dict, k, v, pos) -> Dict:
     """Write fresh k/v ``[B, T, Hkv, Dh]`` into the cache entry IN PLACE at
-    slots ``[pos, pos+T)`` (the JAX version returns an updated copy).
-    ``pos`` is a scalar slot shared by the batch, or a ``[B]`` tensor of
+    slots ``[pos, pos+T)`` (the JAX version returns an updated copy),
+    quantizing first for an int8 entry.  ``pos`` is a Python int, a 0-d
+    device tensor (the fast-forward loop's write position, written by
+    ``index_copy_`` so the host never reads it), or a ``[B]`` tensor of
     per-row slots (:func:`_write_cache_rows`)."""
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         return _write_cache_rows(entry, k, v, pos)
     T = k.shape[1]
-    entry["k"][:, pos:pos + T] = k.to(entry["k"].dtype)
-    entry["v"][:, pos:pos + T] = v.to(entry["v"].dtype)
+    if "k_scale" in entry:
+        quant = _kv_quantizer(entry)
+        kq, ksc = quant(k)     # [B, T, Hkv, Dh] int8, [B, T, Hkv] f32
+        vq, vsc = quant(v)
+        # Storage is [B, Hkv, S, Dh] / [B, Hkv, S]: S is dim 2.
+        writes = ((entry["k"], kq.transpose(1, 2)), (entry["v"], vq.transpose(1, 2)),
+                  (entry["k_scale"], ksc.transpose(1, 2)),
+                  (entry["v_scale"], vsc.transpose(1, 2)))
+        dim = 2
+    else:
+        writes = ((entry["k"], k.to(entry["k"].dtype)), (entry["v"], v.to(entry["v"].dtype)))
+        dim = 1
+    if isinstance(pos, torch.Tensor):
+        idx = pos.long() + torch.arange(T, device=k.device)
+        for dst, src in writes:
+            dst.index_copy_(dim, idx, src)
+    else:
+        for dst, src in writes:
+            dst.narrow(dim, pos, T).copy_(src)
     return entry
 
 
 def _write_cache_rows(entry: Dict, k, v, row_pos) -> Dict:
     """Per-row-position variant: row ``b``'s ``[T]``-token chunk lands at
-    slots ``[row_pos[b], row_pos[b]+T)``, in place."""
+    slots ``[row_pos[b], row_pos[b]+T)``, in place (the speculative loop,
+    whose rows advance by their own accepted counts)."""
     B, T = k.shape[0], k.shape[1]
     bidx = torch.arange(B, device=k.device)[:, None]
     sidx = row_pos.long()[:, None] + torch.arange(T, device=k.device)[None, :]
-    entry["k"][bidx, sidx] = k.to(entry["k"].dtype)
-    entry["v"][bidx, sidx] = v.to(entry["v"].dtype)
+    if "k_scale" in entry:
+        quant = _kv_quantizer(entry)
+        kq, ksc = quant(k)
+        vq, vsc = quant(v)
+        # Advanced indices on dims (0, 2) of [B, Hkv, S, Dh] move to the
+        # front: the target region is [B, T, Hkv, Dh] — the fresh layout.
+        entry["k"][bidx, :, sidx] = kq
+        entry["v"][bidx, :, sidx] = vq
+        entry["k_scale"][bidx, :, sidx] = ksc
+        entry["v_scale"][bidx, :, sidx] = vsc
+    else:
+        entry["k"][bidx, sidx] = k.to(entry["k"].dtype)
+        entry["v"][bidx, sidx] = v.to(entry["v"].dtype)
     return entry
 
 
 def _cache_attention(q, entry: Dict, mask, scale):
-    """Decode-step attention over the bf16 cache through the decode
-    kernel's wrapper.  q: [B, 1, H, Dh]; mask: [B, S] attendable slots."""
+    """Decode-step attention over the (bf16 or int8) cache through the
+    decode kernels' wrappers.  q: [B, 1, H, Dh]; mask: [B, S]."""
+    if "k_scale" in entry:
+        return decode_attention_int8(q[:, 0], entry["k"], entry["v"], entry["k_scale"],
+                                     entry["v_scale"], mask, scale)[:, None]
     return decode_attention(q[:, 0], entry["k"], entry["v"], mask, scale)[:, None]
+
+
+def _cache_len(cache) -> int:
+    """Allocated cache length S across layouts: bf16 k is [B, S, Hkv, Dh],
+    int8 k is [B, Hkv, S, Dh]."""
+    entry = cache if isinstance(cache, dict) else cache[0]
+    return entry["k"].shape[-2 if "k_scale" in entry else -3]
+
+
+def _dequant_slice(entry: Dict, name: str, upto: int, dtype) -> torch.Tensor:
+    """Cache slots [0, upto) of k or v as [B, upto, Hkv, Dh] in ``dtype``,
+    dequantized out of the int8 layout when stored int8."""
+    scale_name = f"{name}_scale"
+    if scale_name not in entry:
+        return entry[name][:, :upto].to(dtype)
+    return _kv_dequantizer(entry)(
+        entry[name][:, :, :upto], entry[scale_name][:, :, :upto]
+    ).to(dtype).transpose(1, 2)
 
 
 def _block(
@@ -261,13 +386,14 @@ def _block(
         # itself.  When the chunk was just written right behind the
         # prefix and the cache holds q's dtype, the cache slots
         # [0, hist_len+T) ARE the concatenation — read them in place
-        # (strided, no copy).  Otherwise concatenate like the JAX code.
+        # (strided, no copy).  Otherwise concatenate like the JAX code
+        # (an int8 history dequantized; the chunk's own KV unquantized).
         ck, cv = entry["k"], entry["v"]
         if kv_write_pos == hist_len and ck.dtype == q.dtype:
             hk, hv = ck[:, :hist_len + T], cv[:, :hist_len + T]
         else:
-            hk = torch.cat([ck[:, :hist_len].to(q.dtype), k], dim=1)
-            hv = torch.cat([cv[:, :hist_len].to(q.dtype), v], dim=1)
+            hk = torch.cat([_dequant_slice(entry, "k", hist_len, q.dtype), k], dim=1)
+            hv = torch.cat([_dequant_slice(entry, "v", hist_len, q.dtype), v], dim=1)
         attn_out = attention(q, hk, hv, attn_mask, scale)
     elif T > 1:
         # Full prefill attends over the FRESH chunk only.
@@ -370,6 +496,102 @@ def decode_step(params, spec, token, write_pos: int, seq_positions, cache,
     x = params["embed"][token][:, None, :]
     x, cache = _run_layers(params, spec, x, cos, sin, write_pos, cache, valid_mask)
     return _logits(params, spec, x)[:, 0, :], cache
+
+
+def _chunk_mask_at(cache_valid, chunk_valid, write_pos) -> torch.Tensor:
+    """``[B, K, S]`` attention mask of a decode chunk: the valid prior
+    cache slots plus the causally-visible valid part of the chunk at its
+    write slots (a 0-d or Python-int ``write_pos`` shared by the batch, or
+    ``[B]`` per-row slots) — built once per step and shared by every
+    layer."""
+    B, K = chunk_valid.shape
+    base = cache_valid[:, None, :].expand(B, K, cache_valid.shape[1]).clone()
+    causal = torch.tril(torch.ones((K, K), dtype=torch.bool, device=chunk_valid.device))
+    chunk_mask = causal[None] & chunk_valid[:, None, :] & chunk_valid[:, :, None]
+    j = torch.arange(K, device=chunk_valid.device)
+    if isinstance(write_pos, torch.Tensor) and write_pos.ndim == 1:
+        bidx = torch.arange(B, device=chunk_valid.device)[:, None, None]
+        sidx = write_pos.long()[:, None, None] + j[None, None, :]
+        base[bidx, j[None, :, None], sidx] = chunk_mask
+    elif isinstance(write_pos, torch.Tensor):
+        base.index_copy_(2, write_pos.long() + j, chunk_mask)
+    else:
+        base[:, :, write_pos:write_pos + K] = chunk_mask
+    return base
+
+
+def _run_chunk_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask):
+    for li in range(spec.num_layers):
+        x, _ = _block_chunk(_layer(params, li), spec, x, cos, sin, write_pos,
+                            cache[li], attn_mask)
+    return x, cache
+
+
+def decode_chunk(params, spec, tokens, chunk_valid, write_pos, positions, cache,
+                 cache_valid) -> Tuple[torch.Tensor, KVCache]:
+    """One fast-forward step: a ``[B, K]`` chunk (the sampled token plus
+    up to K-1 DFA-forced tokens per row) in one weight pass.  The chunk is
+    written at cache slots ``[write_pos, write_pos+K)`` (``write_pos`` a
+    Python int or a 0-d device tensor); rows with shorter chains leave
+    trailing slots invalid.  ``positions`` ``[B, K]`` are the RoPE
+    positions, ``cache_valid`` ``[B, S]`` the attendable slots BEFORE the
+    chunk.  Returns the logits at each row's LAST VALID chunk position
+    ``[B, V]`` f32 and the cache."""
+    cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
+    attn_mask = _chunk_mask_at(cache_valid, chunk_valid, write_pos)
+    x = params["embed"][tokens]
+    x, cache = _run_chunk_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask)
+    last = chunk_valid.sum(dim=1) - 1                                   # [B]
+    h_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[2]))
+    return _logits(params, spec, h_last)[:, 0, :], cache
+
+
+def decode_chunk_spec(params, spec, tokens, chunk_valid, row_write_pos, positions, cache,
+                      cache_valid) -> Tuple[torch.Tensor, KVCache]:
+    """One speculative verify step: a ``[B, K1]`` chunk (the sampled token
+    plus up to K1-1 drafted tokens) with PER-ROW write slots
+    ``row_write_pos`` ``[B]`` (each row's cache stays compacted at its own
+    accepted count), returning logits at EVERY chunk position
+    ``[B, K1, V]`` — position j's logits score draft token j."""
+    cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
+    attn_mask = _chunk_mask_at(cache_valid, chunk_valid, row_write_pos)
+    x = params["embed"][tokens]
+    x, cache = _run_chunk_layers(params, spec, x, cos, sin, row_write_pos, cache, attn_mask)
+    return _logits(params, spec, x), cache
+
+
+def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask):
+    """Chunk decode block: write the fresh K positions into the cache, then
+    attend over the WHOLE cache (prior context and the chunk itself, all
+    selected by ``attn_mask`` ``[B, K, S]``) through the chunk kernels'
+    wrappers."""
+    B, K, D = x.shape
+    h = rms_norm(x, layer["attn_norm"], spec.rms_eps)
+    q, k, v = dense(h, layer["wq"]), dense(h, layer["wk"]), dense(h, layer["wv"])
+    if "bq" in layer:
+        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    q = q.reshape(B, K, spec.num_heads, spec.head_dim)
+    k = k.reshape(B, K, spec.num_kv_heads, spec.head_dim)
+    v = v.reshape(B, K, spec.num_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = rms_norm(q, layer["q_norm"], spec.rms_eps)
+        k = rms_norm(k, layer["k_norm"], spec.rms_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    entry = _write_cache(cache_entry, k, v, write_pos)
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    if "k_scale" in entry:
+        attn_out = chunk_decode_attention_int8(q, entry["k"], entry["v"], entry["k_scale"],
+                                               entry["v_scale"], attn_mask, scale)
+    else:
+        attn_out = chunk_decode_attention(q, entry["k"], entry["v"], attn_mask, scale)
+    x = x + dense(attn_out.reshape(B, K, spec.q_size), layer["wo"])
+
+    h = rms_norm(x, layer["mlp_norm"], spec.rms_eps)
+    gate = F.silu(dense(h, layer["w_gate"]))
+    x = x + dense(gate * dense(h, layer["w_up"]), layer["w_down"])
+    return x, entry
 
 
 def param_count(params: TransformerParams) -> int:

@@ -1,14 +1,23 @@
-"""Decode-step attention (T = 1) over the bf16 KV cache: the kernel's
-wrapper and its plain version.
+"""Decode attention over the KV cache: the kernels' wrappers, their plain
+versions and the int8 cache quantizers.
 
-Port of ``bcg_tpu/ops/decode_attention.py`` (bf16 single-step form).
-Layouts: q ``[B, H, Dh]``; k/v ``[B, S, Hkv, Dh]`` (the cache layout,
-S-major); mask ``[B, S]`` (attendable slots, shared by every query row)
-or ``[B, M, S]`` with ``M`` = 1 or the GQA group (one row per query head
-of a kv head — the form a chunk wrapper will use).  Returns
-``[B, H, Dh]``.  On a CUDA tensor :func:`decode_attention` launches
-``csrc/decode_attention.cu``; on a CPU tensor it runs
-:func:`decode_attention_plain`.
+Port of ``bcg_tpu/ops/decode_attention.py``.  Four forms, each a wrapper
+with its own launch count, a ``*_cuda`` launcher and a ``*_plain``
+version (a CPU tensor runs the plain version; a CUDA tensor launches the
+kernel or raises):
+
+* :func:`decode_attention` — one step over the bf16 cache
+  (``csrc/decode_attention.cu``).  q ``[B, H, Dh]``; k/v
+  ``[B, S, Hkv, Dh]`` (the cache layout, S-major); mask ``[B, S]``
+  (attendable slots, shared by every query row) or ``[B, M, S]`` with
+  ``M`` = 1 or the GQA group.  Returns ``[B, H, Dh]``.
+* :func:`chunk_decode_attention` — a chunk of K positions over the bf16
+  cache (``csrc/chunk_decode_attention.cu``): q ``[B, K, H, Dh]``, mask
+  ``[B, K, S]``; returns ``[B, K, H, Dh]``.
+* :func:`decode_attention_int8` / :func:`chunk_decode_attention_int8` —
+  the same two over the int8 cache (``csrc/decode_attention_int8.cu``):
+  k/v int8 ``[B, Hkv, S, Dh]`` with f32 per-(position, kv head) scales
+  ``[B, Hkv, S]`` (:func:`quantize_kv`).
 """
 
 from __future__ import annotations
@@ -21,9 +30,44 @@ from bcg_tpu_torch.ops import _build
 from bcg_tpu_torch.ops.attention import flash_attention_plain
 
 MAX_GROUP = 8   # query rows per kv head the kernel holds (csrc kMaxG)
+MAX_TILE_ROWS = 64   # K * group query rows per kv head (csrc decode_tile.cuh kMaxRows)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q, k, v, mask, out, B, S, H, Hkv, M, kv batch stride, kv seq stride, scale, stream
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, ctypes.c_float, _P]
+# q, k, v, mask, out, B, S, H, Hkv, Kq, Mk, kv batch/head/seq strides, scale, stream
+_CHUNK_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                   ctypes.c_float, _P]
+# q, k, v, k_scale, v_scale, mask, out, B, S, H, Hkv, Kq, Mk,
+# kv batch/head/seq strides, scale batch/head strides, scale, stream
+_INT8_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                  _LL, _LL, ctypes.c_float, _P]
+
+
+# ----------------------------------------------------------- kv quantization
+
+def quantize_kv(x, dim: int = -1):
+    """bf16/f32 ``[..., Dh]`` -> (int8 values, f32 per-row scale).
+
+    Symmetric absmax over the head dim: ``scale = absmax / 127`` (1.0 for
+    an all-zero row), values ``round(x / scale)`` clipped to [-127, 127].
+    ``torch.round`` rounds half to even, as ``jnp.round`` does, so the
+    bits equal the JAX package's."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=dim, keepdim=True)
+    scale = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 127.0)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(dim)
+
+
+def dequantize_kv(q, scale, dim: int = -1):
+    return q.float() * scale.unsqueeze(dim)
+
+
+def _dequant_heads(x, scale, dtype):
+    """int8 ``[B, Hkv, S, Dh]`` + scales -> ``[B, S, Hkv, Dh]`` (a view) in
+    ``dtype``: dequantized in f32 and rounded to ``dtype`` at once, as the
+    TPU kernel rounds to q's type before both products."""
+    return dequantize_kv(x, scale).to(dtype).transpose(1, 2)
 
 
 def _mask3(mask):
@@ -105,3 +149,145 @@ def decode_attention(q, k, v, mask, scale):
 
 
 decode_attention.launches = 0
+
+
+# ------------------------------------------------------ chunk and int8 forms
+
+def chunk_decode_attention_plain(q, k, v, mask, scale):
+    """Plain version of the bf16 chunk form: ``[B, K]`` query positions
+    over the whole cache with a ``[B, K, S]`` mask, at the kernel's
+    precision (:func:`~bcg_tpu_torch.ops.attention.flash_attention_plain`)."""
+    return flash_attention_plain(q, k, v, mask, scale)
+
+
+def decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale):
+    """Plain version of the int8 single step: dequantize (f32, then q's
+    type), then the step's masked attention."""
+    kd = _dequant_heads(k, k_scale, q.dtype)
+    vd = _dequant_heads(v, v_scale, q.dtype)
+    return flash_attention_plain(q[:, None], kd, vd, _mask3(mask), scale)[:, 0]
+
+
+def chunk_decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale):
+    """Plain version of the int8 chunk form."""
+    kd = _dequant_heads(k, k_scale, q.dtype)
+    vd = _dequant_heads(v, v_scale, q.dtype)
+    return flash_attention_plain(q, kd, vd, mask, scale)
+
+
+def _check_tile(q, k, v, mask, S, Hkv, int8, scales=()):
+    """Checks of the shared tile kernel (``csrc/decode_tile.cuh``): q
+    ``[B, Kq, H, Dh]`` contiguous bf16, head dim 128, ``Kq * group`` rows
+    at most :data:`MAX_TILE_ROWS`, k/v of one layout with 16-byte aligned
+    rows, a bool mask ``[B, 1 | Kq, S]``."""
+    B, Kq, H, Dh = q.shape
+    name = "decode_attention_int8" if int8 else "chunk_decode_attention"
+    if Dh != 128:
+        raise ValueError(f"{name} kernel takes head_dim 128, got {Dh}")
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise TypeError(f"{name} kernel takes a contiguous bf16 q, got {q.dtype}")
+    want = torch.int8 if int8 else torch.bfloat16
+    if k.dtype != want or v.dtype != want:
+        raise TypeError(f"{name} kernel takes {want} k/v, got {k.dtype}/{v.dtype}")
+    if H % Hkv or Kq * (H // Hkv) > MAX_TILE_ROWS:
+        raise ValueError(f"{name} kernel takes up to {MAX_TILE_ROWS} query rows per kv "
+                         f"head, got {Kq} x {H // max(Hkv, 1)}")
+    align = 16 // k.element_size()
+    if k.shape != v.shape or k.stride() != v.stride() or k.stride(3) != 1 \
+            or k.shape[0] != B or k.shape[3] != Dh \
+            or any(st % align for st in k.stride()[:3]):
+        raise ValueError(f"{name} kernel takes k/v {tuple(k.shape)} of one layout with "
+                         f"16-byte aligned rows, got strides {k.stride()}/{v.stride()}")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel takes 16-byte aligned q/k/v")
+    for t in scales:
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, Hkv, S) or t.stride(2) != 1 \
+                or t.stride() != scales[0].stride():
+            raise ValueError(f"{name} kernel takes f32 scales [B, Hkv, S] with positions "
+                             f"contiguous, got {t.dtype} {tuple(t.shape)} {t.stride()}")
+    if mask.dtype != torch.bool or mask.dim() != 3 or mask.shape[0] != B \
+            or mask.shape[2] != S or mask.shape[1] not in (1, Kq):
+        raise ValueError(f"{name} kernel takes a bool mask [B, 1|{Kq}, {S}], got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    if not all(t.device == q.device for t in (k, v, mask) + tuple(scales)):
+        raise ValueError(f"{name}: tensors on different devices")
+
+
+def chunk_decode_attention_cuda(q, k, v, mask, scale):
+    """Launch ``csrc/chunk_decode_attention.cu`` on the current stream."""
+    B, Kq, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    _check_tile(q, k, v, mask, S, Hkv, int8=False)
+    mask = mask.contiguous()
+    fn = _build.entry("chunk_decode_attention", "bcg_chunk_decode_attention",
+                      _CHUNK_ARGTYPES)
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+             B, S, H, Hkv, Kq, mask.shape[1], k.stride(0), k.stride(2), k.stride(1),
+             float(scale), _build.stream_ptr(q))
+    _build.check(err, "chunk_decode_attention")
+    chunk_decode_attention.launches += 1
+    return out
+
+
+def _int8_launch(q4, k, v, k_scale, v_scale, m3, scale):
+    B, Kq, H, Dh = q4.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    _check_tile(q4, k, v, m3, S, Hkv, int8=True, scales=(k_scale, v_scale))
+    m3 = m3.contiguous()
+    fn = _build.entry("decode_attention_int8", "bcg_decode_attention_int8", _INT8_ARGTYPES)
+    out = torch.empty_like(q4)
+    err = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+             v_scale.data_ptr(), m3.data_ptr(), out.data_ptr(), B, S, H, Hkv, Kq,
+             m3.shape[1], k.stride(0), k.stride(1), k.stride(2), k_scale.stride(0),
+             k_scale.stride(1), float(scale), _build.stream_ptr(q4))
+    _build.check(err, "decode_attention_int8")
+    return out
+
+
+def decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale):
+    """Launch ``csrc/decode_attention_int8.cu`` for one step (rows = the
+    GQA group, one mask row shared by all of them)."""
+    if mask.dim() != 2:
+        raise ValueError(f"decode_attention_int8 takes a [B, S] mask, got {tuple(mask.shape)}")
+    out = _int8_launch(q[:, None], k, v, k_scale, v_scale, mask[:, None, :], scale)
+    decode_attention_int8.launches += 1
+    return out[:, 0]
+
+
+def chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale):
+    """Launch ``csrc/decode_attention_int8.cu`` for a chunk (rows = K x
+    the GQA group, mask ``[B, K, S]``)."""
+    out = _int8_launch(q, k, v, k_scale, v_scale, mask, scale)
+    chunk_decode_attention_int8.launches += 1
+    return out
+
+
+def chunk_decode_attention(q, k, v, mask, scale):
+    """bf16 chunk decode attention: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return chunk_decode_attention_plain(q, k, v, mask, scale)
+    return chunk_decode_attention_cuda(q, k, v, mask, scale)
+
+
+def decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale):
+    """int8-cache decode step: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale)
+    return decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale)
+
+
+def chunk_decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale):
+    """int8-cache chunk decode attention: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return chunk_decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale)
+    return chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale)
+
+
+chunk_decode_attention.launches = 0
+decode_attention_int8.launches = 0
+chunk_decode_attention_int8.launches = 0

@@ -64,6 +64,16 @@ _register(
     'for EngineConfig.spec_decode.',
 )
 _register(
+    'BCG_TPU_SPEC_K', 'int', 4,
+    'Max draft tokens per speculative verify pass (EngineConfig.spec_k '
+    'override; chunk width is K+1).',
+)
+_register(
+    'BCG_TPU_SPEC_NGRAM', 'int', 3,
+    'Prompt-lookup match length in tokens (EngineConfig.spec_ngram '
+    'override).',
+)
+_register(
     'BCG_TPU_FUSED_SAMPLER', 'str', '',
     'Fused guided-sampling Pallas kernel (EngineConfig.fused_sampler '
     "override): 'pallas' = the whole per-step [B, V] masked-sampler "

@@ -7,32 +7,47 @@ Run from the repository root on a machine with one CUDA card:
 What it does, in order (any failure exits non-zero; nothing is skipped):
 
 1. Prints the card's name and power limit (``nvidia-smi``).
-2. Builds every CUDA kernel of the served path from ``bcg_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and prints each kernel's
-   register / shared-memory report.
+2. Builds every CUDA kernel of the served paths from
+   ``bcg_tpu_torch/csrc`` (one ``nvcc`` per source, all at once) and
+   prints each kernel's register / shared-memory report.
 3. Reference check on a small input: ``bcg-tpu/tiny-dh128`` logits of a
-   prefill plus 8 decode steps, bf16 through the kernels on the card,
-   against the same weights in f32 through the plain versions on the CPU.
-4. Game: a full 8 honest + 2 Byzantine game, 3 rounds, on
-   ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers, random weights made
-   on the card from a seed), through ``BCGSimulation(config,
-   engine=TorchEngine(...))``, timed with nothing wrapped.  Every
-   kernel's launch count is set to 0 just before and read just after;
-   each must be > 0.
-5. Profile: the game's first round again (greedy, prefixes cached),
-   timed once and once under ``torch.profiler``: device time by kernel
-   and by kind, and the device's busy share of the round's wall time.
-6. Capture: the 3-round game again, untimed, with each kernel launcher
-   wrapped to keep a device copy of the inputs of its largest call, with
-   their strides (k/v are views into the KV cache).
-7. Kernel phase: each kernel against its plain PyTorch version on those
-   inputs (the sampler also on mixed greedy / sampled rows at top_p 1.0
-   and 0.9), with CUDA-event timings of the kernel, the plain version and,
-   where one PyTorch call computes the same function, that call; and the
-   bound (bytes at 3.35 TB/s or operations at 989 TFLOP/s).  Attention
-   errors are held relative to the reference's own size, and the same
-   measure is printed for the plain version with one tile of 64 live
-   keys dropped, the size of error the limits must catch.
+   prefill, 4 decode steps, a fast-forward chunk and a speculative chunk,
+   over a bf16 and over an int8 KV cache, bf16 through the kernels on the
+   card, against the same weights in f32 through the plain versions on
+   the CPU.
+4. Four game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers,
+   random weights made once on the card from a seed and shared by every
+   engine through ``TorchEngine(params=...)``), each a full 8 honest + 2
+   Byzantine game through ``BCGSimulation(config, engine=TorchEngine(...))``.
+   Every kernel's launch count is set to 0 just before a path and read
+   just after; each kernel of the path must be > 0, and no row may fail
+   its schema.
+
+   * P1: the default engine (bf16 cache, plain loop), 1 round, timed
+     with nothing wrapped, then profiled and captured (5, 6).
+   * P2: int8 cache, fast-forward loop, compact JSON, 3 rounds, timed,
+     then profiled and captured; its line adds the decode steps per
+     decision, their ratio to the steps the plain loop takes for the same
+     outputs, and the KV-cache bytes.
+   * P3: bf16 cache, speculative loop, 1 round, untimed and captured;
+     prints the drafted and accepted counts.
+   * P4: int8 cache, plain loop, 1 round, untimed and captured.
+5. Profile (P1, P2): the game's first round again (greedy, prefixes
+   cached), timed once and once under ``torch.profiler``: device time by
+   kernel and by kind, and the device's busy share of the round's wall.
+6. Capture: the path's game again, untimed (P3 and P4: the counted run
+   itself), with each kernel launcher wrapped to keep a device copy of
+   the inputs of its largest call, with their strides (k/v are views
+   into the KV cache).
+7. Kernel phase: each of the six kernel forms against its plain PyTorch
+   version on its captured inputs (the sampler also on mixed greedy /
+   sampled rows at top_p 1.0 and 0.9), with CUDA-event timings of the
+   kernel, the plain version and, where one PyTorch call computes the
+   same function, that call; and the bound (bytes at 3.35 TB/s, int8
+   values and f32 scales counted as stored, or operations at 989
+   TFLOP/s).  Attention errors are held relative to the reference's own
+   size, and the same measure is printed for the plain version with one
+   tile of 64 live keys dropped, the size of error the limits must catch.
 8. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
@@ -63,7 +78,9 @@ ATTN_REL_ROW_TOL = 2e-2
 ATTN_REL_HEAD_TOL = 1e-2
 DROP_KEYS = 64
 SMALL_REF_TOL = 0.15           # tiny-dh128 logits, bf16 on the card vs f32 on the CPU
-                               # after 2 layers and 8 decode steps (logits are O(3))
+                               # after 2 layers and 6 decode steps (logits are O(3))
+MODEL = "bcg-tpu/bench-8b"
+DEVICE = "cuda"
 
 
 def fail(msg: str) -> None:
@@ -102,7 +119,38 @@ def bound(bytes_moved: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-# --------------------------------------------------------------- capture
+# --------------------------------------------------------------- kernels
+
+# Kernel form -> (ops module attribute, launcher attribute, wrapper
+# attribute holding the launch count).
+FORMS = {
+    "flash_prefill": ("attention", "flash_attention_cuda", "flash_attention"),
+    "decode_attention": ("decode_attention", "decode_attention_cuda", "decode_attention"),
+    "guided_sampler": ("guided_sampler", "sample_rows_cuda", "sample_rows"),
+    "chunk_decode_attention": ("decode_attention", "chunk_decode_attention_cuda",
+                               "chunk_decode_attention"),
+    "decode_attention_int8": ("decode_attention", "decode_attention_int8_cuda",
+                              "decode_attention_int8"),
+    "chunk_decode_attention_int8": ("decode_attention", "chunk_decode_attention_int8_cuda",
+                                    "chunk_decode_attention_int8"),
+}
+
+
+def _ops(mod: str):
+    import importlib
+
+    return importlib.import_module(f"bcg_tpu_torch.ops.{mod}")
+
+
+def launch_counts():
+    return {name: getattr(_ops(mod), wrapper).launches
+            for name, (mod, _, wrapper) in FORMS.items()}
+
+
+def zero_counts():
+    for mod, _, wrapper in FORMS.values():
+        getattr(_ops(mod), wrapper).launches = 0
+
 
 def keep(a):
     """A device copy of ``a`` with its strides (a KV-cache view keeps the
@@ -116,24 +164,20 @@ def keep(a):
 
 
 class Capture:
-    """Wraps each kernel launcher to keep a device copy (``keep``) of the
-    inputs of its largest call: the shapes and data the served path gives
-    it.  Only a call strictly larger than the kept one is copied."""
+    """Wraps the launchers of the kernel forms ``names`` to keep a device
+    copy (``keep``) of the inputs of each one's largest call: the shapes
+    and data the served path gives it.  Only a call strictly larger than
+    the kept one is copied."""
 
-    def __init__(self):
-        from bcg_tpu_torch.ops import attention, decode_attention, guided_sampler
-
-        self.mods = {
-            "flash_prefill": (attention, "flash_attention_cuda"),
-            "decode_attention": (decode_attention, "decode_attention_cuda"),
-            "guided_sampler": (guided_sampler, "sample_rows_cuda"),
-        }
+    def __init__(self, names):
+        self.names = tuple(names)
         self.best = {}
         self.orig = {}
-        for name, (mod, fn) in self.mods.items():
-            orig = getattr(mod, fn)
+        for name in self.names:
+            mod, fn, _ = FORMS[name]
+            orig = getattr(_ops(mod), fn)
             self.orig[name] = orig
-            setattr(mod, fn, self._wrap(name, orig))
+            setattr(_ops(mod), fn, self._wrap(name, orig))
 
     def _wrap(self, name, orig):
         def wrapped(*args):
@@ -144,26 +188,12 @@ class Capture:
         return wrapped
 
     def restore(self):
-        for name, (mod, fn) in self.mods.items():
-            setattr(mod, fn, self.orig[name])
+        for name in self.names:
+            mod, fn, _ = FORMS[name]
+            setattr(_ops(mod), fn, self.orig[name])
 
-
-def launch_counts():
-    from bcg_tpu_torch.ops import attention, decode_attention, guided_sampler
-
-    return {
-        "flash_prefill": attention.flash_attention.launches,
-        "decode_attention": decode_attention.decode_attention.launches,
-        "guided_sampler": guided_sampler.sample_rows.launches,
-    }
-
-
-def zero_counts():
-    from bcg_tpu_torch.ops import attention, decode_attention, guided_sampler
-
-    attention.flash_attention.launches = 0
-    decode_attention.decode_attention.launches = 0
-    guided_sampler.sample_rows.launches = 0
+    def inputs(self):
+        return {name: args for name, (_, args) in self.best.items()}
 
 
 # ---------------------------------------------------------------- phases
@@ -186,9 +216,11 @@ def phase_build():
     print(f"build: {len(logs)} libraries compiled in {secs:.1f} s", flush=True)
 
 
-def phase_small_reference(dev: str = "cuda"):
+def phase_small_reference():
     """tiny-dh128: kernels on the card (bf16) vs plain versions on the CPU
-    (f32), prefill + 8 decode steps."""
+    (f32): prefill, 4 decode steps, a fast-forward chunk at a device-side
+    write slot and a speculative chunk at per-row slots, over a bf16 and
+    over an int8 cache — every attention kernel form at a small size."""
     import numpy as np
     import torch
 
@@ -200,78 +232,122 @@ def phase_small_reference(dev: str = "cuda"):
     gen = torch.Generator(device="cpu")
     gen.manual_seed(7)
     p32 = init_params(spec, gen, "cpu", torch.float32)
+    dev = DEVICE
     p16 = {k: v.to(dev, torch.bfloat16) for k, v in p32.items()}
     rng = np.random.RandomState(0)
-    B, L, S = 3, 150, 160
+    B, L, S, K, K1 = 3, 150, 180, 4, 5
     tokens = torch.as_tensor(rng.randint(0, 256, (B, L)))
     valid = torch.ones((B, L), dtype=torch.bool)
     valid[0, :37] = False
     valid[2, :90] = False
+    steps = torch.as_tensor(rng.randint(0, 256, (B, 4)))
+    chunk = torch.as_tensor(rng.randint(0, 256, (B, K)))
+    cvalid = torch.tensor([[1, 1, 1, 0], [1, 1, 1, 1], [1, 0, 0, 0]], dtype=torch.bool)
+    spec_chunk = torch.as_tensor(rng.randint(0, 256, (B, K1)))
+    svalid = torch.tensor([[1, 1, 0, 0, 0], [1, 1, 1, 1, 1], [1, 1, 1, 0, 0]], dtype=torch.bool)
+    rwp = torch.tensor([L + 8, L + 9, L + 10])
 
-    def run(params, dev):
-        cache = tt.init_kv_cache(spec, B, S, torch.bfloat16, dev)
+    def run(params, dev, quantized):
+        cache = tt.init_kv_cache(spec, B, S, torch.bfloat16, dev, quantized=quantized)
         logits, cache = tt.prefill(params, spec, tokens.to(dev), valid.to(dev), cache)
         outs = [logits.float().cpu()]
         vm = torch.zeros((B, S), dtype=torch.bool, device=dev)
         vm[:, :L] = valid.to(dev)
         lens = valid.sum(1).to(torch.int32).to(dev)
-        tok = torch.as_tensor(rng_tok, device=dev)
-        for i in range(8):
+        for i in range(4):
             vm[:, L + i] = True
-            logits, cache = tt.decode_step(params, spec, tok[:, i], L + i, lens + i, cache, vm)
+            logits, cache = tt.decode_step(params, spec, steps[:, i].to(dev), L + i,
+                                           lens + i, cache, vm)
             outs.append(logits.float().cpu())
+        pos = (lens + 4)[:, None] + torch.arange(K, device=dev)
+        logits, cache = tt.decode_chunk(params, spec, chunk.to(dev), cvalid.to(dev),
+                                        torch.tensor(L + 4, device=dev), pos, cache, vm)
+        outs.append(logits.float().cpu())
+        vm[:, L + 4:L + 8] = cvalid.to(dev)
+        pos = (lens + 8)[:, None] + torch.arange(K1, device=dev)
+        logits, cache = tt.decode_chunk_spec(params, spec, spec_chunk.to(dev), svalid.to(dev),
+                                             rwp.to(dev), pos, cache, vm)
+        outs += list(logits.float().cpu().unbind(1))
         return torch.stack(outs)
 
-    rng_tok = rng.randint(0, 256, (B, 8))
-    ref = run(p32, "cpu")
-    got = run(p16, dev)
-    if not torch.isfinite(got).all():
-        fail("small reference: non-finite logits from the kernels")
-    err = (got - ref).abs().max().item()
-    print(f"small reference: tiny-dh128 prefill + 8 decode logits, card bf16 vs CPU f32: "
-          f"max_abs_err={err:.4g} tol={SMALL_REF_TOL}", flush=True)
-    if err > SMALL_REF_TOL:
-        fail(f"small reference error {err} > {SMALL_REF_TOL}")
+    for quantized in (False, "int8"):
+        ref = run(p32, "cpu", quantized)
+        got = run(p16, dev, quantized)
+        if not torch.isfinite(got).all():
+            fail("small reference: non-finite logits from the kernels")
+        err = (got - ref).abs().max().item()
+        print(f"small reference: tiny-dh128 {'int8' if quantized else 'bf16'} cache, prefill + "
+              f"4 decode steps + ff chunk + spec chunk logits, card bf16 vs CPU f32: "
+              f"max_abs_err={err:.4g} tol={SMALL_REF_TOL}", flush=True)
+        if err > SMALL_REF_TOL:
+            fail(f"small reference error {err} > {SMALL_REF_TOL}")
 
 
-def game_config(max_rounds: int, greedy: bool = False):
+def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
     from bcg_tpu_torch.config import (BCGConfig, EngineConfig, GameConfig, LLMConfig,
                                       MetricsConfig)
 
     llm = LLMConfig(temperature_decide=0.0, temperature_vote=0.0) if greedy else LLMConfig()
     return BCGConfig(
         game=GameConfig(num_honest=8, num_byzantine=2, max_rounds=max_rounds, seed=0),
-        engine=EngineConfig(backend="torch", model_name="bcg-tpu/bench-8b"),
+        engine=EngineConfig(backend="torch", model_name=MODEL, **engine_kw),
         llm=llm,
         metrics=MetricsConfig(save_results=False),
     )
 
 
+# The game paths: engine knobs, rounds, whether the run is timed (then
+# profiled and captured in a replay), and the kernel forms it runs.  P1
+# plays one round (PR 1 played three): the script's time limit is shared
+# with the three paths this slice added.
+PATHS = {
+    "P1": dict(engine={}, rounds=1, timed=True,
+               kernels=("flash_prefill", "decode_attention", "guided_sampler")),
+    "P2": dict(engine=dict(kv_cache_dtype="int8", decode_fast_forward=True,
+                           guided_compact_json=True), rounds=3, timed=True,
+               kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
+    "P3": dict(engine=dict(spec_decode=True), rounds=1, timed=False,
+               kernels=("flash_prefill", "chunk_decode_attention", "guided_sampler")),
+    "P4": dict(engine=dict(kv_cache_dtype="int8"), rounds=1, timed=False,
+               kernels=("flash_prefill", "decode_attention_int8", "guided_sampler")),
+}
+# Which path's capture feeds each kernel form's check, and whose launch
+# count goes into the kernels line.
+HOME = {"flash_prefill": "P1", "decode_attention": "P1", "guided_sampler": "P1",
+        "chunk_decode_attention_int8": "P2", "chunk_decode_attention": "P3",
+        "decode_attention_int8": "P4"}
+
 # Kernel name fragments -> kind, for the profile's breakdown (cuBLAS's
-# matrix products show up as nvjet / gemm / gemv kernels).
+# matrix products show up as nvjet / gemm / gemv kernels).  The
+# fragments are distinct: none is a substring of another kernel's name.
 KINDS = (
     ("flash_prefill_kernel", "flash_prefill"),
     ("decode_attention_kernel", "decode_attention"),
+    ("chunk_decode_bf16_kernel", "chunk_decode_attention"),
+    ("decode_int8_kernel", "decode_attention_int8"),
     ("guided_sampler_kernel", "guided_sampler"),
     ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"), ("xmma", "matmul"),
     ("cutlass", "matmul"),
 )
 
 
-def phase_profile(engine):
-    """The game's first round again, greedy, played twice on the booted
+def phase_profile(path, engine):
+    """The path's first round again, greedy, played twice on the booted
     engine — every prompt prefix is already cached, so both runs do the
     same work: once timed, once under ``torch.profiler`` (device activity
     only).  Prints device milliseconds by kernel kind, the top kernels,
     and the device's busy share: the profiled device time over the timed
     run's wall time (the profiler's own overhead slows the profiled run)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
 
+    cfg = game_config(1, greedy=True, **PATHS[path]["engine"])
+
     def play():
-        sim = BCGSimulation(game_config(max_rounds=1, greedy=True), engine=engine)
+        sim = BCGSimulation(cfg, engine=engine)
         steps0 = engine.total_decode_steps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -280,47 +356,62 @@ def phase_profile(engine):
         return (time.perf_counter() - t0) * 1e3, engine.total_decode_steps - steps0
 
     wall_ms, steps = play()
+    t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_ms, profiled_steps = play()
-    rows = []
-    for evt in prof.key_averages():
-        ms = getattr(evt, "device_time_total", 0.0) / 1e3
-        if ms > 0:
-            rows.append((ms, evt.count, evt.key))
-    rows.sort(reverse=True)
+    t0 = time.perf_counter()
+    stop_s = t0 - t_prof - profiled_ms / 1e3
+    # Device activity by name, from the profiler's raw events: the same
+    # sums as key_averages()' device times, without building its Python
+    # event tree (which takes tens of seconds for a round's ~250K launches).
+    by_name = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(evt.name(), (0.0, 0))
+            by_name[evt.name()] = (ms + evt.duration_ns() / 1e6, n + 1)
+    rows = sorted(((ms, n, key) for key, (ms, n) in by_name.items() if ms > 0), reverse=True)
     busy = sum(ms for ms, _, _ in rows)
     kinds = {}
     for ms, _, key in rows:
         kind = next((k for frag, k in KINDS if frag in key.lower()), "other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
-    print("profile: " + json.dumps({
+    print(f"profile {path}: " + json.dumps({
         "round_wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
         "decode_steps": [steps, profiled_steps], "device_busy_ms": busy,
         "device_busy_share": busy / wall_ms if rows else None,
         "by_kind_ms": kinds,
         "top": [{"kernel": key[:90], "ms": ms, "count": n} for ms, n, key in rows[:8]],
+        "profiler_stop_seconds": stop_s, "summary_seconds": time.perf_counter() - t0,
     }), flush=True)
 
 
-def phase_game():
+def phase_path(path, params):
+    """Play one game path on a fresh engine over the shared weights.
+    Returns its launch counts and the captured inputs of its kernels."""
     import torch
 
     from bcg_tpu_torch.engine.torch_engine import TorchEngine
     from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
 
-    cfg = game_config(max_rounds=3)
+    conf = PATHS[path]
+    cfg = game_config(conf["rounds"], **conf["engine"])
     t0 = time.perf_counter()
-    engine = TorchEngine(cfg.engine, device="cuda")
+    engine = TorchEngine(cfg.engine, device=DEVICE, params=params)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    t0 = time.perf_counter()
-    sim = BCGSimulation(cfg, engine=engine)
-    stats = sim.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
+    cap = None if conf["timed"] else Capture(conf["kernels"])
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        sim = BCGSimulation(cfg, engine=engine)
+        stats = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        if cap is not None:
+            cap.restore()
     peak = torch.cuda.max_memory_allocated()
     decisions = sim.profiler.decisions
     line = {
@@ -336,39 +427,39 @@ def phase_game():
         "failed_rows": engine.failed_rows,
         "total_rows": engine.total_rows,
         "peak_bytes": peak,
-        "launches": counts,
+        "launches": {k: counts[k] for k in conf["kernels"]},
     }
-    print("game: " + json.dumps(line), flush=True)
+    if path != "P1":
+        line.update(
+            timed=conf["timed"],
+            decode_steps_per_decision=engine.total_decode_steps / max(decisions, 1),
+            plain_loop_steps=engine.total_plain_steps,
+            steps_vs_plain_loop=engine.total_decode_steps / max(engine.total_plain_steps, 1),
+            kv_cache_bytes=engine.max_kv_cache_bytes,
+            kv_slot_bytes_per_layer=engine._kv_slot_bytes,
+        )
+    if engine.spec_decode:
+        line.update(spec_drafted=engine.spec_drafted, spec_accepted=engine.spec_accepted)
+    print(f"game {path}: " + json.dumps(line), flush=True)
     if stats["total_rounds"] < 1 or len(stats) < 40:
-        fail(f"game statistics malformed: {sorted(stats)[:5]}...")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was never launched on the game path")
+        fail(f"{path}: game statistics malformed: {sorted(stats)[:5]}...")
+    for name in conf["kernels"]:
+        if counts[name] <= 0:
+            fail(f"{path}: kernel {name} was never launched on the game path")
     if engine.failed_rows:
-        fail(f"{engine.failed_rows} rows failed to produce schema-valid JSON")
-    phase_profile(engine)
-    inputs = phase_capture(engine)
+        fail(f"{path}: {engine.failed_rows} rows failed to produce schema-valid JSON")
+    if conf["timed"]:
+        phase_profile(path, engine)
+        cap = Capture(conf["kernels"])
+        try:
+            BCGSimulation(cfg, engine=engine).run()
+        finally:
+            cap.restore()
+    torch.cuda.synchronize()
     engine.shutdown()
     del engine, sim
     torch.cuda.empty_cache()
-    return counts, inputs
-
-
-def phase_capture(engine):
-    """The timed game's configuration again on the booted engine, untimed,
-    with every kernel launcher wrapped by ``Capture``.  Returns each
-    kernel's largest-call inputs, on the card."""
-    import torch
-
-    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
-
-    cap = Capture()
-    try:
-        BCGSimulation(game_config(max_rounds=3), engine=engine).run()
-    finally:
-        cap.restore()
-    torch.cuda.synchronize()
-    return {name: args for name, (_, args) in cap.best.items()}
+    return counts, cap.inputs()
 
 
 def per_row(fn, *args):
@@ -426,16 +517,24 @@ def attention_check(out, ref, head_dims, dropped_ref):
 
 
 def phase_kernels(inputs, counts):
+    """Each kernel form against its plain version on its home path's
+    captured inputs.  ``inputs``/``counts``: per path."""
     import torch
     import torch.nn.functional as F
 
-    from bcg_tpu_torch.ops import attention, decode_attention, guided_sampler
+    from bcg_tpu_torch.ops import attention, decode_attention as da, guided_sampler
 
     results = []
     errors = []
 
+    def common(name):
+        src = "decode_attention_int8" if name == "chunk_decode_attention_int8" else name
+        return dict(name=name, route="cuda", source=f"bcg_tpu_torch/csrc/{src}.cu",
+                    launches=counts[HOME[name]][name],
+                    launches_per_path={p: c[name] for p, c in counts.items()})
+
     def flash():
-        q, k, v, mask, scale = inputs["flash_prefill"]
+        q, k, v, mask, scale = inputs["P1"]["flash_prefill"]
         out = attention.flash_attention_cuda(q, k, v, mask, scale)
         torch.cuda.synchronize()
         ref = per_row(attention.flash_attention_plain, q, k, v, mask, scale)
@@ -456,21 +555,20 @@ def phase_kernels(inputs, counts):
         # q, k, v and the mask read once, the output written once (bf16).
         byts = 2 * (2 * q.numel() + k.numel() + v.numel()) + mask.numel()
         bms, by = bound(byts, 4 * Dh * H * live)
-        return dict(name="flash_prefill", route="cuda",
-                    source="bcg_tpu_torch/csrc/flash_prefill.cu",
+        return dict(common("flash_prefill"),
                     replaces="bcg_tpu/ops/attention.py:37 _flash_kernel",
-                    launches=counts.get("flash_prefill"), **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms, shape=[B, T, H, Hkv, S], live_pairs=live)
 
     def decode():
-        q, k, v, mask, scale = inputs["decode_attention"]
-        out = decode_attention.decode_attention_cuda(q, k, v, mask, scale)
+        q, k, v, mask, scale = inputs["P1"]["decode_attention"]
+        out = da.decode_attention_cuda(q, k, v, mask, scale)
         torch.cuda.synchronize()
-        ref = decode_attention.decode_attention_plain(q, k, v, mask, scale)
-        dropped = decode_attention.decode_attention_plain(q, k, v, drop_live_keys(mask), scale)
+        ref = da.decode_attention_plain(q, k, v, mask, scale)
+        dropped = da.decode_attention_plain(q, k, v, drop_live_keys(mask), scale)
         check = attention_check(out, ref, (-1,), dropped)
-        ms = time_ms(lambda: decode_attention.decode_attention_cuda(q, k, v, mask, scale), reps=50)
-        plain_ms = time_ms(lambda: decode_attention.decode_attention_plain(q, k, v, mask, scale))
+        ms = time_ms(lambda: da.decode_attention_cuda(q, k, v, mask, scale), reps=50)
+        plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, mask, scale))
         B, H, Dh = q.shape
         S, Hkv = k.shape[1], k.shape[2]
         group = H // Hkv
@@ -482,14 +580,68 @@ def phase_kernels(inputs, counts):
         valid = m2.sum().item()
         byts = 2 * (2 * valid * Hkv * Dh) + 2 * 2 * q.numel() + m2.numel()
         bms, by = bound(byts, 4 * Dh * H * valid)
-        return dict(name="decode_attention", route="cuda",
-                    source="bcg_tpu_torch/csrc/decode_attention.cu",
+        return dict(common("decode_attention"),
                     replaces="bcg_tpu/ops/decode_attention.py:57 _decode_kernel",
-                    launches=counts.get("decode_attention"), **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms, shape=[B, H, Hkv, S], valid_slots=valid)
 
+    def chunk():
+        q, k, v, mask, scale = inputs["P3"]["chunk_decode_attention"]
+        out = da.chunk_decode_attention_cuda(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        ref = da.chunk_decode_attention_plain(q, k, v, mask, scale)
+        dropped = da.chunk_decode_attention_plain(q, k, v, drop_live_keys(mask), scale)
+        check = attention_check(out, ref, (1, 3), dropped)
+        ms = time_ms(lambda: da.chunk_decode_attention_cuda(q, k, v, mask, scale), reps=50)
+        plain_ms = time_ms(lambda: da.chunk_decode_attention_plain(q, k, v, mask, scale))
+        B, K, H, Dh = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        group = H // Hkv
+        kt = k.transpose(1, 2).repeat_interleave(group, 1)
+        vt = v.transpose(1, 2).repeat_interleave(group, 1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kt, vt, attn_mask=mask[:, None], scale=scale), reps=50)
+        # Slots any chunk row of a batch row attends, read once; q, out
+        # (bf16) and the [B, K, S] mask once.
+        slots = mask.any(1).sum().item()
+        byts = 2 * (2 * slots * Hkv * Dh) + 2 * 2 * q.numel() + mask.numel()
+        bms, by = bound(byts, 4 * Dh * H * mask.sum().item())
+        return dict(common("chunk_decode_attention"),
+                    replaces="bcg_tpu/ops/decode_attention.py:381 _decode_kernel (chunk "
+                             "pallas_call of chunk_decode_attention :308)",
+                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms, shape=[B, K, H, Hkv, S], valid_slots=slots)
+
+    def int8_forms(name, path):
+        q, k, v, ks, vs, mask, scale = inputs[path][name]
+        launch = getattr(da, f"{name}_cuda")
+        plain = getattr(da, f"{name}_plain")
+        out = launch(q, k, v, ks, vs, mask, scale)
+        torch.cuda.synchronize()
+        ref = plain(q, k, v, ks, vs, mask, scale)
+        dropped = plain(q, k, v, ks, vs, drop_live_keys(mask), scale)
+        check = attention_check(out, ref, (1, 3) if q.dim() == 4 else (-1,), dropped)
+        ms = time_ms(lambda: launch(q, k, v, ks, vs, mask, scale), reps=50)
+        plain_ms = time_ms(lambda: plain(q, k, v, ks, vs, mask, scale))
+        Hkv, S, Dh = k.shape[1], k.shape[2], k.shape[3]
+        H = q.shape[-2]
+        m3 = mask if mask.dim() == 3 else mask[:, None]
+        slots = m3.any(1).sum().item()
+        # int8 k and v plus their two f32 scales per attended slot and kv
+        # head, as stored; q, out (bf16) and the mask once.
+        byts = slots * Hkv * (2 * Dh + 8) + 2 * 2 * q.numel() + m3.numel()
+        bms, by = bound(byts, 4 * Dh * H * m3.sum().item())
+        return dict(common(name),
+                    replaces=("bcg_tpu/ops/decode_attention.py:113 _decode_kernel_allheads "
+                              "(pallas_call :182 of _quantized_attention :166, via "
+                              + ("chunk_decode_attention :327-359)" if q.dim() == 4
+                                 else "decode_attention :241-264)")),
+                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None, shape=list(q.shape[:-1]) + [Hkv, S], valid_slots=slots)
+
     def sampler():
-        logits, minb, dfa_ids, states, meta_i, meta_f, eos_id, _top_p = inputs["guided_sampler"]
+        logits, minb, dfa_ids, states, meta_i, meta_f, eos_id, _top_p = \
+            inputs["P1"]["guided_sampler"]
         B, V = logits.shape
         # Mixed rows: even rows greedy, odd rows sampled; the game's own
         # per-row scalars otherwise.
@@ -509,15 +661,17 @@ def phase_kernels(inputs, counts):
             logits, minb, dfa_ids, states, mi, meta_f, eos_id, 1.0), reps=5)
         byts = B * V * (4 + 2) + meta_i.numel() * 4 + meta_f.numel() * 4 + B * 8
         bms, by = bound(byts, 0)
-        return dict(name="guided_sampler", route="cuda",
-                    source="bcg_tpu_torch/csrc/guided_sampler.cu",
+        return dict(common("guided_sampler"),
                     replaces="bcg_tpu/ops/guided_sampler.py:93 _sampler_kernel",
-                    launches=counts.get("guided_sampler"), max_abs_err=float(err),
-                    token_mismatches=mismatches, ok=mismatches == 0, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=None, shape=[B, V])
+                    max_abs_err=float(err), token_mismatches=mismatches, ok=mismatches == 0,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+                    shape=[B, V])
 
-    for phase in (flash, decode, sampler):
+    for phase in (flash, decode, sampler, chunk,
+                  lambda: int8_forms("decode_attention_int8", "P4"),
+                  lambda: int8_forms("chunk_decode_attention_int8", "P2")):
         results.append(phase())
+        torch.cuda.empty_cache()
     for r in results:
         if "rel_row" in r:
             err = (f"max_abs_err={r['max_abs_err']:.4g} ref_rms={r['ref_rms']:.4g} "
@@ -531,7 +685,7 @@ def phase_kernels(inputs, counts):
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) launches={r['launches']} "
-              f"shape={r['shape']}", flush=True)
+              f"per_path={json.dumps(r['launches_per_path'])} shape={r['shape']}", flush=True)
         if not r["ok"]:
             errors.append(f"{r['name']}: disagrees with its plain version")
     return results, errors
@@ -552,18 +706,40 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not next to this script: {exc}", file=sys.stderr)
         return 3
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.convert import init_params
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     card = card_line()
     print(card, flush=True)
+    t_start = time.perf_counter()
     phase_build()
+    t0 = time.perf_counter()
     phase_small_reference()
-    counts, inputs = phase_game()
+    print(f"phase small reference: {time.perf_counter() - t0:.1f} s", flush=True)
+    # One set of bench-8b weights for every path: the default engine's own
+    # draw (seed 0 on the card).
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = init_params(spec_for_model(MODEL), gen, DEVICE)
+    torch.cuda.synchronize()
+    print(f"weights: {MODEL} initialised on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    counts, inputs = {}, {}
+    for path in PATHS:
+        t0 = time.perf_counter()
+        counts[path], inputs[path] = phase_path(path, params)
+        print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     results, errors = phase_kernels(inputs, counts)
+    print(f"phase kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card line", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}), flush=True)
     if errors:
         fail("; ".join(errors))

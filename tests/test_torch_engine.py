@@ -28,6 +28,18 @@ from bcg_tpu_torch.engine.torch_engine import BudgetError, TorchEngine
 from bcg_tpu_torch.models.configs import spec_for_model
 from bcg_tpu_torch.models.convert import params_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    pytest workers on one machine, and torch's thread pools spinning
+    against each other slow these CPU runs many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODEL = "bcg-tpu/tiny-test"
 
 VOTE_SCHEMA = {

@@ -71,12 +71,11 @@ def test_engine_without_device_needs_cuda():
 
 @pytest.mark.parametrize("knob,item", [
     (dict(paged_kv=True), "A9"),
-    (dict(decode_fast_forward=True), "A7"),
-    (dict(spec_decode=True), "A7"),
     (dict(quantization="int8"), "A8"),
     (dict(quantization="int4"), "A8"),
-    (dict(kv_cache_dtype="int8"), "A8"),
     (dict(kv_cache_dtype="int4"), "A8"),
+    (dict(kv_cache_dtype="int4", decode_fast_forward=True), "A8"),
+    (dict(kv_cache_dtype="int8", paged_kv=True), "A9"),
     (dict(tensor_parallel_size=2), "A13"),
     (dict(data_parallel_size=2), "A13"),
     (dict(sequence_parallel_size=2), "A13"),
@@ -85,6 +84,24 @@ def test_unported_knobs_raise(knob, item):
     cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test", **knob)
     with pytest.raises(NotImplementedError, match=item):
         TorchEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(decode_fast_forward=True),
+    dict(spec_decode=True),
+    dict(kv_cache_dtype="int8"),
+    dict(kv_cache_dtype="int8", decode_fast_forward=True),
+    dict(kv_cache_dtype="int8", spec_decode=True),
+    dict(decode_fast_forward=True, spec_decode=True),
+])
+def test_ported_decode_paths_are_accepted(knob):
+    """The fast-forward and speculative loops and the int8 dense cache,
+    alone and combined (speculative decoding wins over fast-forward)."""
+    cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test", **knob)
+    eng = TorchEngine(cfg, device="cpu")
+    assert eng.kv_int8 == (knob.get("kv_cache_dtype") == "int8")
+    assert eng.spec_decode == knob.get("spec_decode", False)
+    assert eng.fast_forward == knob.get("decode_fast_forward", False)
 
 
 @pytest.mark.parametrize("knob", [
@@ -103,9 +120,13 @@ def test_env_overrides_are_not_ignored(monkeypatch):
     with pytest.raises(NotImplementedError, match="A9"):
         TorchEngine(cfg, device="cpu")
     monkeypatch.delenv("BCG_TPU_PAGED_KV")
-    monkeypatch.setenv("BCG_TPU_KV_DTYPE", "int8")
+    monkeypatch.setenv("BCG_TPU_KV_DTYPE", "int4")
     with pytest.raises(NotImplementedError, match="A8"):
         TorchEngine(cfg, device="cpu")
+    monkeypatch.setenv("BCG_TPU_KV_DTYPE", "int8")
+    assert TorchEngine(cfg, device="cpu").kv_int8
+    monkeypatch.setenv("BCG_TPU_SPEC", "1")
+    assert TorchEngine(cfg, device="cpu").spec_decode
 
 
 def test_orchestrator_rejects_unported_round_paths():
@@ -134,7 +155,8 @@ def test_create_engine_serves_torch_only():
 
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(PKG, "csrc")
-    for name in ("flash_prefill", "decode_attention", "guided_sampler"):
+    for name in ("flash_prefill", "decode_attention", "guided_sampler",
+                 "chunk_decode_attention", "decode_attention_int8"):
         text = open(os.path.join(csrc, f"{name}.cu")).read()
         assert "Replaces: bcg_tpu/ops/" in text
         assert "What bounds it on this card" in text
@@ -157,8 +179,7 @@ def test_cli_builds_a_torch_config_on_cuda_by_default():
 
 @pytest.mark.parametrize("flag", [
     "--tensor-parallel=2", "--sequence-parallel=2", "--data-parallel=2",
-    "--quantization=int8", "--kv-cache-dtype=int8", "--scan-layers",
-    "--fast-forward", "--spec-decode", "--spmd-exchange",
+    "--quantization=int8", "--scan-layers", "--spmd-exchange",
     "--fake-policy=consensus", "--fault-rate=0.1", "--fault-seed=1", "--backend=torch",
 ])
 def test_cli_offers_no_flag_of_an_unported_path(flag, capsys):
@@ -167,3 +188,34 @@ def test_cli_offers_no_flag_of_an_unported_path(flag, capsys):
     with pytest.raises(SystemExit):
         build_parser().parse_args([flag])
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_cli_serves_the_decode_loops_and_the_int8_cache(capsys):
+    from bcg_tpu_torch.cli import build_parser, config_from_args
+
+    args = build_parser().parse_args(["--model", "tiny-test", "--device", "cpu",
+                                      "--fast-forward", "--kv-cache-dtype", "int8"])
+    cfg = config_from_args(args)
+    assert cfg.engine.decode_fast_forward and cfg.engine.kv_cache_dtype == "int8"
+    assert not cfg.engine.spec_decode
+    cfg = config_from_args(build_parser().parse_args(["--spec-decode"]))
+    assert cfg.engine.spec_decode and cfg.engine.kv_cache_dtype == "bfloat16"
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--kv-cache-dtype", "int4"])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+def test_new_kernel_forms_live_in_modules_that_import_without_jax():
+    """The modules this slice extended (chunk and int8 decode attention,
+    the drafter and spec loop, forced chains, the chunk model entry
+    points) are among those the import test walks, and carry their
+    launch counts."""
+    from bcg_tpu_torch.ops import decode_attention as da
+
+    mods = _modules()
+    for m in ("bcg_tpu_torch.ops.decode_attention", "bcg_tpu_torch.engine.speculative",
+              "bcg_tpu_torch.guided.processor", "bcg_tpu_torch.models.transformer"):
+        assert m in mods
+    for fn in (da.decode_attention, da.chunk_decode_attention, da.decode_attention_int8,
+               da.chunk_decode_attention_int8):
+        assert isinstance(fn.launches, int)

@@ -8,6 +8,10 @@ only PyTorch; there, skip the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
+Covered: flash prefill, bf16 decode attention (single step and chunk),
+int8 decode attention (single step and chunk, at the bench-8b shapes
+and at a GQA group of 5) and the guided sampler.
+
 Tolerances: bf16 attention 2e-2 absolute on outputs of magnitude ~1-4.
 The kernels round the unnormalised probabilities to bf16 for the p.v
 product (as the Pallas kernels do), the plain versions the normalised
@@ -99,6 +103,72 @@ def test_decode_kernel_matches_plain(dev, H, Hkv, per_row):
     assert torch.all(out[2] == 0)
 
 
+def _cache_views(rng, dev, B, S, Hkv, Dh, int8):
+    """k/v as views of one cache buffer, as the engine passes them: bf16
+    [B, S, Hkv, Dh] strided over (k, v) pairs, or int8 [B, Hkv, S, Dh]
+    with f32 scales [B, Hkv, S] (from ``quantize_kv`` of random K/V)."""
+    x = torch.from_numpy(rng.standard_normal((B, S + 7, 2, Hkv, Dh), np.float32))
+    if not int8:
+        cache = x.to(dev, torch.bfloat16)
+        return cache[:, :S, 0], cache[:, :S, 1], None, None
+    q8, sc = decode_attention.quantize_kv(x.to(dev))          # [B, S+7, 2, Hkv, ...]
+    buf = q8.permute(2, 0, 3, 1, 4).contiguous()               # [2, B, Hkv, S+7, Dh]
+    scales = sc.permute(2, 0, 3, 1).contiguous()               # [2, B, Hkv, S+7]
+    return buf[0, :, :, :S], buf[1, :, :, :S], scales[0, :, :, :S], scales[1, :, :, :S]
+
+
+# bench-8b (32 / 8 heads): fast-forward chunks of 4, speculative verify
+# chunks of 5; a group of 5 (40 / 8 heads, rows 20 and 25).
+CHUNK_SHAPES = [(32, 8, 4), (32, 8, 5), (40, 8, 4), (40, 8, 5)]
+CHUNK_IDS = ["bench-ff", "bench-spec", "g5-ff", "g5-spec"]
+
+
+@pytest.mark.parametrize("H,Hkv,K", CHUNK_SHAPES, ids=CHUNK_IDS)
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_chunk_kernels_match_plain(dev, H, Hkv, K, int8):
+    rng = np.random.default_rng([H, Hkv, K, int(int8)])
+    B, S, Dh = 10, 1500, 128
+    k, v, ks, vs = _cache_views(rng, dev, B, S, Hkv, Dh, int8)
+    q = torch.from_numpy(rng.standard_normal((B, K, H, Dh), np.float32)).to(dev, torch.bfloat16)
+    m = rng.random((B, K, S)) < 0.6
+    m[2, 1] = False                               # a fully masked chunk row gives 0
+    m[3] = False
+    m[3, :, 700:760] = True                       # a row whose keys all sit in one tile
+    mask = torch.from_numpy(m).to(dev)
+    if int8:
+        fn, plain = decode_attention.chunk_decode_attention_int8, \
+            decode_attention.chunk_decode_attention_int8_plain
+        args = (q, k, v, ks, vs, mask, Dh ** -0.5)
+    else:
+        fn, plain = decode_attention.chunk_decode_attention, \
+            decode_attention.chunk_decode_attention_plain
+        args = (q, k, v, mask, Dh ** -0.5)
+    before = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(out.float(), plain(*args).float(), atol=TOL, rtol=TOL)
+    assert torch.all(out[2, 1] == 0)
+
+
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (40, 8), (16, 2)], ids=["bench", "g5", "g8"])
+def test_int8_decode_kernel_matches_plain(dev, H, Hkv):
+    rng = np.random.default_rng([H, Hkv, 8])
+    B, S, Dh = 10, 3000, 128
+    k, v, ks, vs = _cache_views(rng, dev, B, S, Hkv, Dh, int8=True)
+    q = torch.from_numpy(rng.standard_normal((B, H, Dh), np.float32)).to(dev, torch.bfloat16)
+    m = rng.random((B, S)) < 0.6
+    m[2] = False
+    mask = torch.from_numpy(m).to(dev)
+    before = decode_attention.decode_attention_int8.launches
+    out = decode_attention.decode_attention_int8(q, k, v, ks, vs, mask, Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert decode_attention.decode_attention_int8.launches == before + 1
+    ref = decode_attention.decode_attention_int8_plain(q, k, v, ks, vs, mask, Dh ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+    assert torch.all(out[2] == 0)
+
+
 @pytest.mark.parametrize("top_p", [1.0, 0.9])
 @pytest.mark.parametrize("V", [151936, 300], ids=["qwen-vocab", "offlane-v300"])
 def test_sampler_kernel_matches_plain(dev, V, top_p):
@@ -138,3 +208,18 @@ def test_wrappers_raise_on_cuda_inputs_they_do_not_take(dev):
     with pytest.raises(TypeError, match="bf16"):
         decode_attention.decode_attention(qd, kvd, kvd, torch.ones((1, 8), dtype=torch.bool,
                                                                    device=dev), 1.0)
+    qc = torch.zeros((1, 20, 32, 128), dtype=torch.bfloat16, device=dev)   # 80 rows > 64
+    kvc = torch.zeros((1, 8, 8, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="query rows"):
+        decode_attention.chunk_decode_attention(
+            qc, kvc, kvc, torch.ones((1, 20, 8), dtype=torch.bool, device=dev), 1.0)
+    k8 = torch.zeros((1, 8, 8, 128), dtype=torch.int8, device=dev)
+    sc = torch.ones((1, 8, 8), dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        decode_attention.chunk_decode_attention_int8(
+            qc[:, :1], kvc, kvc, sc, sc, torch.ones((1, 1, 8), dtype=torch.bool, device=dev),
+            1.0)
+    with pytest.raises(ValueError, match="scales"):
+        decode_attention.decode_attention_int8(
+            qc[:, 0], k8, k8, sc[..., :4], sc[..., :4],
+            torch.ones((1, 8), dtype=torch.bool, device=dev), 1.0)

@@ -25,6 +25,18 @@ from bcg_tpu_torch.models.configs import RopeScaling
 from bcg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 from bcg_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    pytest workers on one machine, and torch's thread pools spinning
+    against each other slow these CPU runs many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {np.float32: 1e-5, "bf16": 2e-2}
 
 

@@ -24,6 +24,18 @@ from bcg_tpu_torch.engine.speculative import make_masked_sampler as t_masked_sam
 from bcg_tpu_torch.guided.processor import GuidedBatch as TGuidedBatch, compile_schema as t_compile
 from bcg_tpu_torch.ops import guided_sampler as tgs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    pytest workers on one machine, and torch's thread pools spinning
+    against each other slow these CPU runs many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EOS = 3
 
 
