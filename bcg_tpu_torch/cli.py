@@ -6,13 +6,18 @@ guided grammar, the KV-cache dtype (bfloat16 or int8), fast-forward and
 speculative decoding, results and checkpoints, plus ``--device``: the
 game runs on the CUDA card unless ``--device cpu`` is given.  The other
 flags come back with the ROADMAP item that ports what they switch on
-(parallelism A13, weight quantization and the int4 cache A8, the fake
-backend and fault injection A11).
+(parallelism A13, weight quantization A8, the fake backend and fault
+injection A11).  As in the JAX package, the block-paged KV cache and the
+packed-int4 KV cache have no flag: they are ``BCG_TPU_PAGED_KV=1`` and
+``BCG_TPU_KV_DTYPE=int4`` (or ``EngineConfig.paged_kv`` /
+``kv_cache_dtype``).
 
     python -m bcg_tpu_torch.cli --honest 8 --byzantine 2 --model bcg-tpu/bench-8b
     python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu
     python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu \
         --fast-forward --kv-cache-dtype int8
+    BCG_TPU_PAGED_KV=1 BCG_TPU_KV_DTYPE=int4 python -m bcg_tpu_torch.cli --honest 2 \
+        --byzantine 1 --model bcg-tpu/tiny-dh128 --device cpu --fast-forward
 """
 
 from __future__ import annotations

@@ -35,8 +35,11 @@ chunk_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q, const void* __rest
                          __nv_bfloat16* __restrict__ out, int S, int H, int Hkv, int Kq,
                          int Mk, long long kv_bstride, long long kv_hstride,
                          long long kv_sstride, float scale) {
-  bcg_tile::decode_tile_body<false>(q, k, v, nullptr, nullptr, mask, out, S, H, Hkv, Kq, Mk,
-                                    kv_bstride, kv_hstride, kv_sstride, 0, 0, scale);
+  const bcg_tile::DenseAddr addr{
+      (long long)blockIdx.y * kv_bstride + (long long)blockIdx.x * kv_hstride, kv_sstride, 0};
+  bcg_tile::decode_tile_body<bcg_tile::kBf16>(
+      q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), nullptr,
+      nullptr, mask, out, S, H, Hkv, Kq, Mk, addr, scale);
 }
 
 }  // namespace

@@ -38,9 +38,12 @@ decode_int8_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__
                    __nv_bfloat16* __restrict__ out, int S, int H, int Hkv, int Kq, int Mk,
                    long long kv_bstride, long long kv_hstride, long long kv_sstride,
                    long long sc_bstride, long long sc_hstride, float scale) {
-  bcg_tile::decode_tile_body<true>(q, k, v, k_scale, v_scale, mask, out, S, H, Hkv, Kq, Mk,
-                                   kv_bstride, kv_hstride, kv_sstride, sc_bstride, sc_hstride,
-                                   scale);
+  const bcg_tile::DenseAddr addr{
+      (long long)blockIdx.y * kv_bstride + (long long)blockIdx.x * kv_hstride, kv_sstride,
+      (long long)blockIdx.y * sc_bstride + (long long)blockIdx.x * sc_hstride};
+  bcg_tile::decode_tile_body<bcg_tile::kInt8>(
+      q, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), k_scale, v_scale, mask,
+      out, S, H, Hkv, Kq, Mk, addr, scale);
 }
 
 }  // namespace

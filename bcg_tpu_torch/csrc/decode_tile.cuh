@@ -1,4 +1,5 @@
-// Shared body of the chunk and int8 decode-attention kernels (sm_90a).
+// Shared body of the chunk, int8 and paged decode-attention kernels
+// (sm_90a).
 //
 // One block per (kv head hk, batch row b) computes, for the R = Kq * G
 // query rows of that kv head (Kq chunk positions times the GQA group
@@ -6,16 +7,21 @@
 // hk * G + r % G):
 //   out[r] = sum_s softmax_s(scale * q[r].k[s], mask[r / G or 0][s]) * v[s]
 // over the whole cache window.  The arithmetic is the Pallas decode
-// kernel's: masked scores take the -1e30 sentinel, p = exp(s - m) * mask
+// kernels': masked scores take the -1e30 sentinel, p = exp(s - m) * mask
 // (a fully masked row gives 0), l sums the f32 p, the p.v product takes
 // p rounded to bf16, and out = acc / (l == 0 ? 1 : l).
 //
-// Layout.  K/V are read through (batch, head, position) strides, so one
-// body serves the bf16 cache [B, S, Hkv, Dh] (positions Hkv*Dh apart)
-// and the int8 cache [B, Hkv, S, Dh] (positions Dh bytes apart) with f32
-// scales [B, Hkv, S].  An int8 value is dequantized as the TPU kernel
-// does it: float(v) * scale, rounded to bf16 (q's type) before either
-// product.
+// Layout and addressing are two template policies.  KVChunk<kLayout>
+// reads one 16-byte slice of a position's row and writes it to shared
+// memory as bf16: bf16 as stored; int8 dequantized with its f32 scale;
+// packed int4 unpacked into two column runs and dequantized with its
+// bf16 scale (each value float(v) * scale rounded to bf16, as the TPU
+// kernels do, before either product).  Addr maps a position to its
+// storage offset: DenseAddr for the dense caches (bf16 [B, S, Hkv, Dh],
+// int8 [B, Hkv, S, Dh] with scales [B, Hkv, S]); PagedAddr for a block
+// pool read through the batch row's block table (bf16 [N, bs, Hkv, Dh],
+// int8 [N, Hkv, bs, Dh] and int4 [N, Hkv, bs, Dh/2] with scales
+// [N, Hkv, bs]).
 //
 // Design.  Four warps; the R rows are cut into nM = ceil(R / 16) m-tiles
 // of the mma.sync m16n8k16 shape (bf16 in, f32 accumulate), so 16-20
@@ -25,7 +31,7 @@
 // of each block iteration between them (32 positions a warp), each with
 // its own online-softmax state, and the splits are merged once at the
 // end through shared memory.  Every iteration stages 32 * (4 / nM)
-// positions of K and V (dequantized to bf16 for the int8 cache; each
+// positions of K and V (dequantized to bf16 for a quantized cache; each
 // thread keeps 4 + 4 16-byte loads in flight before storing any) and the
 // mask rows in shared memory; an iteration with no live (row, position)
 // pair loads no K/V.  No TMA and no overlap of one iteration's loads with
@@ -55,47 +61,51 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Storage layouts of the cache: bf16 values; int8 values with one f32
+// scale per (position, kv head); packed int4 (byte j of a position's
+// row holds element j in its low nibble and element j + Dh/2 in its
+// high nibble) with one bf16 scale per (position, kv head).
+enum Layout { kBf16 = 0, kInt8 = 1, kInt4 = 2 };
+
 // Cache row chunks into shared memory as bf16, in two steps so that a
 // batch of loads is in flight before any is used: load() reads 16 bytes
-// (bf16: 8 values; int8: 16 values and their position's f32 scale),
-// store() writes them dequantized (int8: float(v) * scale, rounded to
-// bf16).
-template <bool kInt8>
+// of one position's row (and, quantized, its scale), store() writes them
+// dequantized (float(v) * scale, rounded to bf16, as the TPU kernels do).
+// kLoads is the number of 16-byte loads per position's row.
+template <int kLayout>
 struct KVChunk;
 
 template <>
-struct KVChunk<false> {
-  static constexpr int kVals = 8;
+struct KVChunk<kBf16> {
+  using Elem = __nv_bfloat16;
+  using Scale = float;
+  static constexpr int kLoads = kDh / 8;
   uint4 raw;
-  __device__ __forceinline__ void load(const void* base, const float*, long long s_stride,
-                                       int s, int col, bool in_range) {
-    raw = make_uint4(0u, 0u, 0u, 0u);
-    if (in_range) {
-      raw = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) +
-                                            (long long)s * s_stride + col);
-    }
+  __device__ __forceinline__ void clear() { raw = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void load(const Elem* row, const Scale*, int j) {
+    raw = *reinterpret_cast<const uint4*>(row + j * 8);
   }
-  __device__ __forceinline__ void store(__nv_bfloat16* dst) const {
-    *reinterpret_cast<uint4*>(dst) = raw;
+  __device__ __forceinline__ void store(__nv_bfloat16* dst, int j) const {
+    *reinterpret_cast<uint4*>(dst + j * 8) = raw;
   }
 };
 
 template <>
-struct KVChunk<true> {
-  static constexpr int kVals = 16;
+struct KVChunk<kInt8> {
+  using Elem = int8_t;
+  using Scale = float;
+  static constexpr int kLoads = kDh / 16;
   uint4 raw;
   float sc;
-  __device__ __forceinline__ void load(const void* base, const float* scales,
-                                       long long s_stride, int s, int col, bool in_range) {
+  __device__ __forceinline__ void clear() {
     raw = make_uint4(0u, 0u, 0u, 0u);
     sc = 0.f;
-    if (in_range) {
-      raw = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(base) +
-                                            (long long)s * s_stride + col);
-      sc = scales[s];
-    }
   }
-  __device__ __forceinline__ void store(__nv_bfloat16* dst) const {
+  __device__ __forceinline__ void load(const Elem* row, const Scale* scale, int j) {
+    raw = *reinterpret_cast<const uint4*>(row + j * 16);
+    sc = *scale;
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* dst, int j) const {
     uint4 lo, hi;
     const int8_t* v8 = reinterpret_cast<const int8_t*>(&raw);
     uint32_t* l32 = reinterpret_cast<uint32_t*>(&lo);
@@ -105,25 +115,88 @@ struct KVChunk<true> {
       l32[i] = bcg::pack_bf16x2((float)v8[2 * i] * sc, (float)v8[2 * i + 1] * sc);
       h32[i] = bcg::pack_bf16x2((float)v8[8 + 2 * i] * sc, (float)v8[9 + 2 * i] * sc);
     }
-    *reinterpret_cast<uint4*>(dst) = lo;
-    *reinterpret_cast<uint4*>(dst + 8) = hi;
+    *reinterpret_cast<uint4*>(dst + j * 16) = lo;
+    *reinterpret_cast<uint4*>(dst + j * 16 + 8) = hi;
+  }
+};
+
+// Packed int4: a 16-byte load holds 32 values of two separate runs —
+// elements [16j, 16j + 16) in the low nibbles and [Dh/2 + 16j,
+// Dh/2 + 16j + 16) in the high nibbles — so one load feeds two 16-column
+// runs of the shared-memory row.  Each nibble is sign-extended by an
+// arithmetic shift; the bf16 scale is read as float.
+template <>
+struct KVChunk<kInt4> {
+  using Elem = int8_t;
+  using Scale = __nv_bfloat16;
+  static constexpr int kLoads = kDh / 32;
+  uint4 raw;
+  float sc;
+  __device__ __forceinline__ void clear() {
+    raw = make_uint4(0u, 0u, 0u, 0u);
+    sc = 0.f;
+  }
+  __device__ __forceinline__ void load(const Elem* row, const Scale* scale, int j) {
+    raw = *reinterpret_cast<const uint4*>(row + j * 16);
+    sc = __bfloat162float(*scale);
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* dst, int j) const {
+    const uint8_t* b8 = reinterpret_cast<const uint8_t*>(&raw);
+    uint32_t lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int8_t b0 = (int8_t)b8[2 * i], b1 = (int8_t)b8[2 * i + 1];
+      const int l0 = ((int8_t)(uint8_t)(b8[2 * i] << 4)) >> 4;
+      const int l1 = ((int8_t)(uint8_t)(b8[2 * i + 1] << 4)) >> 4;
+      lo[i] = bcg::pack_bf16x2((float)l0 * sc, (float)l1 * sc);
+      hi[i] = bcg::pack_bf16x2((float)(b0 >> 4) * sc, (float)(b1 >> 4) * sc);
+    }
+    uint4* dlo = reinterpret_cast<uint4*>(dst + j * 16);
+    uint4* dhi = reinterpret_cast<uint4*>(dst + kDh / 2 + j * 16);
+    dlo[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    dlo[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    dhi[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    dhi[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+  }
+};
+
+// Where position s of this block's (batch row, kv head) lives, in
+// storage elements from the value base and the scale base.
+// Dense cache: b * bstride + hk * hstride + s * sstride (scales: their
+// own batch and head offset, positions contiguous).
+struct DenseAddr {
+  long long v_off, s_stride, sc_off;
+  __device__ __forceinline__ long long val(int s) const { return v_off + s * s_stride; }
+  __device__ __forceinline__ long long scl(int s) const { return sc_off + s; }
+};
+
+// Block pool: tbl[s / bs] * blk_stride + hk * hstride + (s % bs) * sstride
+// (scales: tbl[s / bs] * sc_blk_stride + hk * sc_hstride + s % bs), with
+// tbl this batch row's block ids, staged in shared memory.
+struct PagedAddr {
+  const int* tbl;
+  int bs;
+  long long blk_stride, v_hoff, s_stride, sc_blk_stride, sc_hoff;
+  __device__ __forceinline__ long long val(int s) const {
+    return (long long)tbl[s / bs] * blk_stride + v_hoff + (long long)(s % bs) * s_stride;
+  }
+  __device__ __forceinline__ long long scl(int s) const {
+    return (long long)tbl[s / bs] * sc_blk_stride + sc_hoff + s % bs;
   }
 };
 
 constexpr int kLoadBatch = 4;   // chunks of K and of V in flight per thread
 
-template <bool kInt8>
+template <int kLayout, class Addr>
 __device__ __forceinline__ void decode_tile_body(
     const __nv_bfloat16* __restrict__ q,      // [B, Kq, H, Dh]
-    const void* __restrict__ k,               // bf16 [B, S, Hkv, Dh] / int8 [B, Hkv, S, Dh], strided
-    const void* __restrict__ v,
-    const float* __restrict__ k_scale,        // int8 only: [B, Hkv, S] (positions contiguous)
-    const float* __restrict__ v_scale,
+    const typename KVChunk<kLayout>::Elem* __restrict__ k,   // addressed through `addr`
+    const typename KVChunk<kLayout>::Elem* __restrict__ v,
+    const typename KVChunk<kLayout>::Scale* __restrict__ k_scale,   // quantized only
+    const typename KVChunk<kLayout>::Scale* __restrict__ v_scale,
     const uint8_t* __restrict__ mask,         // [B, Mk, S], Mk = 1 or Kq
     __nv_bfloat16* __restrict__ out,          // [B, Kq, H, Dh]
-    int S, int H, int Hkv, int Kq, int Mk,
-    long long kv_bstride, long long kv_hstride, long long kv_sstride,
-    long long sc_bstride, long long sc_hstride, float scale) {
+    int S, int H, int Hkv, int Kq, int Mk, const Addr addr, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + kMaxRows * kStride;
@@ -181,21 +254,8 @@ __device__ __forceinline__ void decode_tile_body(
   float l_run[2] = {0.f, 0.f};
 
   const uint8_t* mb = mask + (long long)b * Mk * S;
-  const long long kv_off = (long long)b * kv_bstride + (long long)hk * kv_hstride;
-  const long long sc_off = (long long)b * sc_bstride + (long long)hk * sc_hstride;
-  const void* kb;
-  const void* vb;
-  if (kInt8) {
-    kb = static_cast<const int8_t*>(k) + kv_off;
-    vb = static_cast<const int8_t*>(v) + kv_off;
-  } else {
-    kb = static_cast<const __nv_bfloat16*>(k) + kv_off;
-    vb = static_cast<const __nv_bfloat16*>(v) + kv_off;
-  }
-  const float* ksb = kInt8 ? k_scale + sc_off : nullptr;
-  const float* vsb = kInt8 ? v_scale + sc_off : nullptr;
-  constexpr int kVals = KVChunk<kInt8>::kVals;
-  constexpr int kChunks = kDh / kVals;        // 16-byte loads per cache row
+  using Chunk = KVChunk<kLayout>;
+  constexpr int kChunks = Chunk::kLoads;      // 16-byte loads per cache row
 
   for (int s0 = 0; s0 < S; s0 += P) {
     __syncthreads();   // the previous iteration's K/V/mask are no longer read
@@ -210,23 +270,29 @@ __device__ __forceinline__ void decode_tile_body(
     if (!__syncthreads_or(live)) continue;
 
     for (int c0 = tid; c0 < P * kChunks; c0 += kLoadBatch * kThreads) {
-      KVChunk<kInt8> kc[kLoadBatch], vc[kLoadBatch];
+      Chunk kc[kLoadBatch], vc[kLoadBatch];
 #pragma unroll
       for (int u = 0; u < kLoadBatch; ++u) {
         const int c = c0 + u * kThreads;
-        const int r = c / kChunks, col = (c % kChunks) * kVals;
+        const int r = c / kChunks, j = c % kChunks;
         const int s = s0 + r;
-        const bool ok = c < P * kChunks && s < S;
-        kc[u].load(kb, ksb, kv_sstride, s, col, ok);
-        vc[u].load(vb, vsb, kv_sstride, s, col, ok);
+        if (c < P * kChunks && s < S) {
+          const long long vo = addr.val(s);
+          const long long so = kLayout == kBf16 ? 0 : addr.scl(s);
+          kc[u].load(k + vo, k_scale + so, j);
+          vc[u].load(v + vo, v_scale + so, j);
+        } else {
+          kc[u].clear();
+          vc[u].clear();
+        }
       }
 #pragma unroll
       for (int u = 0; u < kLoadBatch; ++u) {
         const int c = c0 + u * kThreads;
         if (c < P * kChunks) {
-          const int r = c / kChunks, col = (c % kChunks) * kVals;
-          kc[u].store(Ks + r * kStride + col);
-          vc[u].store(Vs + r * kStride + col);
+          const int r = c / kChunks, j = c % kChunks;
+          kc[u].store(Ks + r * kStride, j);
+          vc[u].store(Vs + r * kStride, j);
         }
       }
     }

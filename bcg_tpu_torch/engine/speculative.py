@@ -13,7 +13,8 @@ Each iteration of the speculative loop (:func:`spec_decode_loop`):
    budget-illegal token;
 3. verifies the whole [sampled + draft] chunk in ONE forward pass
    (``models/transformer.decode_chunk_spec``: K+1 positions, logits at
-   every position, KV written at per-row compacted slots);
+   every position, KV written at per-row compacted slots — through the
+   block table and the paged kernel's chunk form for a paged cache);
 4. accepts the longest draft prefix the model agrees with
    (:func:`accept_draft`): greedy rows while the draft token equals the
    masked argmax (token-identical to the plain loop), sampled rows by

@@ -24,15 +24,25 @@ Serving design, as in the JAX engine:
   ``engine/speculative.spec_decode_loop``).  Their write positions and
   per-row counts stay on the device: the only host read in any loop is
   the "all rows done" poll.
-* The dense KV cache is bf16, or int8 with per-(position, kv head)
-  scales (``kv_cache_dtype="int8"``), under all three loops.
+* The dense KV cache is bf16, int8 with per-(position, kv head) scales
+  (``kv_cache_dtype="int8"``) or packed int4 with bf16 scales
+  (``"int4"``, which warns: the dense int4 slab is dequantized whole
+  every step, as in the JAX package), under all three loops.
+* The block-paged KV cache (``paged_kv`` / ``BCG_TPU_PAGED_KV=1``,
+  ``engine/paged_kv.PagedKV``): one preallocated block pool per layer
+  and a block table per row; prompt prefixes are matched by token
+  content in a radix tree, stored once and shared across rows and
+  rounds, and only each row's unmatched tail is prefilled (right-padded,
+  so full blocks of real tokens can be shared).  Over bf16, int8 and
+  int4 pools, under all three loops; each call frees its private blocks
+  and unpins its radix paths in a ``finally``.
 * Attention and sampling run the port's hand-written CUDA kernels on a
   CUDA device, and their plain versions on the CPU (tests).
 
-Ported: bf16 weights, a dense bf16 or int8 KV cache, the plain,
-fast-forward and speculative loops.  Every knob outside that raises
-``NotImplementedError`` naming the ROADMAP item that brings it; none is
-ignored.
+Ported: bf16 weights, a dense or paged bf16, int8 or int4 KV cache, the
+plain, fast-forward and speculative loops.  Every knob outside that
+raises ``NotImplementedError`` naming the ROADMAP item that brings it;
+none is ignored.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from bcg_tpu_torch.engine.chat_template import (
     prefix_split_safe,
 )
 from bcg_tpu_torch.engine.interface import InferenceEngine, per_row_settings as _per_row
+from bcg_tpu_torch.engine.paged_kv import PagedKV
 from bcg_tpu_torch.engine.tokenizer import Tokenizer, tokenizer_for_model
 from bcg_tpu_torch.engine.speculative import spec_decode_loop, spec_decode_slots
 from bcg_tpu_torch.guided.processor import FF_CHUNK, GuidedBatch, compile_schema
@@ -65,10 +76,12 @@ from bcg_tpu_torch.models.transformer import (
     init_kv_cache,
     prefill,
     prefill_chunk_at,
+    prefill_paged,
+    prefill_paged_chunk_at,
     prefill_with_prefix,
 )
 from bcg_tpu_torch.ops.guided_sampler import make_fused_sampler
-from bcg_tpu_torch.runtime import envflags
+from bcg_tpu_torch.runtime import envflags, metrics as _metrics
 
 # Bucket ladders: identical to the JAX engine's (see jax_engine.py for
 # the reasoning behind each rung).
@@ -140,6 +153,25 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _resolve_paged_impl(raw: str, device: torch.device) -> str:
+    """``paged_kv_impl`` the port's way: on CUDA, ``auto`` and ``pallas``
+    both mean the paged kernel (``"cuda"``) and ``xla`` — the gather
+    oracle — raises, so the served path never runs a plain version on
+    the card; on the CPU every value runs the plain gather version
+    (``"plain"``)."""
+    raw = (raw or "auto").strip().lower()
+    if raw not in ("auto", "xla", "pallas"):
+        raise ValueError(f"paged_kv_impl={raw!r}: expected 'auto', 'xla' or 'pallas'")
+    if device.type != "cuda":
+        return "plain"
+    if raw == "xla":
+        raise ValueError(
+            "paged_kv_impl='xla': the PyTorch engine runs the paged attention "
+            "kernel on CUDA ('auto'); the gather oracle serves CPU tensors only"
+        )
+    return "cuda"
+
+
 class TorchEngine(InferenceEngine):
     def __init__(self, config, device=None, params=None,
                  spec: Optional[ModelSpec] = None):
@@ -150,6 +182,13 @@ class TorchEngine(InferenceEngine):
             raise ValueError(f"No architecture spec for model {config.model_name!r}")
         self.kv_cache_dtype = self._check_config(config)
         self.kv_int8 = self.kv_cache_dtype == "int8"
+        # False | "int8" | "int4": the ``quantized=`` argument of every
+        # cache and pool allocation.
+        self.kv_quantized = False if self.kv_cache_dtype == "bfloat16" else self.kv_cache_dtype
+        if self.kv_cache_dtype == "int4":
+            from bcg_tpu_torch.models.quantize import kv_int4_layout
+
+            kv_int4_layout(self.spec.head_dim)   # even-head-dim boot check
         self.tokenizer: Tokenizer = tokenizer_for_model(config.model_name)
         self.max_model_len = config.max_model_len
         self.prefill_chunk = int(getattr(config, "prefill_chunk", 0) or 0)
@@ -177,10 +216,12 @@ class TorchEngine(InferenceEngine):
         # cache is bf16 or int8 either way, as in the JAX engine.
         self.kv_dtype = torch.bfloat16
         self._param_bytes = sum(_nbytes(t) for t in self.params.values())
-        # Bytes of one cache slot of one layer: k and v, plus (int8) their
-        # two f32 scales per kv head.
+        # Bytes of one cache slot of one layer: k and v, plus their two
+        # scales per kv head (int8: 1-byte values, f32 scales; int4:
+        # half-byte values, bf16 scales — half the int8 slot).
         Hkv, Dh = self.spec.num_kv_heads, self.spec.head_dim
-        self._kv_slot_bytes = Hkv * (2 * Dh + 8) if self.kv_int8 else Hkv * Dh * 4
+        self._kv_slot_bytes = {"int8": Hkv * (2 * Dh + 8), "int4": Hkv * (Dh + 4)}.get(
+            self.kv_cache_dtype, Hkv * Dh * 4)
 
         # Decode loops (see the module docstring).  Speculative decoding
         # supersedes fast-forward when both are set; the env flags
@@ -254,13 +295,32 @@ class TorchEngine(InferenceEngine):
             free = self._mem_limit - self._param_bytes
             self._prefix_budget = min(4 << 30, max(256 << 20, int(free * 0.25)))
 
+        # Block-paged KV cache (see the module docstring); the pool is
+        # sized after the weights, from the card's memory.
+        self.paged_kv = bool(getattr(config, "paged_kv", False)) or env_flag("BCG_TPU_PAGED_KV")
+        self._paged: Optional[PagedKV] = None
+        self._paged_call_private: List[int] = []
+        self._paged_dirty = False
+        self._paged_toks_memo: Dict[str, np.ndarray] = {}
+        if self.kv_cache_dtype == "int4" and not self.paged_kv:
+            warnings.warn(
+                "kv_cache_dtype='int4' without paged_kv: the dense packed cache "
+                "is dequantized whole every decode step, which is SLOWER than "
+                "bfloat16 — enable BCG_TPU_PAGED_KV=1 (the paged kernel unpacks "
+                "nibbles as it reads them) to get the capacity win without the "
+                "dequant tax",
+                stacklevel=2,
+            )
+        if self.paged_kv:
+            self._init_paged(config)
+
     # ------------------------------------------------------------ config
 
     @staticmethod
     def _check_config(config) -> str:
         """The JAX engine's config resolution, narrowed to what the port
         serves: every knob outside the ported path raises.  Returns the
-        KV-cache dtype (``"bfloat16"`` or ``"int8"``)."""
+        KV-cache dtype (``"bfloat16"``, ``"int8"`` or ``"int4"``)."""
         if getattr(config, "dtype", "bfloat16") not in ("bfloat16", "bf16"):
             raise ValueError(
                 f"dtype={config.dtype!r}: serving computes in bfloat16"
@@ -275,8 +335,6 @@ class TorchEngine(InferenceEngine):
                 f"kv_cache_dtype={kv_raw!r}: expected 'bfloat16'/'bf16', "
                 "'int8' or 'int4'"
             )
-        if kv_raw == "int4":
-            raise _not_ported(f"kv_cache_dtype={kv_raw!r}", "A8")
         if config.quantization not in (None, "int8", "int4"):
             raise ValueError(
                 f"quantization={config.quantization!r}: expected None, "
@@ -284,8 +342,6 @@ class TorchEngine(InferenceEngine):
             )
         if config.quantization is not None:
             raise _not_ported(f"quantization={config.quantization!r}", "A8")
-        if getattr(config, "paged_kv", False) or env_flag("BCG_TPU_PAGED_KV"):
-            raise _not_ported("paged_kv", "A9")
         for name in ("tensor_parallel_size", "data_parallel_size",
                      "sequence_parallel_size"):
             if int(getattr(config, name, 1)) > 1:
@@ -307,6 +363,32 @@ class TorchEngine(InferenceEngine):
                 "the fused sampler kernel ('auto')"
             )
         return kv_raw
+
+    def _init_paged(self, config) -> None:
+        """The paged pool and its knobs (the JAX engine's boot section):
+        block size and pool size from the env or the config (0 blocks =
+        :meth:`_auto_pool_blocks`), the attention impl
+        (:func:`_resolve_paged_impl`, resolved before the pool is
+        allocated), the chunked-prefill size aligned up to the block size
+        (paged history is gathered in whole table columns), and the
+        entry-build scratch reserve."""
+        impl = _resolve_paged_impl(
+            envflags.get_str("BCG_TPU_PAGED_KV_IMPL")
+            or str(getattr(config, "paged_kv_impl", "auto") or "auto"),
+            self.device,
+        )
+        bs_blk = (envflags.get_int("BCG_TPU_KV_BLOCK_SIZE")
+                  or int(getattr(config, "kv_block_size", 16) or 16))
+        pool_blocks = (envflags.get_int("BCG_TPU_KV_POOL_BLOCKS")
+                       or int(getattr(config, "kv_pool_blocks", 0) or 0))
+        if pool_blocks <= 0:
+            pool_blocks = self._auto_pool_blocks(bs_blk)
+        self.paged_kv_impl = impl
+        self._paged = PagedKV(self.spec, pool_blocks, bs_blk, quantized=self.kv_quantized,
+                              device=self.device)
+        if self.prefill_chunk:
+            self.prefill_chunk += (-self.prefill_chunk) % bs_blk
+        self._paged_scratch_blocks = self._paged_build_scratch_blocks()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -373,7 +455,7 @@ class TorchEngine(InferenceEngine):
 
     def _new_cache(self, batch: int, length: int):
         return init_kv_cache(self.spec, batch, length, self.kv_dtype, self.device,
-                             quantized=self.kv_int8)
+                             quantized=self.kv_quantized)
 
     def _store_entry(self, key, entry) -> None:
         entry["bytes"] = entry["kv"].nbytes()
@@ -582,6 +664,216 @@ class TorchEngine(InferenceEngine):
         return (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks,
                 P, P + tail)
 
+    # ----------------------------------------------------------- paged assembly
+
+    @staticmethod
+    def _rightpad_tokens(token_lists, limits: List[int],
+                         bucket_ladder: Tuple[int, ...]) -> Tuple[np.ndarray, np.ndarray, int]:
+        """RIGHT-pad per-row token lists (already truncated to their row
+        limits) into a bucketed [B, L] batch — the paged counterpart of
+        :meth:`_encode_leftpad`: tokens left-ALIGNED so full real-token
+        blocks can be shared (see ``transformer.prefill_paged``).  Same
+        ladder semantics."""
+        max_len = max((len(t) for t in token_lists), default=0)
+        max_limit = max(limits)
+        buckets = list(bucket_ladder)
+        while buckets[-1] < max_limit:
+            buckets.append(buckets[-1] * 2)
+        L = next((b for b in buckets if b >= max_len), max_limit)
+        L = max(min(L, max_limit), max_len, 1)
+        B = len(token_lists)
+        tokens = np.zeros((B, L), dtype=np.int32)
+        valid = np.zeros((B, L), dtype=bool)
+        for i, toks in enumerate(token_lists):
+            tokens[i, : len(toks)] = toks
+            valid[i, : len(toks)] = True
+        return tokens, valid, L
+
+    def _paged_tokens(self, text: str) -> np.ndarray:
+        """Tokenize, memoized (radix keys are token arrays, and every
+        batch re-derives its entries); bounded like the length memo."""
+        toks = self._paged_toks_memo.get(text)
+        if toks is None:
+            toks = np.asarray(self.tokenizer.encode(text), dtype=np.int32)
+            self._paged_toks_memo[text] = toks
+            if len(self._paged_toks_memo) > 512:
+                self._paged_toks_memo = dict(list(self._paged_toks_memo.items())[-256:])
+        return toks
+
+    def _get_paged_entry(self, text: str, limit: int) -> Optional[Dict[str, Any]]:
+        """Resolve a cachable prompt prefix against the radix index:
+        longest full-block match, then ONE B=1 prefill of the unmatched
+        remainder (up to the last full block boundary) into fresh blocks
+        grafted onto the tree — the paged successor of
+        :meth:`_get_prefix_entry`/:meth:`_get_core_entry`.  The sub-block
+        leftover is returned for the caller's per-row suffix.  None when
+        the prefix cannot fit the prompt window."""
+        mgr = self._paged
+        bs = mgr.block_size
+        toks = self._paged_tokens(text)
+        if toks.size == 0 or len(toks) > limit - 64:
+            return None
+        path, blocks = mgr.lookup(toks)
+        mgr.pin(path)
+        matched = len(blocks) * bs
+        full_end = (len(toks) // bs) * bs
+        if full_end > matched:
+            Lr = full_end - matched
+            # Bucket the build chunk for stable shapes; the pad tail lands
+            # in scratch blocks freed right after the insert.
+            Lr_pad = next((b for b in self._suffix_buckets if b >= Lr), Lr)
+            Lr_pad = -(-Lr_pad // bs) * bs
+            Pm_pad = 0
+            if matched:
+                Pm_rung = next((b for b in _PREFIX_BUCKETS if b >= matched), matched)
+                Pm_pad = -(-Pm_rung // bs) * bs
+            n_real = Lr // bs
+            new_ids = mgr.alloc(Lr_pad // bs)
+            # Provisional ownership: freed by the call's finally unless the
+            # insert below grafts them into the tree.
+            self._paged_call_private.extend(new_ids)
+            tbl = np.zeros((1, Pm_pad // bs + Lr_pad // bs), dtype=np.int32)
+            tbl[0, : len(blocks)] = blocks
+            tbl[0, Pm_pad // bs:] = new_ids
+            tokens = np.zeros((1, Lr_pad), dtype=np.int32)
+            tokens[0, :Lr] = toks[matched:full_end]
+            valid = np.zeros((1, Lr_pad), dtype=bool)
+            valid[0, :Lr] = True
+            pv = np.zeros((1, Pm_pad), dtype=bool)
+            pv[0, :matched] = True
+            cache = mgr.entries(tbl)
+            self._paged_dirty = True
+            self._prefill_paged_possibly_chunked(tokens, valid, Lr_pad, cache, pv,
+                                                 np.asarray([matched], np.int32))
+            self._paged_dirty = False
+            grafted = mgr.insert(path, toks, matched, new_ids[:n_real])
+            kept = {node.block for node in grafted}
+            # Everything not grafted is dead the moment insert returns (the
+            # scratch pad tail and any duplicate-content blocks): free it
+            # now, so peak pool demand stays what admission accounts for.
+            dead = set(new_ids) - kept
+            mgr.free(dead)
+            self._paged_call_private = [
+                i for i in self._paged_call_private if i not in kept and i not in dead
+            ]
+            path = path + grafted
+            blocks = [node.block for node in path]
+        return {
+            "blocks": blocks,
+            "len": full_end,
+            "toks": toks[:full_end],
+            "leftover": toks[full_end:],
+        }
+
+    def _warn_prefix_fallback(self, why: str) -> None:
+        self.prefix_fallbacks += 1
+        if not self._prefix_fallback_warned:
+            warnings.warn(
+                f"radix prefix sharing disengaged for this batch ({why}) — the "
+                "whole prompt prefills into private blocks; further fallbacks "
+                "are counted in engine.prefix_fallbacks",
+                stacklevel=3,
+            )
+            self._prefix_fallback_warned = True
+
+    def _prepare_paged_batch(self, parts, budgets: List[int], decode_slots: int):
+        """Assemble a batch over the block pool: per-row block tables of
+        radix-shared prefix blocks (padded with the null block to a
+        bucketed prefix region) plus freshly allocated private blocks for
+        the suffix window and the decode tail.  Radix-cached prefixes
+        when the batch qualifies (the dense prefix cache's conditions),
+        else the whole prompt as suffix over private blocks — a paged
+        engine never falls back to dense slabs."""
+        mgr = self._paged
+        bs = mgr.block_size
+        B = len(parts)
+        limits = [self.max_model_len - b - 1 for b in budgets]
+        if min(limits) < 1:
+            raise BudgetError(
+                f"max_tokens={max(budgets)} leaves no room for a prompt "
+                f"within max_model_len={self.max_model_len}"
+            )
+        limit = self.max_model_len - max(budgets) - 1
+        cacheable = self.prefix_caching and self._prefix_safe and all(p for p, _, _ in parts)
+        rows = None
+        entries: Optional[Dict[Tuple[str, str], Dict[str, Any]]] = None
+        if cacheable:
+            # Seam safety decides per ROW whether its core is usable, as
+            # in _prepare_prefixed_batch.
+            rows = []
+            seam_memo: Dict[Tuple[str, str], bool] = {}
+            for p, c, t in parts:
+                if c:
+                    ok = seam_memo.get((c, t))
+                    if ok is None:
+                        ok = self._core_seam_safe(c, t)
+                        seam_memo[(c, t)] = ok
+                    rows.append((p, c, t) if ok else (p, "", c + t))
+                else:
+                    rows.append((p, "", t))
+            entries = {}
+            for p, c, _ in rows:
+                if (p, c) in entries:
+                    continue
+                e = self._get_paged_entry(p + c, limit)
+                if e is None:
+                    entries = None
+                    break
+                entries[(p, c)] = e
+            if entries is None:
+                cacheable = False
+                self._warn_prefix_fallback("prefix too long for the prompt window")
+        if cacheable:
+            res = [entries[(p, c)] for p, c, _ in rows]
+            suffix_toks = [list(e["leftover"]) + list(self._paged_tokens(t))
+                           for e, (_, _, t) in zip(res, rows)]
+            ladder = self._suffix_buckets
+        else:
+            res = [None] * B
+            suffix_toks = [list(self._paged_tokens(p + c + t)) for p, c, t in parts]
+            ladder = _LEN_BUCKETS
+        max_res = max(e["len"] if e else 0 for e in res)
+        P = 0
+        if max_res:
+            P_rung = next((b for b in _PREFIX_BUCKETS if b >= max_res and b <= limit),
+                          max(max_res, limit - 64))
+            P = -(-P_rung // bs) * bs
+        limits_s = [lim - P for lim in limits]
+        if min(limits_s) < 1:
+            # A mixed-budget row cannot fit any suffix past the shared
+            # prefix region: serve the batch uncached (still paged).
+            self._warn_prefix_fallback("a row's token budget leaves no suffix room past "
+                                       "the shared prefix region")
+            res = [None] * B
+            suffix_toks = [list(self._paged_tokens(p + c + t)) for p, c, t in parts]
+            ladder = _LEN_BUCKETS
+            P = 0
+            limits_s = limits
+        suffix_toks = [t[-lim:] for t, lim in zip(suffix_toks, limits_s)]
+        tokens, valid, Ls = self._rightpad_tokens(suffix_toks, limits_s, ladder)
+        S = P + Ls + decode_slots
+        S += (-S) % bs
+        nblk = S // bs
+        n_priv = (S - P) // bs
+        priv = mgr.alloc(B * n_priv)
+        self._paged_call_private.extend(priv)
+        tbl = np.zeros((B, nblk), dtype=np.int32)
+        prefix_valid = np.zeros((B, P), dtype=bool)
+        prefix_lens = np.zeros((B,), dtype=np.int32)
+        prefix_toks = []
+        for i in range(B):
+            e = res[i]
+            if e is not None:
+                tbl[i, : len(e["blocks"])] = e["blocks"]
+                prefix_valid[i, : e["len"]] = True
+                prefix_lens[i] = e["len"]
+                prefix_toks.append(e["toks"])
+            else:
+                prefix_toks.append(np.zeros(0, dtype=np.int32))
+            tbl[i, P // bs:] = priv[i * n_priv:(i + 1) * n_priv]
+        cache = mgr.entries(tbl)
+        return (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P, S)
+
     # -------------------------------------------------------------- prefill
 
     def _prefill_possibly_chunked(self, tokens, valid, L: int, cache,
@@ -619,6 +911,53 @@ class TorchEngine(InferenceEngine):
                 self._dev(pos_off.astype(np.int32)), P + start,
             )
         return first_logits, cache
+
+    def _prefill_paged_possibly_chunked(self, tokens, valid, Ls: int, cache,
+                                        prefix_valid, prefix_lens):
+        """Paged prefill — one pass, or ``prefill_chunk``-sized slices
+        through the block pool when configured and the window exceeds the
+        chunk.  Chunk ``k`` writes logical slots ``[P + kC, P + kC + C)``
+        and attends the radix prefix plus every earlier chunk through a
+        fixed block-aligned ``[B, H]`` history mask; the per-row
+        last-valid logits thread through a carry (chunks are
+        right-padded).  Serves batch prefills and the radix entry builds."""
+        C = self.prefill_chunk
+        if not C or Ls <= C:
+            return prefill_paged(
+                self.params, self.spec, self._dev(tokens, torch.long), self._dev(valid),
+                cache, self._dev(prefix_valid), self._dev(prefix_lens, torch.int32),
+            )
+        tokens = np.asarray(tokens)
+        valid = np.asarray(valid)
+        prefix_valid = np.asarray(prefix_valid)
+        bs = self._paged.block_size
+        if Ls % bs:
+            # The history window H = P + Ls - C must be block-aligned (C
+            # already is): align the window up with masked pad columns,
+            # which lie inside the table's block-rounded coverage.
+            pad = (-Ls) % bs
+            tokens = np.pad(tokens, ((0, 0), (0, pad)))
+            valid = np.pad(valid, ((0, 0), (0, pad)))
+            Ls += pad
+        B = tokens.shape[0]
+        P = prefix_valid.shape[1]
+        base_lens = np.asarray(prefix_lens, dtype=np.int64)
+        logits = torch.zeros((B, self.spec.vocab_size), dtype=torch.float32,
+                             device=self.device)
+        for start in range(0, Ls, C):
+            Ct = min(C, Ls - start)
+            H = P + Ls - Ct
+            hist = np.zeros((B, H), dtype=bool)
+            hist[:, :P] = prefix_valid
+            hist[:, P:P + start] = valid[:, :start]
+            pos_off = base_lens + valid[:, :start].sum(axis=1)
+            logits, cache = prefill_paged_chunk_at(
+                self.params, self.spec,
+                self._dev(tokens[:, start:start + Ct], torch.long),
+                self._dev(valid[:, start:start + Ct]), cache, self._dev(hist),
+                self._dev(pos_off.astype(np.int32)), P + start, logits,
+            )
+        return logits, cache
 
     # ---------------------------------------------------------- decode loop
 
@@ -752,12 +1091,35 @@ class TorchEngine(InferenceEngine):
 
     def _decode_batch(self, parts, batch, real_B, temps, budgets, top_p,
                       free: bool = False) -> List[str]:
+        """:meth:`_decode_batch_impl`, and for a paged engine the call's
+        ``finally``: free the call's private blocks and unpin its radix
+        paths — or, after a failure while blocks were being written,
+        invalidate the pool (its contents are undefined) — then publish
+        the pool snapshot (``runtime.metrics.publish_kv_pool``)."""
+        try:
+            return self._decode_batch_impl(parts, batch, real_B, temps, budgets, top_p,
+                                           free=free)
+        finally:
+            if self._paged is not None:
+                if self._paged_dirty:
+                    self._paged_dirty = False
+                    self._paged_call_private = []
+                    self._paged.invalidate()
+                else:
+                    self._paged.free(self._paged_call_private)
+                    self._paged_call_private = []
+                    self._paged.unpin_all()
+                _metrics.publish_kv_pool(self.kv_pool_stats())
+
+    def _decode_batch_impl(self, parts, batch, real_B, temps, budgets, top_p,
+                           free: bool = False) -> List[str]:
         """Prefill + guided decode for a batch-padded list of
-        ``(prefix, core, suffix)`` prompt parts (the dense path of the JAX
-        engine's ``_decode_batch_impl``).  Speculative decoding applies
-        to both the guided and the ``free`` path and supersedes
-        fast-forward; fast-forward skips the free path, whose permissive
-        automaton has no forced chains."""
+        ``(prefix, core, suffix)`` prompt parts (the JAX engine's
+        ``_decode_batch_impl``): over the block pool for a paged engine,
+        else over a dense cache with the prefix cache.  Speculative
+        decoding applies to both the guided and the ``free`` path and
+        supersedes fast-forward; fast-forward skips the free path, whose
+        permissive automaton has no forced chains."""
         B = len(parts)
         max_new = max(budgets)
         use_spec = self.spec_decode
@@ -771,7 +1133,23 @@ class TorchEngine(InferenceEngine):
         self._check_kv_budget(B, budgets, decode_slots)
         t0 = time.perf_counter()
         prepped = None
-        if self.prefix_caching and self._prefix_safe and all(p for p, _, _ in parts):
+        paged = self._paged is not None
+        if paged:
+            (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
+             S) = self._prepare_paged_batch(parts, budgets, decode_slots)
+            self._paged_dirty = True
+            first_logits, cache = self._prefill_paged_possibly_chunked(
+                tokens, valid, Ls, cache, prefix_valid, prefix_lens)
+            self._paged_dirty = False
+            L = P + Ls
+            valid_mask = np.zeros((B, S), dtype=bool)
+            valid_mask[:, :P] = prefix_valid
+            valid_mask[:, P:L] = valid
+            prompt_lens = (prefix_lens + valid.sum(axis=1)).astype(np.int32)
+            # Private blocks only: the radix-shared prefix is not this
+            # batch's to count.
+            kv_bytes = B * ((S - P) // self._paged.block_size) * self._paged.block_bytes_dev
+        elif self.prefix_caching and self._prefix_safe and all(p for p, _, _ in parts):
             prepped = self._prepare_prefixed_batch(parts, budgets, decode_slots)
             if prepped is None:
                 self.prefix_fallbacks += 1
@@ -784,7 +1162,8 @@ class TorchEngine(InferenceEngine):
                         stacklevel=2,
                     )
                     self._prefix_fallback_warned = True
-        prefix_toks = None
+        if not paged:
+            prefix_toks = None
         if prepped is not None:
             (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
              S) = prepped
@@ -797,7 +1176,7 @@ class TorchEngine(InferenceEngine):
             valid_mask[:, :P] = prefix_valid
             valid_mask[:, P:L] = valid
             prompt_lens = (prefix_lens + valid.sum(axis=1)).astype(np.int32)
-        else:
+        elif not paged:
             full_prompts = [p + c + t for p, c, t in parts]
             tokens, valid, L = self._prepare_batch(full_prompts, budgets)
             S = L + decode_slots
@@ -806,8 +1185,12 @@ class TorchEngine(InferenceEngine):
             valid_mask = np.zeros((B, S), dtype=bool)
             valid_mask[:, :L] = valid
             prompt_lens = valid.sum(axis=1).astype(np.int32)
+        if not paged:
+            kv_bytes = cache.nbytes()
         self._sync()
         t1 = time.perf_counter()
+        # A paged loop writes decode KV into private pool blocks.
+        self._paged_dirty = paged
         loop_args = (cache, first_logits, self._dev(valid_mask), self._dev(prompt_lens),
                      L, batch, temps, budgets, max_new, top_p)
         if use_spec:
@@ -827,7 +1210,8 @@ class TorchEngine(InferenceEngine):
             out_np, steps = self._ff_decode_loop(*loop_args)
         else:
             out_np, steps = self._decode_loop(*loop_args)
-        self.max_kv_cache_bytes = max(self.max_kv_cache_bytes, cache.nbytes())
+        self._paged_dirty = False
+        self.max_kv_cache_bytes = max(self.max_kv_cache_bytes, kv_bytes)
         is_eos = out_np == self.tokenizer.eos_id
         row_len = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1), max_new)
         self.total_plain_steps += int(min(max_new - 1, row_len.max()))
@@ -842,7 +1226,7 @@ class TorchEngine(InferenceEngine):
                 f"[engine] decode B={B} L={L} S={S} max_new={max_new} "
                 f"loop={'spec' if use_spec else 'ff' if use_ff else 'plain'} "
                 f"steps={steps} prefill={t1 - t0:.3f}s decode={t2 - t1:.3f}s "
-                f"prefix={'hit' if prepped is not None else 'miss'}",
+                f"prefix={'hit' if (prepped is not None or (paged and P)) else 'miss'}",
                 flush=True, file=sys.stderr,
             )
         texts = []
@@ -935,9 +1319,57 @@ class TorchEngine(InferenceEngine):
         b = max(1, self.max_model_len - 2)
         return (self.max_model_len - b - 1) + self._decode_reserve(b)
 
+    def _auto_pool_blocks(self, block_size: int) -> int:
+        """Paged-pool auto-sizing: the WHOLE KV budget becomes one pool —
+        ``hbm_utilization`` of the card's memory
+        (``torch.cuda.mem_get_info``) minus the weights, with no separate
+        prefix reserve (radix-resident prefixes and decode tails draw
+        from the same blocks).  Without a device limit (the CPU) the pool
+        affords 16 worst-case rows."""
+        block_bytes = max(1, block_size * self._kv_slot_bytes * self.spec.num_layers)
+        if self._mem_limit:
+            budget = self.config.hbm_utilization * self._mem_limit - self._param_bytes
+            return max(64, min(1 << 20, int(budget // block_bytes)))
+        blocks_per_row = -(-self.worst_case_decode_window() // block_size) + 1
+        return 16 * blocks_per_row + 1
+
+    def _paged_build_scratch_blocks(self) -> int:
+        """Worst-case TRANSIENT blocks one radix entry build holds past its
+        real content: the bucket pad tail of the remainder prefill (freed
+        as soon as the insert returns, but live during the build).
+        Admission carves it out of the usable pool so that an admitted
+        batch cannot run out of blocks mid-prefill; builds run one at a
+        time, so one build's worth suffices."""
+        bs = self._paged.block_size
+        worst = 0
+        prev = 0
+        for rung in self._suffix_buckets:
+            # Smallest block-aligned remainder mapping to this rung.
+            lr = (prev // bs + 1) * bs
+            if lr > self.max_model_len:
+                break
+            worst = max(worst, -(-rung // bs) - lr // bs)
+            prev = rung
+        return worst
+
+    def _paged_scratch_reserve(self) -> int:
+        """The entry-build scratch reserve admission subtracts — 0 when
+        radix prefix sharing cannot engage."""
+        return self._paged_scratch_blocks if self.prefix_caching and self._prefix_safe else 0
+
+    def _paged_usable_blocks(self) -> int:
+        """Blocks admission may budget: the pool minus the null block
+        minus the scratch reserve, floored at 1."""
+        return max(1, self._paged.num_blocks - 1 - self._paged_scratch_reserve())
+
     def cap_for(self, S: int) -> Optional[int]:
         """Concurrent-row cap for decode-cache length ``S`` (None when
-        the device limit is unknown)."""
+        the device limit is unknown).  Paged: from block accounting — the
+        usable pool over the ``ceil(S / bs)`` blocks a row needs (a
+        static floor: shared prefix blocks make the real need smaller)."""
+        if self._paged is not None:
+            blocks_per_row = -(-S // self._paged.block_size)
+            return max(1, self._paged_usable_blocks() // blocks_per_row)
         budget = self._kv_row_budget()
         if budget is None:
             return None
@@ -947,8 +1379,9 @@ class TorchEngine(InferenceEngine):
     def _provisioned_row_cap(self, parts, budgets: List[int]) -> Optional[int]:
         """``hbm_utilization`` as a row provisioner: caps the decoded rows
         so cache + weights + prefix reserve fit; None when it all fits or
-        the limit is unknown."""
-        if self._mem_limit is None:
+        the limit is unknown.  A paged engine provisions even without a
+        device limit: its pool is finite everywhere."""
+        if self._mem_limit is None and self._paged is None:
             return None
         decode_res = self._decode_reserve(max(budgets))
         limit = self.max_model_len - min(budgets) - 1
@@ -967,8 +1400,27 @@ class TorchEngine(InferenceEngine):
 
     def _check_kv_budget(self, B: int, budgets: List[int], decode_res: int) -> None:
         """Warn once when the worst-case KV cache of this batch plus the
-        weights exceed ``hbm_utilization`` of the card."""
-        if self._kv_budget_warned or self._mem_limit is None:
+        weights exceed ``hbm_utilization`` of the card — for a paged
+        engine, when the batch's worst-case block need exceeds the usable
+        pool."""
+        if self._kv_budget_warned:
+            return
+        if self._paged is not None:
+            bs_blk = self._paged.block_size
+            S = self.max_model_len - min(budgets) - 1 + decode_res
+            needed = B * (-(-S // bs_blk))
+            usable = self._paged_usable_blocks()
+            if needed > usable:
+                warnings.warn(
+                    f"worst-case KV need ({needed} blocks for B={B}, S={S}) exceeds "
+                    f"the paged pool ({usable} usable blocks of {bs_blk} tokens); "
+                    "bound it with max_num_seqs, a smaller max_model_len, or a "
+                    "larger BCG_TPU_KV_POOL_BLOCKS",
+                    stacklevel=3,
+                )
+                self._kv_budget_warned = True
+            return
+        if self._mem_limit is None:
             return
         S = self.max_model_len - min(budgets) - 1 + decode_res
         kv_total = B * S * self._kv_slot_bytes * self.spec.num_layers
@@ -1054,10 +1506,30 @@ class TorchEngine(InferenceEngine):
     def batch_generate(self, prompts, temperature=0.0, max_tokens=256, top_p=1.0):
         return self._run_free(prompts, temperature, max_tokens, top_p)
 
+    def kv_pool_stats(self) -> Optional[Dict[str, Any]]:
+        """Paged-pool snapshot (block counts, free-block headroom bytes,
+        radix prefix hit rate, the attention impl) for serve stats and
+        bench JSON; None on a dense engine.  ``pages_per_program`` is a
+        TPU grid knob the port does not have: always None."""
+        if self._paged is None:
+            return None
+        stats = self._paged.stats()
+        stats["impl"] = self.paged_kv_impl
+        stats["kv_dtype"] = self.kv_cache_dtype
+        stats["interpret"] = False
+        stats["pages_per_program"] = None
+        stats["scratch_reserve_blocks"] = self._paged_scratch_reserve()
+        return stats
+
     def shutdown(self) -> None:
-        """Release the weights and cached prefix KV."""
+        """Release the weights, the cached prefix KV and the paged pool."""
         self._prefix_cache.clear()
         self._prefix_bytes = 0
+        if self._paged is not None:
+            self._paged.close()
+        self._paged = None
+        self._paged_call_private = []
+        self._paged_toks_memo.clear()
         self.params = {}
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

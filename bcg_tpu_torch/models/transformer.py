@@ -11,14 +11,21 @@ PyTorch — the port of ``bcg_tpu/models/transformer.py``.
   mixed dtypes implicitly (an f32 query against a bf16 cache), this
   module promotes explicitly to the same result type, so f32 weights on
   the CPU reproduce the JAX numbers.
-* The KV cache is bf16 ``[B, S, Hkv, Dh]``, or int8 ``[B, Hkv, S, Dh]``
-  with f32 per-(position, kv head) scales ``[B, Hkv, S]``
-  (``init_kv_cache(quantized="int8")``); the scale entries mark an int8
-  entry.
+* The dense KV cache is bf16 ``[B, S, Hkv, Dh]``, int8 ``[B, Hkv, S,
+  Dh]`` with f32 per-(position, kv head) scales ``[B, Hkv, S]``
+  (``init_kv_cache(quantized="int8")``), or packed int4 ``[B, Hkv, S,
+  Dh/2]`` with bf16 scales (``quantized="int4"``); the scale entries mark
+  a quantized entry and their dtype tells int4 from int8.
+* A PAGED entry (a block pool plus a ``"tbl"`` block table,
+  :mod:`bcg_tpu_torch.ops.paged_attention`) takes the same calls: its
+  writes go through the table, its decode attention through the paged
+  kernel, and a prefill's history is gathered from whole table columns
+  (:func:`prefill_paged`, :func:`prefill_paged_chunk_at`).
 * Attention goes through the hand-written kernels' wrappers
   (:mod:`bcg_tpu_torch.ops.attention` for prefill,
   :mod:`bcg_tpu_torch.ops.decode_attention` for the decode step and the
-  decode chunks of the fast-forward and speculative loops), which launch
+  decode chunks of the fast-forward and speculative loops,
+  :mod:`bcg_tpu_torch.ops.paged_attention` for a paged cache), which launch
   the CUDA kernel on a CUDA tensor and run the plain version on a CPU
   tensor.
 * Where JAX returns a NEW cache, this module writes the cache IN PLACE
@@ -45,6 +52,15 @@ from bcg_tpu_torch.ops.decode_attention import (
     dequantize_kv,
     quantize_kv,
 )
+from bcg_tpu_torch.ops.paged_attention import (
+    block_size as paged_block_size,
+    is_paged,
+    paged_chunk_attention,
+    paged_decode_attention,
+    paged_gather_entry,
+    paged_write,
+    write_index as paged_write_index,
+)
 
 TransformerParams = Dict[str, torch.Tensor]  # flat: logical name -> tensor
 
@@ -53,9 +69,10 @@ class KVCache(list):
     """Per-layer dense cache entries, all views of ONE buffer ``buf`` —
     one memset to allocate, one copy to move a prefix entry into a batch
     cache.  bf16: ``{"k", "v"}`` ``[B, S, Hkv, Dh]`` of ``buf``
-    ``[num_layers, 2, B, S, Hkv, Dh]``.  int8: ``{"k", "v"}``
-    ``[B, Hkv, S, Dh]`` of ``buf`` ``[num_layers, 2, B, Hkv, S, Dh]`` and
-    ``{"k_scale", "v_scale"}`` ``[B, Hkv, S]`` of ``scales``
+    ``[num_layers, 2, B, S, Hkv, Dh]``.  int8 / int4: ``{"k", "v"}``
+    ``[B, Hkv, S, Dh]`` (int4: ``Dh/2``, packed) of ``buf``
+    ``[num_layers, 2, B, Hkv, S, *]`` and ``{"k_scale", "v_scale"}``
+    ``[B, Hkv, S]`` (f32; int4: bf16) of ``scales``
     ``[num_layers, 2, B, Hkv, S]``."""
 
     def __init__(self, buf: torch.Tensor, scales: Optional[torch.Tensor] = None):
@@ -234,15 +251,18 @@ def init_kv_cache(spec: ModelSpec, batch: int, max_len: int,
     ``[B, S, Hkv, Dh]``, or with ``quantized`` (True or ``"int8"``) int8
     ``[B, Hkv, S, Dh]`` — one kv head's positions adjacent, so a kernel
     streams them with 16-byte loads — plus f32 scales ``[B, Hkv, S]``
-    initialised to ones.  ``"int4"`` is not ported (ROADMAP A8)."""
-    if quantized == "int4":
-        raise NotImplementedError("int4 KV cache: not ported to the PyTorch engine yet "
-                                  "(ROADMAP A8)")
+    initialised to ones; ``"int4"``: the packed ``[B, Hkv, S, Dh/2]`` int8
+    slab with bf16 scales."""
     L, Hkv, Dh = spec.num_layers, spec.num_kv_heads, spec.head_dim
     if quantized:
+        dh_store, scale_dtype = Dh, torch.float32
+        if quantized == "int4":
+            from bcg_tpu_torch.models.quantize import kv_int4_layout
+
+            dh_store, scale_dtype = kv_int4_layout(Dh)
         return KVCache(
-            torch.zeros((L, 2, batch, Hkv, max_len, Dh), dtype=torch.int8, device=device),
-            torch.ones((L, 2, batch, Hkv, max_len), dtype=torch.float32, device=device),
+            torch.zeros((L, 2, batch, Hkv, max_len, dh_store), dtype=torch.int8, device=device),
+            torch.ones((L, 2, batch, Hkv, max_len), dtype=scale_dtype, device=device),
         )
     shape = (batch, max_len, Hkv, Dh)
     return KVCache(torch.zeros((L, 2) + shape, dtype=dtype, device=device))
@@ -255,20 +275,32 @@ def kv_is_int4(entry: Dict) -> bool:
 
 
 def _kv_quantizer(entry: Dict):
-    """The fresh-KV quantizer a quantized entry needs (int8: absmax per
-    (position, kv head)); ``[B, T, Hkv, Dh] -> (int8, [B, T, Hkv] f32)``."""
+    """The fresh-KV quantizer a quantized entry needs, chosen by its
+    scale dtype: ``[B, T, Hkv, Dh] -> (int8 [B, T, Hkv, Dh] and f32
+    scales, or packed int4 [B, T, Hkv, Dh/2] and bf16 scales)``."""
     if kv_is_int4(entry):
-        raise NotImplementedError("int4 KV cache: not ported to the PyTorch engine yet "
-                                  "(ROADMAP A8)")
+        from bcg_tpu_torch.models.quantize import quantize_kv_int4
+
+        return quantize_kv_int4
     return quantize_kv
 
 
 def _kv_dequantizer(entry: Dict):
     """The matching ``(values, scale) -> f32`` dequantizer."""
     if kv_is_int4(entry):
-        raise NotImplementedError("int4 KV cache: not ported to the PyTorch engine yet "
-                                  "(ROADMAP A8)")
+        from bcg_tpu_torch.models.quantize import dequantize_kv_int4
+
+        return dequantize_kv_int4
     return dequantize_kv
+
+
+def _dequant_view(entry: Dict, dtype):
+    """A quantized dense entry's whole k/v window as a contiguous ``[B, S,
+    Hkv, Dh]`` tensor in ``dtype`` (dequantized in f32, then rounded): the
+    bf16 decode kernel takes a head stride of ``Dh`` only."""
+    deq = _kv_dequantizer(entry)
+    return tuple(deq(entry[n], entry[f"{n}_scale"]).transpose(1, 2)
+                 .to(dtype, memory_format=torch.contiguous_format) for n in ("k", "v"))
 
 
 def _write_cache(entry: Dict, k, v, pos) -> Dict:
@@ -277,13 +309,16 @@ def _write_cache(entry: Dict, k, v, pos) -> Dict:
     quantizing first for an int8 entry.  ``pos`` is a Python int, a 0-d
     device tensor (the fast-forward loop's write position, written by
     ``index_copy_`` so the host never reads it), or a ``[B]`` tensor of
-    per-row slots (:func:`_write_cache_rows`)."""
+    per-row slots (:func:`_write_cache_rows`).  A paged entry writes
+    through its block table (:func:`~bcg_tpu_torch.ops.paged_attention.paged_write`)."""
+    if is_paged(entry):
+        return paged_write(entry, k, v, pos)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         return _write_cache_rows(entry, k, v, pos)
     T = k.shape[1]
     if "k_scale" in entry:
         quant = _kv_quantizer(entry)
-        kq, ksc = quant(k)     # [B, T, Hkv, Dh] int8, [B, T, Hkv] f32
+        kq, ksc = quant(k)     # [B, T, Hkv, Dh(/2)] int8, [B, T, Hkv]
         vq, vsc = quant(v)
         # Storage is [B, Hkv, S, Dh] / [B, Hkv, S]: S is dim 2.
         writes = ((entry["k"], kq.transpose(1, 2)), (entry["v"], vq.transpose(1, 2)),
@@ -327,8 +362,16 @@ def _write_cache_rows(entry: Dict, k, v, row_pos) -> Dict:
 
 
 def _cache_attention(q, entry: Dict, mask, scale):
-    """Decode-step attention over the (bf16 or int8) cache through the
-    decode kernels' wrappers.  q: [B, 1, H, Dh]; mask: [B, S]."""
+    """Decode-step attention over the cache through the decode kernels'
+    wrappers: a paged entry through the paged kernel; a dense int4 entry
+    dequantized whole to bf16 (as the JAX package does: it has no dense
+    int4 kernel) and through the bf16 kernel.  q: [B, 1, H, Dh]; mask:
+    [B, S]."""
+    if is_paged(entry):
+        return paged_decode_attention(q, entry, mask, scale)
+    if kv_is_int4(entry):
+        k, v = _dequant_view(entry, q.dtype)
+        return decode_attention(q[:, 0], k, v, mask, scale)[:, None]
     if "k_scale" in entry:
         return decode_attention_int8(q[:, 0], entry["k"], entry["v"], entry["k_scale"],
                                      entry["v_scale"], mask, scale)[:, None]
@@ -337,14 +380,24 @@ def _cache_attention(q, entry: Dict, mask, scale):
 
 def _cache_len(cache) -> int:
     """Allocated cache length S across layouts: bf16 k is [B, S, Hkv, Dh],
-    int8 k is [B, Hkv, S, Dh]."""
+    quantized k is [B, Hkv, S, Dh(/2)], a paged entry's S is its table
+    width times the block size."""
     entry = cache if isinstance(cache, dict) else cache[0]
+    if is_paged(entry):
+        return entry["tbl"].shape[1] * paged_block_size(entry)
     return entry["k"].shape[-2 if "k_scale" in entry else -3]
 
 
 def _dequant_slice(entry: Dict, name: str, upto: int, dtype) -> torch.Tensor:
     """Cache slots [0, upto) of k or v as [B, upto, Hkv, Dh] in ``dtype``,
-    dequantized out of the int8 layout when stored int8."""
+    dequantized out of the int8 or int4 layout when stored quantized.  A
+    paged entry gathers the table's first ``upto / bs`` columns first
+    (the caller block-aligns the history window)."""
+    if is_paged(entry):
+        bs = paged_block_size(entry)
+        if upto % bs:
+            raise ValueError(f"paged history window {upto} not block-aligned (bs={bs})")
+        entry = paged_gather_entry(entry, upto_blocks=upto // bs)
     scale_name = f"{name}_scale"
     if scale_name not in entry:
         return entry[name][:, :upto].to(dtype)
@@ -389,7 +442,7 @@ def _block(
         # (strided, no copy).  Otherwise concatenate like the JAX code
         # (an int8 history dequantized; the chunk's own KV unquantized).
         ck, cv = entry["k"], entry["v"]
-        if kv_write_pos == hist_len and ck.dtype == q.dtype:
+        if not is_paged(entry) and kv_write_pos == hist_len and ck.dtype == q.dtype:
             hk, hv = ck[:, :hist_len + T], cv[:, :hist_len + T]
         else:
             hk = torch.cat([_dequant_slice(entry, "k", hist_len, q.dtype), k], dim=1)
@@ -411,7 +464,10 @@ def _block(
 def _run_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask,
                 hist_len: int = 0):
     """Apply every decoder block in order (a Python loop: PyTorch runs
-    eagerly, so there is no program-size reason to scan)."""
+    eagerly, so there is no program-size reason to scan).  A paged
+    cache's write index is worked out once for all layers."""
+    if is_paged(cache[0]):
+        write_pos = paged_write_index(cache[0], x.shape[1], write_pos)
     for li in range(spec.num_layers):
         x, _ = _block(
             _layer(params, li), spec, x, cos, sin, write_pos, cache[li],
@@ -486,6 +542,51 @@ def prefill_chunk_at(params, spec, tokens, valid, cache, hist_valid,
     return _logits(params, spec, x[:, -1:, :])[:, 0, :], cache
 
 
+def _last_valid_logits(params, spec, x, valid) -> torch.Tensor:
+    """Logits ``[B, V]`` at each row's last VALID position of a
+    right-padded chunk (position 0 for a row with none)."""
+    last = (valid.to(torch.int64).sum(dim=1) - 1).clamp(min=0)
+    h_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[2]))
+    return _logits(params, spec, h_last)[:, 0, :]
+
+
+def prefill_paged(params, spec, tokens, valid, cache, prefix_valid,
+                  prefix_lens) -> Tuple[torch.Tensor, list]:
+    """Prefill into a PAGED cache: the chunk ``[B, Ls]`` (the whole prompt
+    when ``P == 0``, else the suffix past the radix-resident prefix in
+    slots ``[0, P)``) is written at logical slots ``[P, P+Ls)`` through
+    each row's block table.  Unlike :func:`prefill_with_prefix`, tokens
+    arrive RIGHT-padded (left-aligned, so full real-token blocks can be
+    shared) and logits are taken at each row's last VALID position."""
+    P = prefix_valid.shape[1]
+    positions = _positions(valid, prefix_lens)
+    cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
+    hist_mask = prefix_valid[:, None, :] & valid[:, :, None]          # [B, Ls, P]
+    attn_mask = torch.cat([hist_mask, _chunk_mask(valid)], dim=2)     # [B, Ls, P+Ls]
+    x = params["embed"][tokens]
+    x, cache = _run_layers(params, spec, x, cos, sin, P, cache, attn_mask, hist_len=P)
+    return _last_valid_logits(params, spec, x, valid), cache
+
+
+def prefill_paged_chunk_at(params, spec, tokens, valid, cache, hist_valid, pos_offset,
+                           write_pos: int, carry_logits) -> Tuple[torch.Tensor, list]:
+    """One RIGHT-padded chunk ``[B, C]`` of a paged chunked prefill: attends
+    the block-aligned ``[B, H]`` history window (gathered from the table's
+    first ``H / bs`` columns) plus itself, and writes its KV at logical
+    slots ``[write_pos, write_pos+C)``.  Rows end in different chunks, so
+    the logits of a row with no valid token here stay ``carry_logits``."""
+    H = hist_valid.shape[1]
+    positions = _positions(valid, pos_offset)
+    cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
+    hist_mask = hist_valid[:, None, :] & valid[:, :, None]
+    attn_mask = torch.cat([hist_mask, _chunk_mask(valid)], dim=2)
+    x = params["embed"][tokens]
+    x, cache = _run_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask,
+                           hist_len=H)
+    logits = _last_valid_logits(params, spec, x, valid)
+    return torch.where(valid.any(dim=1)[:, None], logits, carry_logits), cache
+
+
 def decode_step(params, spec, token, write_pos: int, seq_positions, cache,
                 valid_mask) -> Tuple[torch.Tensor, KVCache]:
     """One autoregressive step for the whole batch: ``token`` ``[B]`` is
@@ -521,6 +622,8 @@ def _chunk_mask_at(cache_valid, chunk_valid, write_pos) -> torch.Tensor:
 
 
 def _run_chunk_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask):
+    if is_paged(cache[0]):
+        write_pos = paged_write_index(cache[0], x.shape[1], write_pos)
     for li in range(spec.num_layers):
         x, _ = _block_chunk(_layer(params, li), spec, x, cos, sin, write_pos,
                             cache[li], attn_mask)
@@ -564,7 +667,8 @@ def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask):
     """Chunk decode block: write the fresh K positions into the cache, then
     attend over the WHOLE cache (prior context and the chunk itself, all
     selected by ``attn_mask`` ``[B, K, S]``) through the chunk kernels'
-    wrappers."""
+    wrappers (a paged entry through the paged kernel's chunk form; a
+    dense int4 entry dequantized to bf16 first)."""
     B, K, D = x.shape
     h = rms_norm(x, layer["attn_norm"], spec.rms_eps)
     q, k, v = dense(h, layer["wq"]), dense(h, layer["wk"]), dense(h, layer["wv"])
@@ -581,7 +685,12 @@ def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask):
 
     entry = _write_cache(cache_entry, k, v, write_pos)
     scale = 1.0 / math.sqrt(spec.head_dim)
-    if "k_scale" in entry:
+    if is_paged(entry):
+        attn_out = paged_chunk_attention(q, entry, attn_mask, scale)
+    elif kv_is_int4(entry):
+        ck, cv = _dequant_view(entry, q.dtype)
+        attn_out = chunk_decode_attention(q, ck, cv, attn_mask, scale)
+    elif "k_scale" in entry:
         attn_out = chunk_decode_attention_int8(q, entry["k"], entry["v"], entry["k_scale"],
                                                entry["v_scale"], attn_mask, scale)
     else:

@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(
 )
 # One library per kernel source.
 SOURCES = ("flash_prefill", "decode_attention", "guided_sampler",
-           "chunk_decode_attention", "decode_attention_int8")
+           "chunk_decode_attention", "decode_attention_int8", "paged_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

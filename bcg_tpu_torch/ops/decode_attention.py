@@ -175,43 +175,54 @@ def chunk_decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale):
     return flash_attention_plain(q, kd, vd, mask, scale)
 
 
-def _check_tile(q, k, v, mask, S, Hkv, int8, scales=()):
-    """Checks of the shared tile kernel (``csrc/decode_tile.cuh``): q
-    ``[B, Kq, H, Dh]`` contiguous bf16, head dim 128, ``Kq * group`` rows
-    at most :data:`MAX_TILE_ROWS`, k/v of one layout with 16-byte aligned
-    rows, a bool mask ``[B, 1 | Kq, S]``."""
+def check_tile_operands(name, q, k, v, mask, S, Hkv, kv_dtype, dh_store):
+    """Checks that every launcher of the shared tile kernel
+    (``csrc/decode_tile.cuh``, dense or paged) makes: q ``[B, Kq, H,
+    Dh]`` contiguous bf16, head dim 128, ``Kq * group`` rows at most
+    :data:`MAX_TILE_ROWS`, k/v of ``kv_dtype`` and one layout, stored
+    rows of ``dh_store`` elements 16-byte aligned, a bool mask ``[B, 1 |
+    Kq, S]``, one device."""
     B, Kq, H, Dh = q.shape
-    name = "decode_attention_int8" if int8 else "chunk_decode_attention"
     if Dh != 128:
         raise ValueError(f"{name} kernel takes head_dim 128, got {Dh}")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise TypeError(f"{name} kernel takes a contiguous bf16 q, got {q.dtype}")
-    want = torch.int8 if int8 else torch.bfloat16
-    if k.dtype != want or v.dtype != want:
-        raise TypeError(f"{name} kernel takes {want} k/v, got {k.dtype}/{v.dtype}")
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"{name} kernel takes {kv_dtype} k/v, got {k.dtype}/{v.dtype}")
     if H % Hkv or Kq * (H // Hkv) > MAX_TILE_ROWS:
         raise ValueError(f"{name} kernel takes up to {MAX_TILE_ROWS} query rows per kv "
                          f"head, got {Kq} x {H // max(Hkv, 1)}")
     align = 16 // k.element_size()
     if k.shape != v.shape or k.stride() != v.stride() or k.stride(3) != 1 \
-            or k.shape[0] != B or k.shape[3] != Dh \
-            or any(st % align for st in k.stride()[:3]):
+            or k.shape[3] != dh_store or any(st % align for st in k.stride()[:3]):
         raise ValueError(f"{name} kernel takes k/v {tuple(k.shape)} of one layout with "
                          f"16-byte aligned rows, got strides {k.stride()}/{v.stride()}")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} kernel takes 16-byte aligned q/k/v")
-    for t in scales:
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, Hkv, S) or t.stride(2) != 1 \
-                or t.stride() != scales[0].stride():
-            raise ValueError(f"{name} kernel takes f32 scales [B, Hkv, S] with positions "
-                             f"contiguous, got {t.dtype} {tuple(t.shape)} {t.stride()}")
     if mask.dtype != torch.bool or mask.dim() != 3 or mask.shape[0] != B \
             or mask.shape[2] != S or mask.shape[1] not in (1, Kq):
         raise ValueError(f"{name} kernel takes a bool mask [B, 1|{Kq}, {S}], got "
                          f"{mask.dtype} {tuple(mask.shape)}")
-    if not all(t.device == q.device for t in (k, v, mask) + tuple(scales)):
+    if not all(t.device == q.device for t in (k, v, mask)):
         raise ValueError(f"{name}: tensors on different devices")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel takes 16-byte aligned q/k/v")
+
+
+def _check_tile(q, k, v, mask, S, Hkv, int8, scales=()):
+    """The dense tile launchers' checks: :func:`check_tile_operands`, k/v
+    ``[B, S, Hkv, Dh]`` (bf16) or ``[B, Hkv, S, Dh]`` (int8) and the int8
+    form's f32 scales ``[B, Hkv, S]``."""
+    name = "decode_attention_int8" if int8 else "chunk_decode_attention"
+    check_tile_operands(name, q, k, v, mask, S, Hkv,
+                        torch.int8 if int8 else torch.bfloat16, q.shape[3])
+    B = q.shape[0]
+    if k.shape[0] != B:
+        raise ValueError(f"{name} kernel takes k/v of batch {B}, got {tuple(k.shape)}")
+    for t in scales:
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, Hkv, S) or t.stride(2) != 1 \
+                or t.stride() != scales[0].stride() or t.device != q.device:
+            raise ValueError(f"{name} kernel takes f32 scales [B, Hkv, S] with positions "
+                             f"contiguous, got {t.dtype} {tuple(t.shape)} {t.stride()}")
 
 
 def chunk_decode_attention_cuda(q, k, v, mask, scale):

@@ -98,6 +98,23 @@ _register(
     'tables; greedy output token-identical to the dense path.',
 )
 _register(
+    'BCG_TPU_KV_BLOCK_SIZE', 'int', 0,
+    'Tokens per KV block for the paged cache (0 = use '
+    'EngineConfig.kv_block_size, default 16).',
+)
+_register(
+    'BCG_TPU_KV_POOL_BLOCKS', 'int', 0,
+    'Paged KV pool size in blocks (0 = use EngineConfig.kv_pool_blocks, '
+    'whose 0 = auto-size from the device memory budget / CPU-test allowance).',
+)
+_register(
+    'BCG_TPU_PAGED_KV_IMPL', 'str', '',
+    'Paged decode-attention implementation (EngineConfig.paged_kv_impl '
+    "override).  On CUDA 'auto' and 'pallas' both run the paged kernel "
+    "(csrc/paged_attention.cu) and 'xla' (the gather oracle) is refused; "
+    'on the CPU every value runs the plain gather version.',
+)
+_register(
     'BCG_TPU_SCENARIO', 'str', None,
     'Adversary scenario from the registry (bcg_tpu/scenarios): any '
     "BCGSimulation construction overlays the named entry's strategy, "

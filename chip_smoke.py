@@ -12,16 +12,18 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    prints each kernel's register / shared-memory report.
 3. Reference check on a small input: ``bcg-tpu/tiny-dh128`` logits of a
    prefill, 4 decode steps, a fast-forward chunk and a speculative chunk,
-   over a bf16 and over an int8 KV cache, bf16 through the kernels on the
-   card, against the same weights in f32 through the plain versions on
-   the CPU.
-4. Four game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers,
+   over a dense bf16, int8 and int4 KV cache and a paged bf16, int8 and
+   int4 pool (right-padded prefill, shuffled table), bf16 through the kernels
+   on the card, against the same weights in f32 through the plain
+   versions on the CPU (int4: in bf16, see ``phase_small_reference``).
+4. Seven game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers,
    random weights made once on the card from a seed and shared by every
    engine through ``TorchEngine(params=...)``), each a full 8 honest + 2
    Byzantine game through ``BCGSimulation(config, engine=TorchEngine(...))``.
-   Every kernel's launch count is set to 0 just before a path and read
-   just after; each kernel of the path must be > 0, and no row may fail
-   its schema.
+   Every kernel's launch count (and the call count of the plain paged
+   attention versions) is set to 0 just before a path and read just
+   after; each kernel of the path must be > 0, the plain paged calls 0,
+   and no row may fail its schema.
 
    * P1: the default engine (bf16 cache, plain loop), 1 round, timed
      with nothing wrapped, then profiled and captured (5, 6).
@@ -32,22 +34,44 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    * P3: bf16 cache, speculative loop, 1 round, untimed and captured;
      prints the drafted and accepted counts.
    * P4: int8 cache, plain loop, 1 round, untimed and captured.
-5. Profile (P1, P2): the game's first round again (greedy, prefixes
+   * P5: block-paged KV cache over a bf16 pool, plain loop, 2 rounds
+     (round 2's prompts extend round 1's radix chains), timed, then
+     profiled and captured.
+   * P6: paged int4 pool, fast-forward loop, compact JSON, 1 round,
+     untimed and captured.
+   * P7: paged int8 pool, speculative loop, 1 round, untimed and
+     captured.
+   The paged paths' lines add the pool's block counts and prefix hit
+   rate and the private KV bytes of the largest batch; every line has the
+   KV bytes of its largest batch (P1's: the dense cache at the same game).
+   The paged pools hold ``PAGED_POOL_BLOCKS`` blocks, less than the auto
+   size the line also prints (the whole KV budget of the card, which
+   leaves too little for the activations of the other paths' prefills).
+5. Profile (P1, P2, P5): the game's first round again (greedy, prefixes
    cached), timed once and once under ``torch.profiler``: device time by
    kernel and by kind, and the device's busy share of the round's wall.
 6. Capture: the path's game again, untimed (P3 and P4: the counted run
    itself), with each kernel launcher wrapped to keep a device copy of
    the inputs of its largest call, with their strides (k/v are views
    into the KV cache).
-7. Kernel phase: each of the six kernel forms against its plain PyTorch
-   version on its captured inputs (the sampler also on mixed greedy /
-   sampled rows at top_p 1.0 and 0.9), with CUDA-event timings of the
-   kernel, the plain version and, where one PyTorch call computes the
-   same function, that call; and the bound (bytes at 3.35 TB/s, int8
+7. Kernel phase: each of the twelve kernel forms against its plain
+   PyTorch version on its captured inputs (the sampler also on mixed
+   greedy / sampled rows at top_p 1.0 and 0.9), with CUDA-event timings
+   of the kernel, the plain version and, where one PyTorch call computes
+   the same function, that call; and the bound (bytes at 3.35 TB/s, int8
    values and f32 scales counted as stored, or operations at 989
    TFLOP/s).  Attention errors are held relative to the reference's own
    size, and the same measure is printed for the plain version with one
    tile of 64 live keys dropped, the size of error the limits must catch.
+   The six paged forms (bf16, int8, int4 pools; single step and chunk):
+   P5 gives bf16 single-step, P6 int4 chunk and P7 int8 chunk their
+   inputs; the other three run on those captured pools and tables (bf16
+   chunk with a K = 5 query, int8 and int4 single-step with the chunk's
+   first query position).  Each paged form's bound counts the distinct
+   pool blocks that some live table entry names, read once; beside its
+   time stands the dense kernel's (B3a / B3b) over the gathered dense
+   view of the same inputs.  Flash prefill (B1) is also held to its
+   plain version at P5's captured right-padded prefill input.
 8. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
@@ -81,6 +105,10 @@ SMALL_REF_TOL = 0.15           # tiny-dh128 logits, bf16 on the card vs f32 on t
                                # after 2 layers and 6 decode steps (logits are O(3))
 MODEL = "bcg-tpu/bench-8b"
 DEVICE = "cuda"
+# Blocks of 16 tokens in each paged path's pool: 19.3 GB of bf16, 10.0 GB
+# of int8 and 5.0 GB of int4 at bench-8b, room for a 10-row batch at the
+# longest window plus two rounds of radix-resident prompts.
+PAGED_POOL_BLOCKS = 8192
 
 
 def fail(msg: str) -> None:
@@ -134,6 +162,14 @@ FORMS = {
     "chunk_decode_attention_int8": ("decode_attention", "chunk_decode_attention_int8_cuda",
                                     "chunk_decode_attention_int8"),
 }
+# The paged forms: one launcher per form (step / chunk) serves all three
+# pool layouts, each counted apart (``launches[layout]``).
+PAGED_LAYOUTS = ("bf16", "int8", "int4")
+for _lay in PAGED_LAYOUTS:
+    FORMS[f"paged_decode_attention_{_lay}"] = (
+        "paged_attention", "paged_decode_attention_cuda", "paged_decode_attention", _lay)
+    FORMS[f"paged_chunk_attention_{_lay}"] = (
+        "paged_attention", "paged_chunk_attention_cuda", "paged_chunk_attention", _lay)
 
 
 def _ops(mod: str):
@@ -143,20 +179,48 @@ def _ops(mod: str):
 
 
 def launch_counts():
-    return {name: getattr(_ops(mod), wrapper).launches
-            for name, (mod, _, wrapper) in FORMS.items()}
+    out = {}
+    for name, (mod, _, wrapper, *lay) in FORMS.items():
+        n = getattr(_ops(mod), wrapper).launches
+        out[name] = n[lay[0]] if lay else n
+    return out
+
+
+def plain_paged_calls() -> int:
+    pa = _ops("paged_attention")
+    return pa.paged_decode_attention_plain.calls + pa.paged_chunk_attention_plain.calls
 
 
 def zero_counts():
-    for mod, _, wrapper in FORMS.values():
-        getattr(_ops(mod), wrapper).launches = 0
+    for mod, _, wrapper, *lay in FORMS.values():
+        fn = getattr(_ops(mod), wrapper)
+        fn.launches = dict.fromkeys(PAGED_LAYOUTS, 0) if lay else 0
+    pa = _ops("paged_attention")
+    pa.paged_decode_attention_plain.calls = pa.paged_chunk_attention_plain.calls = 0
+
+
+def keep_entry(entry):
+    """A device copy of a paged cache entry: the pool blocks its table
+    names (and the null block 0, first), with the table renumbered to
+    the copy — the same contents and layout at a fraction of the pool."""
+    import torch
+
+    tbl = entry["tbl"]
+    zero = torch.zeros(1, dtype=tbl.dtype, device=tbl.device)
+    ids = torch.unique(torch.cat([zero, tbl.flatten()]))           # sorted, 0 first
+    out = {k: v.index_select(0, ids.long()) for k, v in entry.items() if k != "tbl"}
+    out["tbl"] = torch.searchsorted(ids, tbl).to(torch.int32).contiguous()
+    return out
 
 
 def keep(a):
     """A device copy of ``a`` with its strides (a KV-cache view keeps the
-    full cache's batch stride, as the kernels read it in the game)."""
+    full cache's batch stride, as the kernels read it in the game); a
+    paged entry through :func:`keep_entry`."""
     import torch
 
+    if isinstance(a, dict) and "tbl" in a:
+        return keep_entry(a)
     if not torch.is_tensor(a):
         return a
     out = torch.empty_strided(a.size(), a.stride(), dtype=a.dtype, device=a.device)
@@ -174,7 +238,7 @@ class Capture:
         self.best = {}
         self.orig = {}
         for name in self.names:
-            mod, fn, _ = FORMS[name]
+            mod, fn = FORMS[name][:2]
             orig = getattr(_ops(mod), fn)
             self.orig[name] = orig
             setattr(_ops(mod), fn, self._wrap(name, orig))
@@ -189,7 +253,7 @@ class Capture:
 
     def restore(self):
         for name in self.names:
-            mod, fn, _ = FORMS[name]
+            mod, fn = FORMS[name][:2]
             setattr(_ops(mod), fn, self.orig[name])
 
     def inputs(self):
@@ -219,8 +283,10 @@ def phase_build():
 def phase_small_reference():
     """tiny-dh128: kernels on the card (bf16) vs plain versions on the CPU
     (f32): prefill, 4 decode steps, a fast-forward chunk at a device-side
-    write slot and a speculative chunk at per-row slots, over a bf16 and
-    over an int8 cache — every attention kernel form at a small size."""
+    write slot and a speculative chunk at per-row slots, over a dense
+    bf16, int8 and int4 cache (int4: B3a and B3a-chunk on the dequantized
+    view) and a paged bf16, int8 and int4 pool — every attention kernel
+    form at a small size."""
     import numpy as np
     import torch
 
@@ -270,17 +336,71 @@ def phase_small_reference():
         outs += list(logits.float().cpu().unbind(1))
         return torch.stack(outs)
 
-    for quantized in (False, "int8"):
-        ref = run(p32, "cpu", quantized)
-        got = run(p16, dev, quantized)
-        if not torch.isfinite(got).all():
-            fail("small reference: non-finite logits from the kernels")
-        err = (got - ref).abs().max().item()
-        print(f"small reference: tiny-dh128 {'int8' if quantized else 'bf16'} cache, prefill + "
-              f"4 decode steps + ff chunk + spec chunk logits, card bf16 vs CPU f32: "
-              f"max_abs_err={err:.4g} tol={SMALL_REF_TOL}", flush=True)
-        if err > SMALL_REF_TOL:
-            fail(f"small reference error {err} > {SMALL_REF_TOL}")
+    # The paged pools: a right-padded prefill through a shuffled table
+    # (null padding in the last column), then the same steps and chunks.
+    from bcg_tpu_torch.ops.paged_attention import init_block_pool
+
+    bs = 16
+    nblk = -(-S // bs) + 1
+    tbl = torch.as_tensor(rng.permutation(np.arange(1, B * nblk + 1))
+                          .reshape(B, nblk).astype(np.int32))
+    tbl[:, -1] = 0
+    rvalid = torch.zeros((B, L), dtype=torch.bool)
+    for b in range(B):
+        rvalid[b, : int(valid[b].sum())] = True
+
+    def run_paged(params, dev, quantized):
+        pool = init_block_pool(spec, B * nblk + 1, bs, quantized=quantized, device=dev)
+        cache = [{**e, "tbl": tbl.to(dev)} for e in pool]
+        Sp = nblk * bs
+        logits, cache = tt.prefill_paged(
+            params, spec, tokens.to(dev), rvalid.to(dev), cache,
+            torch.zeros((B, 0), dtype=torch.bool, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev))
+        outs = [logits.float().cpu()]
+        vm = torch.zeros((B, Sp), dtype=torch.bool, device=dev)
+        vm[:, :L] = rvalid.to(dev)
+        lens = rvalid.sum(1).to(torch.int32).to(dev)
+        for i in range(4):
+            vm[:, L + i] = True
+            logits, cache = tt.decode_step(params, spec, steps[:, i].to(dev), L + i,
+                                           lens + i, cache, vm)
+            outs.append(logits.float().cpu())
+        pos = (lens + 4)[:, None] + torch.arange(K, device=dev)
+        logits, cache = tt.decode_chunk(params, spec, chunk.to(dev), cvalid.to(dev),
+                                        torch.tensor(L + 4, device=dev), pos, cache, vm)
+        outs.append(logits.float().cpu())
+        vm[:, L + 4:L + 8] = cvalid.to(dev)
+        pos = (lens + 8)[:, None] + torch.arange(K1, device=dev)
+        logits, cache = tt.decode_chunk_spec(params, spec, spec_chunk.to(dev), svalid.to(dev),
+                                             rwp.to(dev), pos, cache, vm)
+        outs += list(logits.float().cpu().unbind(1))
+        return torch.stack(outs)
+
+    for paged in (False, True):
+        for quantized in (False, "int8", "int4"):
+            fn = run_paged if paged else run
+            ref = fn(p32, "cpu", quantized)
+            got = fn(p16, dev, quantized)
+            if not torch.isfinite(got).all():
+                fail("small reference: non-finite logits from the kernels")
+            err = (got - ref).abs().max().item()
+            what = "CPU f32"
+            if quantized == "int4":
+                # int4's step is absmax / 7: a key that bf16 and f32 weights
+                # compute one ulp apart near a rounding boundary lands a
+                # whole step away (the CPU alone reads 0.38 between its bf16
+                # and f32 runs here).  The int4 path is held to the CPU run
+                # of the same bf16 weights through the plain versions.
+                what = f"CPU bf16 (CPU f32: {err:.4g})"
+                p16_cpu = {k: v.to("cpu") for k, v in p16.items()}
+                err = (got - fn(p16_cpu, "cpu", quantized)).abs().max().item()
+            print(f"small reference: tiny-dh128 {'paged ' if paged else ''}"
+                  f"{quantized or 'bf16'} cache, prefill + 4 decode steps + ff chunk + spec "
+                  f"chunk logits, card bf16 vs {what}: max_abs_err={err:.4g} "
+                  f"tol={SMALL_REF_TOL}", flush=True)
+            if err > SMALL_REF_TOL:
+                fail(f"small reference error {err} > {SMALL_REF_TOL}")
 
 
 def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
@@ -310,12 +430,27 @@ PATHS = {
                kernels=("flash_prefill", "chunk_decode_attention", "guided_sampler")),
     "P4": dict(engine=dict(kv_cache_dtype="int8"), rounds=1, timed=False,
                kernels=("flash_prefill", "decode_attention_int8", "guided_sampler")),
+    "P5": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS), rounds=2,
+               timed=True,
+               kernels=("flash_prefill", "paged_decode_attention_bf16", "guided_sampler")),
+    "P6": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS,
+                           kv_cache_dtype="int4", decode_fast_forward=True,
+                           guided_compact_json=True), rounds=1, timed=False,
+               kernels=("flash_prefill", "paged_chunk_attention_int4", "guided_sampler")),
+    "P7": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS,
+                           kv_cache_dtype="int8", spec_decode=True), rounds=1, timed=False,
+               kernels=("flash_prefill", "paged_chunk_attention_int8", "guided_sampler")),
 }
 # Which path's capture feeds each kernel form's check, and whose launch
-# count goes into the kernels line.
+# count goes into the kernels line.  The three paged forms no game path
+# reaches run on another form's captured pool (PAGED_DERIVED).
 HOME = {"flash_prefill": "P1", "decode_attention": "P1", "guided_sampler": "P1",
         "chunk_decode_attention_int8": "P2", "chunk_decode_attention": "P3",
-        "decode_attention_int8": "P4"}
+        "decode_attention_int8": "P4", "paged_decode_attention_bf16": "P5",
+        "paged_chunk_attention_int4": "P6", "paged_chunk_attention_int8": "P7"}
+PAGED_DERIVED = {"paged_chunk_attention_bf16": ("P5", "paged_decode_attention_bf16"),
+                 "paged_decode_attention_int8": ("P7", "paged_chunk_attention_int8"),
+                 "paged_decode_attention_int4": ("P6", "paged_chunk_attention_int4")}
 
 # Kernel name fragments -> kind, for the profile's breakdown (cuBLAS's
 # matrix products show up as nvjet / gemm / gemv kernels).  The
@@ -326,9 +461,25 @@ KINDS = (
     ("chunk_decode_bf16_kernel", "chunk_decode_attention"),
     ("decode_int8_kernel", "decode_attention_int8"),
     ("guided_sampler_kernel", "guided_sampler"),
+    ("paged_kernel", "paged_attention"),
     ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"), ("xmma", "matmul"),
     ("cutlass", "matmul"),
 )
+
+
+def play_on(engine, cfg):
+    """One game under ``cfg`` on ``engine``: (wall ms, decode steps)."""
+    import torch
+
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    sim = BCGSimulation(cfg, engine=engine)
+    steps0 = engine.total_decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, engine.total_decode_steps - steps0
 
 
 def phase_profile(path, engine):
@@ -342,18 +493,10 @@ def phase_profile(path, engine):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
-
     cfg = game_config(1, greedy=True, **PATHS[path]["engine"])
 
     def play():
-        sim = BCGSimulation(cfg, engine=engine)
-        steps0 = engine.total_decode_steps
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sim.run()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, engine.total_decode_steps - steps0
+        return play_on(engine, cfg)
 
     wall_ms, steps = play()
     t_prof = time.perf_counter()
@@ -385,6 +528,9 @@ def phase_profile(path, engine):
     }), flush=True)
 
 
+DENSE_KV_BYTES = {}
+
+
 def phase_path(path, params):
     """Play one game path on a fresh engine over the shared weights.
     Returns its launch counts and the captured inputs of its kernels."""
@@ -409,6 +555,7 @@ def phase_path(path, params):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        plain_calls = plain_paged_calls()
     finally:
         if cap is not None:
             cap.restore()
@@ -427,7 +574,9 @@ def phase_path(path, params):
         "failed_rows": engine.failed_rows,
         "total_rows": engine.total_rows,
         "peak_bytes": peak,
+        "kv_cache_bytes": engine.max_kv_cache_bytes,
         "launches": {k: counts[k] for k in conf["kernels"]},
+        "plain_paged_calls": plain_calls,
     }
     if path != "P1":
         line.update(
@@ -435,8 +584,24 @@ def phase_path(path, params):
             decode_steps_per_decision=engine.total_decode_steps / max(decisions, 1),
             plain_loop_steps=engine.total_plain_steps,
             steps_vs_plain_loop=engine.total_decode_steps / max(engine.total_plain_steps, 1),
-            kv_cache_bytes=engine.max_kv_cache_bytes,
             kv_slot_bytes_per_layer=engine._kv_slot_bytes,
+        )
+    if path == "P1":
+        DENSE_KV_BYTES["P1"] = engine.max_kv_cache_bytes
+    pool = engine.kv_pool_stats()
+    if pool is not None:
+        # kv_cache_bytes is the largest batch's PRIVATE blocks (the radix-
+        # shared prefix is counted once, in blocks_resident).
+        line.update(
+            kv_dtype=pool["kv_dtype"], blocks_total=pool["blocks_total"],
+            blocks_resident=pool["blocks_resident"], blocks_free=pool["blocks_free"],
+            prefix_hit_rate=pool["prefix_hit_rate"], block_size=pool["block_size"],
+            prefix_hit_positions=engine._paged._hit_positions,
+            prefix_lookup_positions=engine._paged._lookup_positions,
+            block_bytes_all_layers=engine._paged.block_bytes_dev,
+            auto_pool_blocks=engine._auto_pool_blocks(pool["block_size"]),
+            p1_dense_kv_cache_bytes=DENSE_KV_BYTES.get("P1"),
+            impl=pool["impl"],
         )
     if engine.spec_decode:
         line.update(spec_drafted=engine.spec_drafted, spec_accepted=engine.spec_accepted)
@@ -448,6 +613,8 @@ def phase_path(path, params):
             fail(f"{path}: kernel {name} was never launched on the game path")
     if engine.failed_rows:
         fail(f"{path}: {engine.failed_rows} rows failed to produce schema-valid JSON")
+    if plain_calls:
+        fail(f"{path}: the plain paged attention ran {plain_calls} times on the card")
     if conf["timed"]:
         phase_profile(path, engine)
         cap = Capture(conf["kernels"])
@@ -529,9 +696,13 @@ def phase_kernels(inputs, counts):
 
     def common(name):
         src = "decode_attention_int8" if name == "chunk_decode_attention_int8" else name
+        if name.startswith("paged_"):
+            src = "paged_attention"
+        per_path = {p: c[name] for p, c in counts.items()}
+        # A form on no game path reports its launches summed over the paths.
         return dict(name=name, route="cuda", source=f"bcg_tpu_torch/csrc/{src}.cu",
-                    launches=counts[HOME[name]][name],
-                    launches_per_path={p: c[name] for p, c in counts.items()})
+                    launches=per_path[HOME[name]] if name in HOME else sum(per_path.values()),
+                    launches_per_path=per_path)
 
     def flash():
         q, k, v, mask, scale = inputs["P1"]["flash_prefill"]
@@ -639,6 +810,95 @@ def phase_kernels(inputs, counts):
                     **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=None, shape=list(q.shape[:-1]) + [Hkv, S], valid_slots=slots)
 
+    def flash_p5():
+        """B1 at P5's captured prefill input: the paged prefill's tokens
+        are right-padded, so each row's pad query rows come last."""
+        q, k, v, mask, scale = inputs["P5"]["flash_prefill"]
+        out = attention.flash_attention_cuda(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        ref = per_row(attention.flash_attention_plain, q, k, v, mask, scale)
+        dropped = per_row(attention.flash_attention_plain, q, k, v, drop_live_keys(mask), scale)
+        check = attention_check(out, ref, (1, 3), dropped)
+        tail_pad = bool((~mask.any(2))[:, -1].any())
+        return dict(name="flash_prefill@P5", **check, shape=list(q.shape[:3]) + [k.shape[1]],
+                    right_padded_rows=tail_pad)
+
+    def paged_inputs(name):
+        """Captured inputs of a paged form, or, for the forms no game path
+        reaches, inputs made from another form's captured pool and table."""
+        if name in HOME:
+            return inputs[HOME[name]][name]
+        path, src = PAGED_DERIVED[name]
+        q, entry, mask, scale = inputs[path][src]
+        if name.startswith("paged_decode"):          # the chunk's first position
+            return q[:, :1].contiguous(), entry, mask[:, 0].contiguous(), scale
+        # A K = 5 query over the step's pool: row k attends the step's
+        # live keys minus the last 4 - k of them (a causal chunk's mask).
+        K = 5
+        gen = torch.Generator(device=q.device)
+        gen.manual_seed(5)
+        qk = (torch.randn((q.shape[0], K) + tuple(q.shape[2:]), generator=gen,
+                          device=q.device) * q.float().std()).to(q.dtype)
+        m = mask[:, None, :].repeat(1, K, 1)
+        for b in range(mask.shape[0]):
+            live = mask[b].nonzero().flatten()
+            for kk in range(K - 1):
+                m[b, kk, live[len(live) - (K - 1 - kk):]] = False
+        return qk, entry, m, scale
+
+    def paged(name):
+        from bcg_tpu_torch.ops import paged_attention as pa
+
+        lay = FORMS[name][3]
+        step = name.startswith("paged_decode")
+        q, entry, mask, scale = paged_inputs(name)
+        launch = pa.paged_decode_attention_cuda if step else pa.paged_chunk_attention_cuda
+        plain = pa.paged_decode_attention_plain if step else pa.paged_chunk_attention_plain
+        out = launch(q, entry, mask, scale)
+        torch.cuda.synchronize()
+        ref = plain(q, entry, mask, scale)
+        dropped = plain(q, entry, drop_live_keys(mask), scale)
+        check = attention_check(out, ref, (1, 3), dropped)
+        ms = time_ms(lambda: launch(q, entry, mask, scale), reps=50)
+        plain_ms = time_ms(lambda: plain(q, entry, mask, scale))
+        # The dense kernel over the gathered dense view of the same inputs
+        # (int4: dequantized to bf16, as the dense int4 path serves it).
+        dense = pa.paged_gather_entry(entry)
+        m3 = mask[:, None] if step else mask
+        if lay == "int8":
+            dk = (dense["k"], dense["v"], dense["k_scale"], dense["v_scale"])
+            dfn = (lambda: da.decode_attention_int8_cuda(q[:, 0], *dk, mask, scale)[:, None]) \
+                if step else (lambda: da.chunk_decode_attention_int8_cuda(q, *dk, mask, scale))
+        else:
+            kd, vd = pa._dense_view(entry, q.dtype)
+            dfn = (lambda: da.decode_attention_cuda(q[:, 0], kd, vd, mask, scale)[:, None]) \
+                if step else (lambda: da.chunk_decode_attention_cuda(q, kd, vd, mask, scale))
+        dense_rel_row, dense_rel_head = rel_errors(dfn(), out, (1, 3))
+        dense_ms = time_ms(dfn, reps=50)
+        del dense
+        B, Kq, H, Dh = q.shape
+        tbl, bs = entry["tbl"], pa.block_size(entry)
+        Hkv = pa.num_kv_heads(entry)
+        nblk = tbl.shape[1]
+        live_cols = m3.reshape(B, -1, nblk, bs).any(3).any(1)          # [B, nblk]
+        blocks = torch.unique(tbl[live_cols]).numel()
+        per_pos = {"bf16": 2 * Dh * 2, "int8": 2 * (Dh + 4), "int4": 2 * (Dh // 2 + 2)}[lay]
+        # The live blocks' K and V (and scales) read once; q, out (bf16),
+        # the mask and the table once.
+        byts = blocks * bs * Hkv * per_pos + 2 * 2 * q.numel() + m3.numel() + 4 * tbl.numel()
+        bms, by = bound(byts, 4 * Dh * H * m3.sum().item())
+        src = PAGED_DERIVED.get(name)
+        return dict(common(name),
+                    replaces=("bcg_tpu/ops/paged_attention.py:341 _paged_kernel (pallas_call "
+                              ":507 of _paged_pallas_attention :432, via "
+                              + ("paged_decode_attention :221)" if step
+                                 else "paged_chunk_attention :262)")),
+                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None, dense_ms=dense_ms, dense_rel_row=dense_rel_row,
+                    dense_rel_head=dense_rel_head, live_blocks=blocks,
+                    inputs_from=(f"{src[0]} {src[1]}" if src else HOME[name]),
+                    shape=[B, Kq, H, Hkv, nblk * bs, bs])
+
     def sampler():
         logits, minb, dfa_ids, states, meta_i, meta_f, eos_id, _top_p = \
             inputs["P1"]["guided_sampler"]
@@ -669,9 +929,19 @@ def phase_kernels(inputs, counts):
 
     for phase in (flash, decode, sampler, chunk,
                   lambda: int8_forms("decode_attention_int8", "P4"),
-                  lambda: int8_forms("chunk_decode_attention_int8", "P2")):
+                  lambda: int8_forms("chunk_decode_attention_int8", "P2"),
+                  *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
+                    for form in ("decode", "chunk") for lay in PAGED_LAYOUTS]):
         results.append(phase())
         torch.cuda.empty_cache()
+    extra = flash_p5()
+    print(f"kernel {extra['name']}: rel_row={extra['rel_row']:.4g} (tol {ATTN_REL_ROW_TOL}) "
+          f"rel_head={extra['rel_head']:.4g} (tol {ATTN_REL_HEAD_TOL}) with {DROP_KEYS} live "
+          f"keys dropped: rel_row={extra['dropped_rel_row']:.4g} "
+          f"rel_head={extra['dropped_rel_head']:.4g} right_padded_rows="
+          f"{extra['right_padded_rows']} shape={extra['shape']}", flush=True)
+    if not extra["ok"]:
+        errors.append("flash_prefill at P5's right-padded input disagrees with its plain version")
     for r in results:
         if "rel_row" in r:
             err = (f"max_abs_err={r['max_abs_err']:.4g} ref_rms={r['ref_rms']:.4g} "
@@ -681,6 +951,9 @@ def phase_kernels(inputs, counts):
                    f"rel_row={r['dropped_rel_row']:.4g} rel_head={r['dropped_rel_head']:.4g}")
         else:
             err = f"token_mismatches={r['token_mismatches']} (tol 0)"
+        if "dense_ms" in r:
+            err += (f" dense_ms={r['dense_ms']:.4f} dense_rel_row={r['dense_rel_row']:.4g} "
+                    f"live_blocks={r['live_blocks']} inputs_from={r['inputs_from']}")
         print(f"kernel {r['name']}: {err} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "

@@ -70,12 +70,12 @@ def test_engine_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(paged_kv=True), "A9"),
+    (dict(paged_kv=True, quantization="int8"), "A8"),
     (dict(quantization="int8"), "A8"),
     (dict(quantization="int4"), "A8"),
-    (dict(kv_cache_dtype="int4"), "A8"),
-    (dict(kv_cache_dtype="int4", decode_fast_forward=True), "A8"),
-    (dict(kv_cache_dtype="int8", paged_kv=True), "A9"),
+    (dict(kv_cache_dtype="int4", quantization="int4"), "A8"),
+    (dict(paged_kv=True, tensor_parallel_size=2), "A13"),
+    (dict(kv_cache_dtype="int4", paged_kv=True, data_parallel_size=2), "A13"),
     (dict(tensor_parallel_size=2), "A13"),
     (dict(data_parallel_size=2), "A13"),
     (dict(sequence_parallel_size=2), "A13"),
@@ -93,15 +93,27 @@ def test_unported_knobs_raise(knob, item):
     dict(kv_cache_dtype="int8", decode_fast_forward=True),
     dict(kv_cache_dtype="int8", spec_decode=True),
     dict(decode_fast_forward=True, spec_decode=True),
+    dict(paged_kv=True),
+    dict(paged_kv=True, kv_cache_dtype="int4", decode_fast_forward=True),
+    dict(paged_kv=True, kv_cache_dtype="int8", spec_decode=True),
 ])
 def test_ported_decode_paths_are_accepted(knob):
-    """The fast-forward and speculative loops and the int8 dense cache,
-    alone and combined (speculative decoding wins over fast-forward)."""
+    """The fast-forward and speculative loops, the int8 dense cache and
+    the paged pools, alone and combined (speculative decoding wins over
+    fast-forward)."""
     cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test", **knob)
     eng = TorchEngine(cfg, device="cpu")
     assert eng.kv_int8 == (knob.get("kv_cache_dtype") == "int8")
     assert eng.spec_decode == knob.get("spec_decode", False)
     assert eng.fast_forward == knob.get("decode_fast_forward", False)
+    assert (eng._paged is not None) == knob.get("paged_kv", False)
+
+
+def test_int4_kv_cache_is_accepted_and_warns_without_paging():
+    cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test", kv_cache_dtype="int4")
+    with pytest.warns(UserWarning, match="without paged_kv"):
+        eng = TorchEngine(cfg, device="cpu")
+    assert eng.kv_quantized == "int4" and eng._paged is None
 
 
 @pytest.mark.parametrize("knob", [
@@ -117,12 +129,19 @@ def test_invalid_or_plain_path_knobs_raise(knob):
 def test_env_overrides_are_not_ignored(monkeypatch):
     cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test")
     monkeypatch.setenv("BCG_TPU_PAGED_KV", "1")
-    with pytest.raises(NotImplementedError, match="A9"):
+    monkeypatch.setenv("BCG_TPU_KV_BLOCK_SIZE", "8")
+    monkeypatch.setenv("BCG_TPU_KV_POOL_BLOCKS", "100")
+    eng = TorchEngine(cfg, device="cpu")
+    assert eng._paged.block_size == 8 and eng._paged.num_blocks == 100
+    monkeypatch.setenv("BCG_TPU_PAGED_KV_IMPL", "gather")
+    with pytest.raises(ValueError, match="paged_kv_impl"):
         TorchEngine(cfg, device="cpu")
-    monkeypatch.delenv("BCG_TPU_PAGED_KV")
+    for name in ("BCG_TPU_PAGED_KV", "BCG_TPU_KV_BLOCK_SIZE", "BCG_TPU_KV_POOL_BLOCKS",
+                 "BCG_TPU_PAGED_KV_IMPL"):
+        monkeypatch.delenv(name)
     monkeypatch.setenv("BCG_TPU_KV_DTYPE", "int4")
-    with pytest.raises(NotImplementedError, match="A8"):
-        TorchEngine(cfg, device="cpu")
+    with pytest.warns(UserWarning, match="int4"):
+        assert TorchEngine(cfg, device="cpu").kv_quantized == "int4"
     monkeypatch.setenv("BCG_TPU_KV_DTYPE", "int8")
     assert TorchEngine(cfg, device="cpu").kv_int8
     monkeypatch.setenv("BCG_TPU_SPEC", "1")
@@ -156,7 +175,7 @@ def test_create_engine_serves_torch_only():
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(PKG, "csrc")
     for name in ("flash_prefill", "decode_attention", "guided_sampler",
-                 "chunk_decode_attention", "decode_attention_int8"):
+                 "chunk_decode_attention", "decode_attention_int8", "paged_attention"):
         text = open(os.path.join(csrc, f"{name}.cu")).read()
         assert "Replaces: bcg_tpu/ops/" in text
         assert "What bounds it on this card" in text
@@ -203,6 +222,24 @@ def test_cli_serves_the_decode_loops_and_the_int8_cache(capsys):
     with pytest.raises(SystemExit):
         build_parser().parse_args(["--kv-cache-dtype", "int4"])
     assert "invalid choice" in capsys.readouterr().err
+
+
+def test_paged_slice_modules_import_without_jax_and_count():
+    """The modules of the paged slice (the int4 KV quantizer, the paged
+    pool and attention, the radix manager) are among those the import
+    test walks and the source scan reads; the paged wrappers carry a
+    launch count per pool layout and the plain versions a call count."""
+    from bcg_tpu_torch.ops import _build, paged_attention as pa
+
+    mods = _modules()
+    for m in ("bcg_tpu_torch.models.quantize", "bcg_tpu_torch.ops.paged_attention",
+              "bcg_tpu_torch.engine.paged_kv"):
+        assert m in mods
+    assert "paged_attention" in _build.SOURCES
+    for fn in (pa.paged_decode_attention, pa.paged_chunk_attention):
+        assert set(fn.launches) == {"bf16", "int8", "int4"}
+    for fn in (pa.paged_decode_attention_plain, pa.paged_chunk_attention_plain):
+        assert isinstance(fn.calls, int)
 
 
 def test_new_kernel_forms_live_in_modules_that_import_without_jax():

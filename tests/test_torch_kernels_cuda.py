@@ -10,7 +10,9 @@ only PyTorch; there, skip the JAX test configuration:
 
 Covered: flash prefill, bf16 decode attention (single step and chunk),
 int8 decode attention (single step and chunk, at the bench-8b shapes
-and at a GQA group of 5) and the guided sampler.
+and at a GQA group of 5), paged decode attention over bf16, int8 and
+packed-int4 block pools (single step and chunk, shuffled tables with
+shared blocks and null padding) and the guided sampler.
 
 Tolerances: bf16 attention 2e-2 absolute on outputs of magnitude ~1-4.
 The kernels round the unnormalised probabilities to bf16 for the p.v
@@ -23,7 +25,13 @@ import numpy as np
 import pytest
 import torch
 
-from bcg_tpu_torch.ops import attention, decode_attention, guided_sampler
+from types import SimpleNamespace
+
+from bcg_tpu_torch.models import transformer
+from bcg_tpu_torch.models.configs import spec_for_model
+from bcg_tpu_torch.models.convert import init_params
+from bcg_tpu_torch.models.quantize import quantize_kv_int4
+from bcg_tpu_torch.ops import attention, decode_attention, guided_sampler, paged_attention
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -167,6 +175,156 @@ def test_int8_decode_kernel_matches_plain(dev, H, Hkv):
     ref = decode_attention.decode_attention_int8_plain(q, k, v, ks, vs, mask, Dh ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
     assert torch.all(out[2] == 0)
+
+
+def _paged_entry(rng, dev, layout, B, nblk, bs, Hkv, Dh):
+    """A one-layer block pool of random K/V in ``layout`` and a table
+    ``[B, nblk]`` of shuffled blocks: rows 0 and 1 share their first
+    three blocks, row 2's last two columns are null padding.  Returns
+    (entry, live [B, S] slots backed by a real block)."""
+    N = B * nblk + 1
+    spec = SimpleNamespace(num_layers=1, num_kv_heads=Hkv, head_dim=Dh)
+    quant = {"bf16": False, "int8": "int8", "int4": "int4"}[layout]
+    entry = paged_attention.init_block_pool(spec, N, bs, quantized=quant, device=dev)[0]
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.standard_normal((N - 1, bs, Hkv, Dh), np.float32)).to(dev)
+        if layout == "bf16":
+            entry[name][1:] = x.to(torch.bfloat16)
+        else:
+            qz = decode_attention.quantize_kv if layout == "int8" else quantize_kv_int4
+            vals, sc = qz(x)                      # [N-1, bs, Hkv, *], [N-1, bs, Hkv]
+            entry[name][1:] = vals.transpose(1, 2)
+            entry[f"{name}_scale"][1:] = sc.transpose(1, 2)
+    tbl = (rng.permutation(N - 1)[: B * nblk] + 1).reshape(B, nblk).astype(np.int32)
+    tbl[1, :3] = tbl[0, :3]
+    tbl[2, -2:] = 0
+    entry["tbl"] = torch.from_numpy(tbl).to(dev)
+    live = np.repeat(tbl != 0, bs, axis=1)
+    return entry, live
+
+
+PAGED_SHAPES = [(32, 8, 1), (32, 8, 4), (32, 8, 5), (40, 8, 1), (40, 8, 5)]
+PAGED_IDS = ["bench-step", "bench-ff", "bench-spec", "g5-step", "g5-spec"]
+
+
+@pytest.mark.parametrize("H,Hkv,K", PAGED_SHAPES, ids=PAGED_IDS)
+@pytest.mark.parametrize("layout", ["bf16", "int8", "int4"])
+def test_paged_kernel_matches_plain(dev, H, Hkv, K, layout):
+    rng = np.random.default_rng([H, Hkv, K, len(layout)])
+    B, nblk, bs, Dh = 6, 40, 16, 128
+    entry, live = _paged_entry(rng, dev, layout, B, nblk, bs, Hkv, Dh)
+    S = nblk * bs
+    q = torch.from_numpy(rng.standard_normal((B, K, H, Dh), np.float32)).to(dev, torch.bfloat16)
+    if K == 1:
+        m = (rng.random((B, S)) < 0.6) & live
+        m[3] = False                              # a fully masked row gives 0
+        fn, plain = paged_attention.paged_decode_attention, \
+            paged_attention.paged_decode_attention_plain
+    else:
+        m = (rng.random((B, K, S)) < 0.6) & live[:, None]
+        m[3, 1] = False                           # a fully masked chunk row gives 0
+        fn, plain = paged_attention.paged_chunk_attention, \
+            paged_attention.paged_chunk_attention_plain
+    mask = torch.from_numpy(m).to(dev)
+    before = dict(fn.launches)
+    out = fn(q, entry, mask, Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert fn.launches[layout] == before[layout] + 1
+    assert sum(fn.launches.values()) == sum(before.values()) + 1
+    torch.testing.assert_close(out.float(), plain(q, entry, mask, Dh ** -0.5).float(),
+                               atol=TOL, rtol=TOL)
+    assert torch.all(out[3, 0 if K == 1 else 1] == 0)
+
+
+@pytest.mark.parametrize("layout", ["bf16", "int8", "int4"])
+def test_paged_kernel_equals_dense_kernel_on_gathered_view(dev, layout):
+    """The paged kernel reads the same numbers as the dense kernel over
+    the gathered dense view (int4 goes to the bf16 kernel dequantized):
+    equal up to the order of the sums."""
+    rng = np.random.default_rng([len(layout), 3])
+    B, nblk, bs, Hkv, H, K, Dh = 4, 30, 16, 8, 32, 4, 128
+    entry, live = _paged_entry(rng, dev, layout, B, nblk, bs, Hkv, Dh)
+    q = torch.from_numpy(rng.standard_normal((B, K, H, Dh), np.float32)).to(dev, torch.bfloat16)
+    mask = torch.from_numpy((rng.random((B, K, nblk * bs)) < 0.7) & live[:, None]).to(dev)
+    out = paged_attention.paged_chunk_attention(q, entry, mask, Dh ** -0.5)
+    dense = paged_attention.paged_gather_entry(entry)
+    if layout == "int8":
+        ref = decode_attention.chunk_decode_attention_int8(
+            q, dense["k"], dense["v"], dense["k_scale"], dense["v_scale"], mask, Dh ** -0.5)
+    else:
+        k, v = paged_attention._dense_view(entry, torch.bfloat16)
+        ref = decode_attention.chunk_decode_attention(q, k, v, mask, Dh ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+
+
+def _int4_model_step(params, dev, K):
+    """tiny-dh128 over a dense int4 cache of 70 random quantized slots
+    (made on the CPU, the same bytes on every device): one decode step
+    (K = 1) or one fast-forward chunk of K tokens.  Returns the logits."""
+    spec = spec_for_model("bcg-tpu/tiny-dh128")
+    rng = np.random.default_rng(11)
+    B, S, P = 3, 96, 70
+    cache = transformer.init_kv_cache(spec, B, S, torch.bfloat16, dev, quantized="int4")
+    for entry in cache:
+        for name in ("k", "v"):
+            x = rng.standard_normal((B, P, spec.num_kv_heads, spec.head_dim), np.float32)
+            vals, sc = quantize_kv_int4(torch.from_numpy(x))
+            entry[name][:, :, :P] = vals.transpose(1, 2).to(dev)
+            entry[f"{name}_scale"][:, :, :P] = sc.transpose(1, 2).to(dev)
+    vm = torch.zeros((B, S), dtype=torch.bool)
+    vm[:, :P] = torch.from_numpy(rng.random((B, P)) < 0.8)
+    tok = torch.from_numpy(rng.integers(0, spec.vocab_size, (B, K))).to(dev)
+    pos = vm.sum(1).to(torch.int32).to(dev)
+    if K == 1:
+        vm[:, P] = True
+        logits, _ = transformer.decode_step(params, spec, tok[:, 0], P, pos, cache, vm.to(dev))
+    else:
+        cvalid = torch.ones((B, K), dtype=torch.bool)
+        cvalid[1, K - 1:] = False
+        cvalid[2, 1:] = False
+        logits, _ = transformer.decode_chunk(params, spec, tok, cvalid.to(dev),
+                                             torch.tensor(P, device=dev),
+                                             pos[:, None] + torch.arange(K, device=dev), cache,
+                                             vm.to(dev))
+    return logits.float().cpu()
+
+
+@pytest.mark.parametrize("K", [1, 4], ids=["step", "chunk"])
+def test_dense_int4_cache_decodes_through_the_bf16_kernels(dev, K):
+    """The model's decode step and chunk over a dense int4 cache attend
+    through B3a / B3a-chunk on the dequantized view (no plain version on
+    the card) and agree with the same bf16 weights on the CPU.  Limit
+    0.15 on logits of magnitude ~3.5, as chip_smoke's small reference: a
+    fresh key computed one bf16 ulp apart can land a whole int4 step away
+    (the CPU's bf16 and f32 runs of this input differ by 0.07-0.08)."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    p16 = {k: v.to(torch.bfloat16)
+           for k, v in init_params(spec_for_model("bcg-tpu/tiny-dh128"), gen, "cpu",
+                                   torch.float32).items()}
+    fn = decode_attention.decode_attention if K == 1 else decode_attention.chunk_decode_attention
+    before = fn.launches
+    got = _int4_model_step({k: v.to(dev) for k, v in p16.items()}, dev, K)
+    assert fn.launches == before + 2                  # one per layer
+    ref = _int4_model_step(p16, "cpu", K)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 0.15
+
+
+def test_paged_wrappers_raise_on_cuda_inputs_they_do_not_take(dev):
+    rng = np.random.default_rng(0)
+    entry, _ = _paged_entry(rng, dev, "int4", 3, 4, 16, 8, 128)
+    q = torch.zeros((3, 1, 32, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="mask"):
+        paged_attention.paged_decode_attention(
+            q, entry, torch.ones((3, 63), dtype=torch.bool, device=dev), 1.0)
+    bad = dict(entry, tbl=entry["tbl"].long())
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention.paged_decode_attention(
+            q, bad, torch.ones((3, 64), dtype=torch.bool, device=dev), 1.0)
+    with pytest.raises(TypeError, match="bf16"):
+        paged_attention.paged_decode_attention(
+            q.float(), entry, torch.ones((3, 64), dtype=torch.bool, device=dev), 1.0)
 
 
 @pytest.mark.parametrize("top_p", [1.0, 0.9])

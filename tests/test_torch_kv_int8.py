@@ -229,8 +229,9 @@ def test_int8_cache_layout_and_nbytes():
     assert tt._cache_len(c) == 40 == tt._cache_len(tt.init_kv_cache(spec, 2, 40))
     L, Hkv, Dh = spec.num_layers, spec.num_kv_heads, spec.head_dim
     assert c.nbytes() == L * 2 * 2 * Hkv * 40 * (Dh + 4)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tt.init_kv_cache(spec, 1, 8, quantized="int4")
+    # The packed int4 slab (tests/test_torch_kv_int4.py) is half the bytes.
+    c4 = tt.init_kv_cache(spec, 2, 40, quantized="int4")
+    assert 2 * c4.nbytes() == c.nbytes() and tt.kv_is_int4(c4[0])
 
 
 def test_int8_prefill_decode_steps_and_chunks_match_jax():
