@@ -2,20 +2,22 @@
 
 The flags of ``bcg_tpu/cli.py`` that this port serves: the game's shape,
 model, seed, network and channel, prefix caching and length buckets,
-guided grammar, the KV-cache dtype (bfloat16 or int8), fast-forward and
-speculative decoding, results and checkpoints, plus ``--device``: the
-game runs on the CUDA card unless ``--device cpu`` is given.  The other
-flags come back with the ROADMAP item that ports what they switch on
-(parallelism A13, weight quantization A8, the fake backend and fault
-injection A11).  As in the JAX package, the block-paged KV cache and the
-packed-int4 KV cache have no flag: they are ``BCG_TPU_PAGED_KV=1`` and
-``BCG_TPU_KV_DTYPE=int4`` (or ``EngineConfig.paged_kv`` /
-``kv_cache_dtype``).
+guided grammar, weight quantization (int8 or int4), the KV-cache dtype
+(bfloat16 or int8), fast-forward and speculative decoding, results and
+checkpoints, plus ``--device``: the game runs on the CUDA card unless
+``--device cpu`` is given.  The other flags come back with the ROADMAP
+item that ports what they switch on (parallelism A13, the fake backend
+and fault injection A11).  As in the JAX package, the block-paged KV
+cache and the packed-int4 KV cache have no flag: they are
+``BCG_TPU_PAGED_KV=1`` and ``BCG_TPU_KV_DTYPE=int4`` (or
+``EngineConfig.paged_kv`` / ``kv_cache_dtype``).
 
     python -m bcg_tpu_torch.cli --honest 8 --byzantine 2 --model bcg-tpu/bench-8b
     python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu
     python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu \
         --fast-forward --kv-cache-dtype int8
+    python -m bcg_tpu_torch.cli --honest 8 --byzantine 2 --model bcg-tpu/bench-8b \
+        --quantization int4
     BCG_TPU_PAGED_KV=1 BCG_TPU_KV_DTYPE=int4 python -m bcg_tpu_torch.cli --honest 2 \
         --byzantine 1 --model bcg-tpu/tiny-dh128 --device cpu --fast-forward
 """
@@ -55,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plots", action="store_true", help="Save per-run plots (value trajectories, agreement)")
     p.add_argument("--checkpoint-every-round", action="store_true", help="Write a resumable checkpoint after each round")
     p.add_argument("--resume", type=str, default=None, help="Resume from checkpoint file")
+    p.add_argument("--quantization", type=str, default=None, choices=["int8", "int4"],
+                   help="Weight quantization: int8 = dynamic W8A8 (halves the weight "
+                        "bytes), int4 = grouped W4A16 (a quarter of bf16's)")
     p.add_argument("--kv-cache-dtype", type=str, default=None, choices=["bfloat16", "int8"],
                    help="KV cache storage dtype (int8 halves decode cache traffic)")
     p.add_argument("--no-prefix-caching", action="store_true",
@@ -113,6 +118,8 @@ def config_from_args(args) -> BCGConfig:
     engine = dataclasses.replace(base.engine, backend="torch")
     if args.model:
         engine = dataclasses.replace(engine, model_name=resolve_model_name(args.model))
+    if args.quantization:
+        engine = dataclasses.replace(engine, quantization=args.quantization)
     if args.kv_cache_dtype:
         engine = dataclasses.replace(engine, kv_cache_dtype=args.kv_cache_dtype)
     if args.no_prefix_caching:

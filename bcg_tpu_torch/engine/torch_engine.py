@@ -36,17 +36,25 @@ Serving design, as in the JAX engine:
   so full blocks of real tokens can be shared).  Over bf16, int8 and
   int4 pools, under all three loops; each call frees its private blocks
   and unpins its radix paths in a ``finally``.
-* Attention and sampling run the port's hand-written CUDA kernels on a
-  CUDA device, and their plain versions on the CPU (tests).
+* Weights are bf16, or quantized (``quantization="int8"``: dynamic
+  W8A8 on every dense matmul and the LM head; ``"int4"``: grouped W4A16,
+  whose decode-shaped products run the B5 kernel), under every loop and
+  KV layout (:mod:`bcg_tpu_torch.models.quantize`).  An owned tree is
+  quantized leaf by leaf as it is made; a shared bf16 tree is quantized
+  into the engine's own copy.
+* Attention, sampling and the int4 matmul run the port's hand-written
+  CUDA kernels on a CUDA device, and their plain versions on the CPU
+  (tests).
 
-Ported: bf16 weights, a dense or paged bf16, int8 or int4 KV cache, the
-plain, fast-forward and speculative loops.  Every knob outside that
-raises ``NotImplementedError`` naming the ROADMAP item that brings it;
-none is ignored.
+Ported: bf16, int8 and int4 weights, a dense or paged bf16, int8 or int4
+KV cache, the plain, fast-forward and speculative loops.  Every knob
+outside that raises ``NotImplementedError`` naming the ROADMAP item that
+brings it; none is ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -70,6 +78,7 @@ from bcg_tpu_torch.engine.tokenizer import Tokenizer, tokenizer_for_model
 from bcg_tpu_torch.engine.speculative import spec_decode_loop, spec_decode_slots
 from bcg_tpu_torch.guided.processor import FF_CHUNK, GuidedBatch, compile_schema
 from bcg_tpu_torch.models.configs import ModelSpec, spec_for_model
+from bcg_tpu_torch.models.quantize import dense_route_from_env, leaf_nbytes
 from bcg_tpu_torch.models.transformer import (
     decode_chunk,
     decode_step,
@@ -149,10 +158,6 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
-
-
 def _resolve_paged_impl(raw: str, device: torch.device) -> str:
     """``paged_kv_impl`` the port's way: on CUDA, ``auto`` and ``pallas``
     both mean the paged kernel (``"cuda"``) and ``xla`` — the gather
@@ -204,18 +209,22 @@ class TorchEngine(InferenceEngine):
             else _SUFFIX_BUCKETS
         )
 
-        if params is None:
-            from bcg_tpu_torch.models.convert import init_params
-
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(0)
-            params = init_params(self.spec, gen, self.device)
-        self.params = params
+        self.quantization = config.quantization
+        # Where each quantized product goes, resolved from the env flags
+        # once and carried on the spec into every forward pass.
+        route = dense_route_from_env()
+        if self.quantization == "int4" and not route.w4_kernel and self.device.type == "cuda":
+            raise ValueError(
+                "BCG_TPU_DISABLE_W4_KERNEL: the PyTorch engine runs every "
+                "decode-shaped int4 matmul through the W4A16 kernel on CUDA; "
+                "the dequantize route serves CPU tensors only")
+        self.spec = dataclasses.replace(self.spec, dense_route=route)
+        self.params = self._load_params(params)
         # Compute dtype follows the weights (bf16 served; the CPU parity
         # tests pass f32 weights, as the JAX engine accepts them); the KV
         # cache is bf16 or int8 either way, as in the JAX engine.
         self.kv_dtype = torch.bfloat16
-        self._param_bytes = sum(_nbytes(t) for t in self.params.values())
+        self._param_bytes = sum(leaf_nbytes(w) for w in self.params.values())
         # Bytes of one cache slot of one layer: k and v, plus their two
         # scales per kv head (int8: 1-byte values, f32 scales; int4:
         # half-byte values, bf16 scales — half the int8 slot).
@@ -237,6 +246,17 @@ class TorchEngine(InferenceEngine):
             raise ValueError(
                 f"spec_k={self.spec_k} / spec_ngram={self.spec_ngram}: "
                 "speculative decoding needs both >= 1"
+            )
+        if self.quantization == "int8" and not self.fast_forward and not self.spec_decode:
+            # W8A8 adds the activation's quantization launches to every
+            # matmul; a single-token step pays them for one token a weight
+            # pass.  Configuring that pairing should not be silent.
+            warnings.warn(
+                "quantization='int8' without decode_fast_forward: every matmul "
+                "quantizes its activations first, which the single-token decode "
+                "loop pays once per token on the card; enable decode_fast_forward "
+                "(--fast-forward) so each weight pass carries a chunk of tokens",
+                stacklevel=2,
             )
 
         # Sampling noise: an explicit generator on the engine's device
@@ -340,8 +360,6 @@ class TorchEngine(InferenceEngine):
                 f"quantization={config.quantization!r}: expected None, "
                 "'int8' or 'int4'"
             )
-        if config.quantization is not None:
-            raise _not_ported(f"quantization={config.quantization!r}", "A8")
         for name in ("tensor_parallel_size", "data_parallel_size",
                      "sequence_parallel_size"):
             if int(getattr(config, name, 1)) > 1:
@@ -363,6 +381,43 @@ class TorchEngine(InferenceEngine):
                 "the fused sampler kernel ('auto')"
             )
         return kv_raw
+
+    def _load_params(self, params):
+        """The served weight tree (the JAX engine's boot section, without
+        scan-over-layers and meshes).  An owned tree is made on the device
+        from seed 0, quantized leaf by leaf as it is made when
+        ``quantization`` is set.  A shared tree (``params=``) must be bf16
+        or already in this engine's mode: a bf16 one is quantized into a
+        new dict, leaving the donor's copy whole; a quantized one of
+        another mode, or any quantized one under ``quantization=None``,
+        raises."""
+        from bcg_tpu_torch.models.quantize import (
+            ensure_quantized_head, is_int4, is_quantized, quantize_leaf_transform,
+            quantize_params,
+        )
+
+        mode = self.quantization
+        if params is None:
+            from bcg_tpu_torch.models.convert import init_params
+
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            params = init_params(
+                self.spec, gen, self.device,
+                leaf_transform=quantize_leaf_transform(self.spec, mode) if mode else None)
+        else:
+            wq = params["layers.0.wq"]
+            tree_mode = ("int4" if is_int4(wq) else "int8") if is_quantized(wq) else None
+            if tree_mode is not None and tree_mode != mode:
+                raise ValueError(
+                    f"constructor params are {tree_mode}-format but "
+                    f"config.quantization={mode!r}; share weights only between "
+                    "engines of the same mode")
+            if mode is not None and tree_mode is None:
+                params = quantize_params(params, self.spec, consume=False, mode=mode)
+        if mode is not None:
+            ensure_quantized_head(params, self.spec, mode)
+        return params
 
     def _init_paged(self, config) -> None:
         """The paged pool and its knobs (the JAX engine's boot section):

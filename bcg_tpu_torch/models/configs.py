@@ -41,6 +41,18 @@ class RopeScaling:
 
 
 @dataclass(frozen=True)
+class DenseRoute:
+    """Where ``models.quantize.dense`` sends a quantized product: a serving
+    choice, not part of the architecture, carried on the spec so that every
+    matmul of a forward pass sees the one its engine resolved at
+    construction (``quantize.dense_route_from_env``).  The defaults are
+    the env flags' defaults."""
+
+    w8a16_rows: int = 0     # int8 calls of at least this many rows run W8A16 (0: none)
+    w4_kernel: bool = True  # False: int4 calls dequantize whole (CPU only; CUDA raises)
+
+
+@dataclass(frozen=True)
 class ModelSpec:
     name: str
     vocab_size: int
@@ -57,6 +69,7 @@ class ModelSpec:
     rope_scaling: Optional[RopeScaling] = None
     tie_embeddings: bool = False
     max_position: int = 40960
+    dense_route: DenseRoute = DenseRoute()
 
     @property
     def q_size(self) -> int:

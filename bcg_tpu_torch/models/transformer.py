@@ -3,7 +3,10 @@ PyTorch — the port of ``bcg_tpu/models/transformer.py``.
 
 * Parameters are a flat dict of tensors keyed by :func:`param_plan`'s
   logical names (``"embed"``, ``"layers.3.wq"``, ...); dense weights are
-  ``[in, out]`` as in the JAX package, so ``x @ w`` reads the same.
+  ``[in, out]`` as in the JAX package, so ``x @ w`` reads the same.  A
+  quantized weight is a dict under the same name, and every matmul goes
+  through :func:`bcg_tpu_torch.models.quantize.dense`, which dispatches on
+  it (int8 W8A8, int4 W4A16 through the B5 kernel).
 * Prefill is ``[B, L]`` with an explicit validity mask (left-padded
   batches); decode is a ``[B, 1]`` step against a preallocated KV cache.
 * Weights and KV cache are bf16 on the served path; RMSNorm accumulates in
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from bcg_tpu_torch.models.configs import ModelSpec
+from bcg_tpu_torch.models.quantize import dense
 from bcg_tpu_torch.ops.attention import flash_attention
 from bcg_tpu_torch.ops.decode_attention import (
     chunk_decode_attention,
@@ -62,7 +66,7 @@ from bcg_tpu_torch.ops.paged_attention import (
     write_index as paged_write_index,
 )
 
-TransformerParams = Dict[str, torch.Tensor]  # flat: logical name -> tensor
+TransformerParams = Dict  # flat: logical name -> tensor, or a quantized dict
 
 
 class KVCache(list):
@@ -232,15 +236,6 @@ def attention(q, k, v, mask, scale):
     the port always runs its kernel, and :func:`_xla_attention` is the
     tests' reference."""
     return flash_attention(q, k, v, mask, scale)
-
-
-def dense(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """``x @ w`` in the promoted type, cast to ``out_dtype`` (default
-    ``x``'s dtype) — ``models/quantize.dense``'s bf16 branch."""
-    if out_dtype is None:
-        out_dtype = x.dtype
-    xx, ww = _promote(x, w)
-    return (xx @ ww).to(out_dtype)
 
 
 # ------------------------------------------------------------------ forward
@@ -419,7 +414,9 @@ def _block(
 ) -> Tuple[torch.Tensor, Dict]:
     B, T, D = x.shape
     h = rms_norm(x, layer["attn_norm"], spec.rms_eps)
-    q, k, v = dense(h, layer["wq"]), dense(h, layer["wk"]), dense(h, layer["wv"])
+    route = spec.dense_route
+    q, k, v = (dense(h, layer["wq"], route=route), dense(h, layer["wk"], route=route),
+               dense(h, layer["wv"], route=route))
     if "bq" in layer:  # Qwen2-style projection biases
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     q = q.reshape(B, T, spec.num_heads, spec.head_dim)
@@ -453,11 +450,11 @@ def _block(
         attn_out = attention(q, k, v, attn_mask, scale)
     else:
         attn_out = _cache_attention(q, entry, attn_mask, scale)
-    x = x + dense(attn_out.reshape(B, T, spec.q_size), layer["wo"])
+    x = x + dense(attn_out.reshape(B, T, spec.q_size), layer["wo"], route=route)
 
     h = rms_norm(x, layer["mlp_norm"], spec.rms_eps)
-    gate = F.silu(dense(h, layer["w_gate"]))
-    x = x + dense(gate * dense(h, layer["w_up"]), layer["w_down"])
+    gate = F.silu(dense(h, layer["w_gate"], route=route))
+    x = x + dense(gate * dense(h, layer["w_up"], route=route), layer["w_down"], route=route)
     return x, entry
 
 
@@ -479,7 +476,7 @@ def _run_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask,
 def _logits(params: TransformerParams, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, params["final_norm"], spec.rms_eps)
     if "lm_head" in params:
-        return dense(h, params["lm_head"], out_dtype=torch.float32)
+        return dense(h, params["lm_head"], torch.float32, route=spec.dense_route)
     if not spec.tie_embeddings:
         raise KeyError(f"params for untied model {spec.name!r} lack 'lm_head'")
     hh, ee = _promote(h, params["embed"])
@@ -671,7 +668,9 @@ def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask):
     dense int4 entry dequantized to bf16 first)."""
     B, K, D = x.shape
     h = rms_norm(x, layer["attn_norm"], spec.rms_eps)
-    q, k, v = dense(h, layer["wq"]), dense(h, layer["wk"]), dense(h, layer["wv"])
+    route = spec.dense_route
+    q, k, v = (dense(h, layer["wq"], route=route), dense(h, layer["wk"], route=route),
+               dense(h, layer["wv"], route=route))
     if "bq" in layer:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     q = q.reshape(B, K, spec.num_heads, spec.head_dim)
@@ -695,13 +694,15 @@ def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask):
                                                entry["v_scale"], attn_mask, scale)
     else:
         attn_out = chunk_decode_attention(q, entry["k"], entry["v"], attn_mask, scale)
-    x = x + dense(attn_out.reshape(B, K, spec.q_size), layer["wo"])
+    x = x + dense(attn_out.reshape(B, K, spec.q_size), layer["wo"], route=route)
 
     h = rms_norm(x, layer["mlp_norm"], spec.rms_eps)
-    gate = F.silu(dense(h, layer["w_gate"]))
-    x = x + dense(gate * dense(h, layer["w_up"]), layer["w_down"])
+    gate = F.silu(dense(h, layer["w_gate"], route=route))
+    x = x + dense(gate * dense(h, layer["w_up"], route=route), layer["w_down"], route=route)
     return x, entry
 
 
 def param_count(params: TransformerParams) -> int:
-    return sum(int(np.prod(p.shape)) for p in params.values())
+    """Elements of every leaf (a quantized leaf's parts summed)."""
+    return sum(int(np.prod(t.shape)) for p in params.values()
+               for t in (p.values() if isinstance(p, dict) else (p,)))

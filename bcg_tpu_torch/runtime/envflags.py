@@ -115,6 +115,17 @@ _register(
     'on the CPU every value runs the plain gather version.',
 )
 _register(
+    'BCG_TPU_W8A16_PREFILL', 'int', 0,
+    'Row-count threshold routing prefill-shaped int8 matmuls through '
+    'the experimental W8A16 path (0 = off; bench A/B knob).',
+)
+_register(
+    'BCG_TPU_DISABLE_W4_KERNEL', 'bool', False,
+    'Kill switch of the W4A16 matmul kernel: on the CPU, int4 matmuls '
+    'take the dequantize route; on CUDA an int4 engine raises (the card '
+    'never serves the plain version).',
+)
+_register(
     'BCG_TPU_SCENARIO', 'str', None,
     'Adversary scenario from the registry (bcg_tpu/scenarios): any '
     "BCGSimulation construction overlays the named entry's strategy, "

@@ -15,8 +15,10 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    over a dense bf16, int8 and int4 KV cache and a paged bf16, int8 and
    int4 pool (right-padded prefill, shuffled table), bf16 through the kernels
    on the card, against the same weights in f32 through the plain
-   versions on the CPU (int4: in bf16, see ``phase_small_reference``).
-4. Seven game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers,
+   versions on the CPU (int4: in bf16, see ``phase_small_reference``);
+   then the same with int8 and int4 weights over a bf16 cache (int4
+   through B5, held to the CPU run with bf16 leaves).
+4. Nine game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers,
    random weights made once on the card from a seed and shared by every
    engine through ``TorchEngine(params=...)``), each a full 8 honest + 2
    Byzantine game through ``BCGSimulation(config, engine=TorchEngine(...))``.
@@ -27,7 +29,7 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
 
    * P1: the default engine (bf16 cache, plain loop), 1 round, timed
      with nothing wrapped, then profiled and captured (5, 6).
-   * P2: int8 cache, fast-forward loop, compact JSON, 3 rounds, timed,
+   * P2: int8 cache, fast-forward loop, compact JSON, 2 rounds, timed,
      then profiled and captured; its line adds the decode steps per
      decision, their ratio to the steps the plain loop takes for the same
      outputs, and the KV-cache bytes.
@@ -41,28 +43,43 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
      untimed and captured.
    * P7: paged int8 pool, speculative loop, 1 round, untimed and
      captured.
+   * P8: int8 weights (W8A8), int8 cache, fast-forward loop, compact
+     JSON, 1 round, timed, then profiled.
+   * P9: int4 weights (W4A16 through B5), bf16 cache, plain loop, 1
+     round, timed, then profiled with B5's inputs captured in the
+     profiled round.
+   P8 and P9 quantize their own copies of the shared bf16 weights.
    The paged paths' lines add the pool's block counts and prefix hit
    rate and the private KV bytes of the largest batch; every line has the
    KV bytes of its largest batch (P1's: the dense cache at the same game).
    The paged pools hold ``PAGED_POOL_BLOCKS`` blocks, less than the auto
    size the line also prints (the whole KV budget of the card, which
    leaves too little for the activations of the other paths' prefills).
-5. Profile (P1, P2, P5): the game's first round again (greedy, prefixes
-   cached), timed once and once under ``torch.profiler``: device time by
-   kernel and by kind, and the device's busy share of the round's wall.
-6. Capture: the path's game again, untimed (P3 and P4: the counted run
-   itself), with each kernel launcher wrapped to keep a device copy of
-   the inputs of its largest call, with their strides (k/v are views
-   into the KV cache).
-7. Kernel phase: each of the twelve kernel forms against its plain
+5. Profile (P1, P2, P5, P8, P9): the game's first round again (greedy,
+   prefixes cached), timed once and once under ``torch.profiler``:
+   device time by kernel and by kind, and the device's busy share of the
+   round's wall.
+6. Capture: the path's game again, untimed (P3, P4, P6, P7: the counted
+   run itself; P9: the profiled round, whose wall time the busy share
+   does not use, the copies' bytes printed in its profile line), with
+   each kernel launcher wrapped to keep a device copy of the inputs of
+   its largest call, with their strides (k/v are views into the KV
+   cache).
+7. Kernel phase: each of the thirteen kernel forms against its plain
    PyTorch version on its captured inputs (the sampler also on mixed
    greedy / sampled rows at top_p 1.0 and 0.9), with CUDA-event timings
    of the kernel, the plain version and, where one PyTorch call computes
    the same function, that call; and the bound (bytes at 3.35 TB/s, int8
    values and f32 scales counted as stored, or operations at 989
-   TFLOP/s).  Attention errors are held relative to the reference's own
-   size, and the same measure is printed for the plain version with one
-   tile of 64 live keys dropped, the size of error the limits must catch.
+   TFLOP/s).  B5 (the W4A16 matmul) runs at P9's largest call (the LM
+   head, M = 10) and at one captured weight of each layer shape with
+   M = 1, 10, 50 and 256, held by relative L2 error per output row, with
+   ``torch.matmul`` over the already dequantized bf16 weight timed beside
+   it (another function: the bf16 product int4 has to beat); its times
+   come from CUDA graphs of calls (``graph_ms``).  Attention errors are
+   held relative to the reference's own size, and the same measure is
+   printed for the plain version with one tile of 64 live keys dropped,
+   the size of error the limits must catch.
    The six paged forms (bf16, int8, int4 pools; single step and chunk):
    P5 gives bf16 single-step, P6 int4 chunk and P7 int8 chunk their
    inputs; the other three run on those captured pools and tables (bf16
@@ -103,6 +120,19 @@ ATTN_REL_HEAD_TOL = 1e-2
 DROP_KEYS = 64
 SMALL_REF_TOL = 0.15           # tiny-dh128 logits, bf16 on the card vs f32 on the CPU
                                # after 2 layers and 6 decode steps (logits are O(3))
+# tiny-dh128 with int8 weights (W8A8), bf16 on the card vs bf16 on the
+# CPU: relative L2 error per logit row, the largest over the rows, for
+# each weight draw.  On the CPU alone the bf16 and f32 runs of seeds 7-12
+# read 0.048-0.059 (max abs 0.17-0.19), and the faulty control (layer 1's
+# w_down scale rolled by one channel) 0.10-0.13 against the bf16 run; a
+# rolled scale in layer 0's wq or the LM head reads 0.17-0.37.  The limit
+# sits between the two.
+INT8_REF_REL_TOL = 0.075
+INT8_REF_SEEDS = (7, 8, 9)
+# B5 against its plain version: relative L2 error per output row.  Both
+# take the same bf16 products and sum them in f32 in another order (~1e-6
+# at these depths); a wrong nibble, half or group scale reads O(1).
+W4_REL_ROW_TOL = 1e-3
 MODEL = "bcg-tpu/bench-8b"
 DEVICE = "cuda"
 # Blocks of 16 tokens in each paged path's pool: 19.3 GB of bf16, 10.0 GB
@@ -141,6 +171,39 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(calls, reps: int = 20) -> float:
+    """Device time of one call: ``reps`` calls (``calls[i % len(calls)]``)
+    captured in one CUDA graph, the graph replayed and timed with events,
+    so a call's host time stays out of a kernel of a few microseconds.
+    Passing calls over distinct input copies that together exceed the
+    50 MB L2 keeps their weights cold, as a decode step finds them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def bound(bytes_moved: float, flops: float):
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     tf = flops / BF16_FLOPS_PER_S * 1e3
@@ -162,6 +225,8 @@ FORMS = {
     "chunk_decode_attention_int8": ("decode_attention", "chunk_decode_attention_int8_cuda",
                                     "chunk_decode_attention_int8"),
 }
+# The W4A16 matmul (B5): one form, captured per weight shape.
+FORMS["w4a16_matmul"] = ("w4_matmul", "w4a16_matmul_cuda", "w4a16_matmul")
 # The paged forms: one launcher per form (step / chunk) serves all three
 # pool layouts, each counted apart (``launches[layout]``).
 PAGED_LAYOUTS = ("bf16", "int8", "int4")
@@ -231,11 +296,14 @@ class Capture:
     """Wraps the launchers of the kernel forms ``names`` to keep a device
     copy (``keep``) of the inputs of each one's largest call: the shapes
     and data the served path gives it.  Only a call strictly larger than
-    the kept one is copied."""
+    the kept one is copied (``copied_bytes`` sums the copies).  B5 keeps
+    one call per weight shape (its largest), under ``("w4a16_matmul", q4
+    shape)``; its largest call of all is kept under ``"w4a16_matmul"``."""
 
     def __init__(self, names):
         self.names = tuple(names)
         self.best = {}
+        self.copied_bytes = 0
         self.orig = {}
         for name in self.names:
             mod, fn = FORMS[name][:2]
@@ -246,8 +314,17 @@ class Capture:
     def _wrap(self, name, orig):
         def wrapped(*args):
             size = sum(a.numel() for a in args if hasattr(a, "numel"))
-            if size > self.best.get(name, (0, None))[0]:
-                self.best[name] = (size, tuple(keep(a) for a in args))
+            keys = [name]
+            if name == "w4a16_matmul":
+                keys.append((name, tuple(args[1].shape)))
+            kept = None
+            for key in keys:
+                if size > self.best.get(key, (0, None))[0]:
+                    if kept is None:
+                        kept = tuple(keep(a) for a in args)
+                        self.copied_bytes += sum(a.numel() * a.element_size()
+                                                 for a in args if hasattr(a, "numel"))
+                    self.best[key] = (size, kept)
             return orig(*args)
         return wrapped
 
@@ -402,6 +479,95 @@ def phase_small_reference():
             if err > SMALL_REF_TOL:
                 fail(f"small reference error {err} > {SMALL_REF_TOL}")
 
+    # Quantized weights (quantized once, on the CPU, from an f32 draw):
+    # the same int8 / int4 leaves on both sides, the other leaves bf16 on
+    # the card; a bf16 cache.  int4 (W4A16) is held to the f32 CPU run by
+    # the largest logit error, as the other forms are.
+    from bcg_tpu_torch.models.quantize import dense, quantize_params
+    from bcg_tpu_torch.ops import w4_matmul
+
+    def on(tree, d, dtype):
+        return {k: ({p: t.to(d) for p, t in v.items()} if isinstance(v, dict)
+                    else v.to(d, dtype)) for k, v in tree.items()}
+
+    def counted(tree):
+        launches = w4_matmul.w4a16_matmul.launches
+        got = run(on(tree, dev, torch.bfloat16), dev, False)
+        if not torch.isfinite(got).all():
+            fail("small reference: non-finite logits with quantized weights")
+        return got, w4_matmul.w4a16_matmul.launches - launches
+
+    qtree = quantize_params(p32, spec, mode="int4")
+    got, launches = counted(qtree)
+    err = (got - run(qtree, "cpu", False)).abs().max().item()
+    err16 = (got - run(on(qtree, "cpu", torch.bfloat16), "cpu", False)).abs().max().item()
+    print(f"small reference: tiny-dh128 int4 weights, bf16 cache, prefill + 4 decode steps "
+          f"+ ff chunk + spec chunk logits, card vs CPU f32 (CPU bf16: {err16:.4g}): "
+          f"max_abs_err={err:.4g} tol={SMALL_REF_TOL} w4a16_launches={launches}", flush=True)
+    if err > SMALL_REF_TOL:
+        fail(f"small reference error with int4 weights {err} > {SMALL_REF_TOL}")
+    if launches <= 0:
+        fail("small reference: no B5 launch with int4 weights")
+
+    # int8 (W8A8) quantizes each activation row to int8, so an activation
+    # that two sound runs compute one bf16 ulp apart near a rounding
+    # boundary lands a whole int8 step away, and the largest logit error
+    # swings with such flips (see INT8_REF_REL_TOL).  It is held by the
+    # relative L2 error per logit row against the CPU run with the same
+    # bf16 leaves, over three weight draws, and the faulty control (layer
+    # 1's w_down scale read one output channel off) must read above the
+    # limit.  The int8 products themselves are held bit for bit: W8A8
+    # dense on the card against the CPU at the reference's row counts.
+    def rel_row(got, ref):
+        return ((got - ref).pow(2).sum(-1).sqrt()
+                / ref.pow(2).sum(-1).sqrt().clamp_min(1e-30)).max().item()
+
+    for seed in INT8_REF_SEEDS:
+        if seed == 7:
+            p_seed = p32
+        else:
+            gen.manual_seed(seed)
+            p_seed = init_params(spec, gen, "cpu", torch.float32)
+        qtree = quantize_params(p_seed, spec, mode="int8")
+        got, launches = counted(qtree)
+        ref16 = run(on(qtree, "cpu", torch.bfloat16), "cpu", False)
+        ref32 = run(qtree, "cpu", False)
+        bad = dict(qtree)
+        bad["layers.1.w_down"] = dict(qtree["layers.1.w_down"],
+                                      scale=qtree["layers.1.w_down"]["scale"].roll(1))
+        control = rel_row(counted(bad)[0], ref16)
+        rel = rel_row(got, ref16)
+        print(f"small reference: tiny-dh128 int8 weights (seed {seed}), bf16 cache, prefill + "
+              f"4 decode steps + ff chunk + spec chunk logits, card vs CPU bf16: rel_row={rel:.4g} "
+              f"(tol {INT8_REF_REL_TOL}) max_abs_err={(got - ref16).abs().max().item():.4g}; "
+              f"vs CPU f32: rel_row={rel_row(got, ref32):.4g} "
+              f"max_abs_err={(got - ref32).abs().max().item():.4g}; faulty control (w_down "
+              f"scale one channel off): rel_row={control:.4g} w4a16_launches={launches}",
+              flush=True)
+        if rel > INT8_REF_REL_TOL:
+            fail(f"small reference error with int8 weights {rel} > {INT8_REF_REL_TOL}")
+        if control <= INT8_REF_REL_TOL:
+            fail(f"small reference: the int8 limit {INT8_REF_REL_TOL} misses the faulty "
+                 f"control ({control})")
+        if launches:
+            fail(f"small reference: {launches} B5 launches with int8 weights")
+        if seed != INT8_REF_SEEDS[0]:
+            continue
+        mismatched = []
+        for name in ("layers.0.wq", "layers.0.wk", "layers.0.wo", "layers.0.w_up",
+                     "layers.0.w_down", "lm_head"):
+            w = qtree[name]
+            for rows in (B, B * K1, B * L):
+                x = torch.randn((rows, w["q"].shape[0]), generator=gen).to(torch.bfloat16)
+                want = dense(x, w, torch.float32)
+                have = dense(x.to(dev), {k: t.to(dev) for k, t in w.items()}, torch.float32)
+                if not torch.equal(have.cpu(), want):
+                    mismatched.append(f"{name}@{rows}")
+        print(f"small reference: W8A8 dense on the card vs the CPU, bit for bit, 6 weights x "
+              f"rows {B}/{B * K1}/{B * L}: mismatched={mismatched}", flush=True)
+        if mismatched:
+            fail(f"small reference: W8A8 dense differs from the CPU bits at {mismatched}")
+
 
 def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
     from bcg_tpu_torch.config import (BCGConfig, EngineConfig, GameConfig, LLMConfig,
@@ -417,14 +583,16 @@ def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
 
 
 # The game paths: engine knobs, rounds, whether the run is timed (then
-# profiled and captured in a replay), and the kernel forms it runs.  P1
-# plays one round (PR 1 played three): the script's time limit is shared
-# with the three paths this slice added.
+# profiled, and the kernels' inputs captured in an untimed replay of the
+# game, or with ``capture_in_profile`` in the profiled round), and the
+# kernel forms it runs (``capture_forms``: the ones captured, if not all;
+# ``capture=False``: none).  P1 plays one round and P2 two: the script's
+# time limit is shared by all nine paths.
 PATHS = {
     "P1": dict(engine={}, rounds=1, timed=True,
                kernels=("flash_prefill", "decode_attention", "guided_sampler")),
     "P2": dict(engine=dict(kv_cache_dtype="int8", decode_fast_forward=True,
-                           guided_compact_json=True), rounds=3, timed=True,
+                           guided_compact_json=True), rounds=2, timed=True,
                kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
     "P3": dict(engine=dict(spec_decode=True), rounds=1, timed=False,
                kernels=("flash_prefill", "chunk_decode_attention", "guided_sampler")),
@@ -440,6 +608,18 @@ PATHS = {
     "P7": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS,
                            kv_cache_dtype="int8", spec_decode=True), rounds=1, timed=False,
                kernels=("flash_prefill", "paged_chunk_attention_int8", "guided_sampler")),
+    # The weight-quantized paths: each engine quantizes its own copy of the
+    # shared bf16 weights.  P8 is the JAX bench's default 8B path (int8
+    # weights, int8 KV, fast-forward, compact JSON; bench.py:1058-1093),
+    # timed and profiled; P9 int4 weights over the default engine, timed,
+    # profiled, B5's inputs captured.
+    "P8": dict(engine=dict(quantization="int8", kv_cache_dtype="int8",
+                           decode_fast_forward=True, guided_compact_json=True), rounds=1,
+               timed=True, capture=False,
+               kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
+    "P9": dict(engine=dict(quantization="int4"), rounds=1, timed=True,
+               capture_forms=("w4a16_matmul",), capture_in_profile=True,
+               kernels=("flash_prefill", "decode_attention", "guided_sampler", "w4a16_matmul")),
 }
 # Which path's capture feeds each kernel form's check, and whose launch
 # count goes into the kernels line.  The three paged forms no game path
@@ -447,14 +627,18 @@ PATHS = {
 HOME = {"flash_prefill": "P1", "decode_attention": "P1", "guided_sampler": "P1",
         "chunk_decode_attention_int8": "P2", "chunk_decode_attention": "P3",
         "decode_attention_int8": "P4", "paged_decode_attention_bf16": "P5",
-        "paged_chunk_attention_int4": "P6", "paged_chunk_attention_int8": "P7"}
+        "paged_chunk_attention_int4": "P6", "paged_chunk_attention_int8": "P7",
+        "w4a16_matmul": "P9"}
 PAGED_DERIVED = {"paged_chunk_attention_bf16": ("P5", "paged_decode_attention_bf16"),
                  "paged_decode_attention_int8": ("P7", "paged_chunk_attention_int8"),
                  "paged_decode_attention_int4": ("P6", "paged_chunk_attention_int4")}
 
-# Kernel name fragments -> kind, for the profile's breakdown (cuBLAS's
-# matrix products show up as nvjet / gemm / gemv kernels).  The
-# fragments are distinct: none is a substring of another kernel's name.
+# Kernel name fragments -> kind, for the profile's breakdown, first match
+# wins (cuBLAS's matrix products show up as nvjet / gemm / gemv kernels,
+# its int8 products with s8 / i8 / imma in the name).  "dequant" is the
+# int4 unpack's shift kernels (the prefill route's dequantize_int4 and
+# nothing else on P9); the unpack's scale product and bf16 conversion
+# fall under "other".
 KINDS = (
     ("flash_prefill_kernel", "flash_prefill"),
     ("decode_attention_kernel", "decode_attention"),
@@ -462,6 +646,10 @@ KINDS = (
     ("decode_int8_kernel", "decode_attention_int8"),
     ("guided_sampler_kernel", "guided_sampler"),
     ("paged_kernel", "paged_attention"),
+    ("w4a16_kernel", "w4a16_matmul"), ("w4a16_reduce", "w4a16_matmul"),
+    ("s8s8", "int8_gemm"), ("i8i8", "int8_gemm"), ("i8i32", "int8_gemm"), ("imma", "int8_gemm"),
+    ("int8gemm", "int8_gemm"), ("_s8_", "int8_gemm"), ("igemm", "int8_gemm"),
+    ("shift", "dequant"),
     ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"), ("xmma", "matmul"),
     ("cutlass", "matmul"),
 )
@@ -482,13 +670,16 @@ def play_on(engine, cfg):
     return (time.perf_counter() - t0) * 1e3, engine.total_decode_steps - steps0
 
 
-def phase_profile(path, engine):
+def phase_profile(path, engine, capture_forms=()):
     """The path's first round again, greedy, played twice on the booted
     engine — every prompt prefix is already cached, so both runs do the
     same work: once timed, once under ``torch.profiler`` (device activity
     only).  Prints device milliseconds by kernel kind, the top kernels,
     and the device's busy share: the profiled device time over the timed
-    run's wall time (the profiler's own overhead slows the profiled run)."""
+    run's wall time (the profiler's own overhead slows the profiled run).
+    ``capture_forms``: kernel forms whose inputs are captured in the
+    profiled run only (whose wall time the share does not use); returns
+    that :class:`Capture`, or None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -500,8 +691,13 @@ def phase_profile(path, engine):
 
     wall_ms, steps = play()
     t_prof = time.perf_counter()
+    capture = Capture(capture_forms) if capture_forms else None
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        profiled_ms, profiled_steps = play()
+        try:
+            profiled_ms, profiled_steps = play()
+        finally:
+            if capture is not None:
+                capture.restore()
     t0 = time.perf_counter()
     stop_s = t0 - t_prof - profiled_ms / 1e3
     # Device activity by name, from the profiler's raw events: the same
@@ -525,7 +721,9 @@ def phase_profile(path, engine):
         "by_kind_ms": kinds,
         "top": [{"kernel": key[:90], "ms": ms, "count": n} for ms, n, key in rows[:8]],
         "profiler_stop_seconds": stop_s, "summary_seconds": time.perf_counter() - t0,
+        **({"capture_copied_bytes": capture.copied_bytes} if capture is not None else {}),
     }), flush=True)
+    return capture
 
 
 DENSE_KV_BYTES = {}
@@ -546,7 +744,9 @@ def phase_path(path, params):
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    cap = None if conf["timed"] else Capture(conf["kernels"])
+    capture = conf.get("capture", True)
+    forms = conf.get("capture_forms", conf["kernels"])
+    cap = Capture(forms) if capture and not conf["timed"] else None
     try:
         zero_counts()
         t0 = time.perf_counter()
@@ -605,6 +805,8 @@ def phase_path(path, params):
         )
     if engine.spec_decode:
         line.update(spec_drafted=engine.spec_drafted, spec_accepted=engine.spec_accepted)
+    if engine.quantization:
+        line.update(quantization=engine.quantization, param_bytes=engine._param_bytes)
     print(f"game {path}: " + json.dumps(line), flush=True)
     if stats["total_rounds"] < 1 or len(stats) < 40:
         fail(f"{path}: game statistics malformed: {sorted(stats)[:5]}...")
@@ -616,17 +818,21 @@ def phase_path(path, params):
     if plain_calls:
         fail(f"{path}: the plain paged attention ran {plain_calls} times on the card")
     if conf["timed"]:
-        phase_profile(path, engine)
-        cap = Capture(conf["kernels"])
-        try:
-            BCGSimulation(cfg, engine=engine).run()
-        finally:
-            cap.restore()
+        in_profile = capture and conf.get("capture_in_profile", False)
+        cap = phase_profile(path, engine, forms if in_profile else ())
+        if capture and not in_profile:
+            # The kernels' inputs at the sampled game's shapes: the game
+            # again, untimed, with the launchers wrapped.
+            cap = Capture(forms)
+            try:
+                BCGSimulation(cfg, engine=engine).run()
+            finally:
+                cap.restore()
     torch.cuda.synchronize()
     engine.shutdown()
     del engine, sim
     torch.cuda.empty_cache()
-    return counts, cap.inputs()
+    return counts, cap.inputs() if cap is not None else {}
 
 
 def per_row(fn, *args):
@@ -683,6 +889,66 @@ def attention_check(out, ref, head_dims, dropped_ref):
                 and bool(torch.isfinite(out).all()))
 
 
+def w4_line(x, q4, gscale):
+    """B5 against its plain version at one input: relative L2 error per
+    output row, the kernel's, the plain version's and the bound's
+    times, and beside them ``torch.matmul`` of x with the weight
+    ALREADY dequantized to bf16 (another function: the bf16 product
+    int4 has to beat, not a library call of B5's)."""
+    import torch
+
+    from bcg_tpu_torch.models.quantize import dequantize_int4
+    from bcg_tpu_torch.ops import w4_matmul as w4
+
+    out = w4.w4a16_matmul_cuda(x, q4, gscale)
+    torch.cuda.synchronize()
+    ref = w4.w4a16_matmul_plain(x, q4, gscale)
+    rel = ((out - ref).pow(2).sum(-1).sqrt()
+           / ref.pow(2).sum(-1).sqrt().clamp_min(1e-30)).max().item()
+    err = (out - ref).abs().max().item()
+    ok = rel <= W4_REL_ROW_TOL and bool(torch.isfinite(out).all())
+    del out, ref
+    # Enough weight copies that a graph of calls reads more than twice the
+    # L2 (the LM head alone is 311 MB).
+    copies = max(1, min(64, -(-100_000_000 // q4.numel())))
+    reps = max(20, copies)
+    ws = [(q4, gscale)] + [(q4.clone(), gscale.clone()) for _ in range(copies - 1)]
+    ms = graph_ms([lambda q=q, g=g: w4.w4a16_matmul_cuda(x, q, g) for q, g in ws], reps)
+    plain_ms = time_ms(lambda: w4.w4a16_matmul_plain(x, q4, gscale), reps=5)
+    xb = x.to(torch.bfloat16)
+    w_bfs = [dequantize_int4({"q4": q, "gscale": g}) for q, g in ws]
+    deq_ms = graph_ms([lambda w=w: torch.matmul(xb, w) for w in w_bfs], reps)
+    del ws, w_bfs
+    (M, D), F = x.shape, q4.shape[1]
+    # q4, gscale and x read once, the f32 output written once.
+    byts = q4.numel() + 2 * gscale.numel() + 2 * x.numel() + 4 * M * F
+    bms, by = bound(byts, 2 * M * D * F)
+    return dict(max_abs_err=err, rel_row=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, dequantized_bf16_matmul_ms=deq_ms,
+                shape=[M, D, F], group=q4.shape[0] // (gscale.shape[0] // 2))
+
+
+def w4a16_check(captured):
+    """B5 at P9's largest call (the LM head at M = 10), then at one
+    captured weight of each layer shape with M = 1, 10, 50 and 256 rows
+    (the captured rows repeated).  ``captured``: P9's captured inputs."""
+    import torch
+
+    x, q4, gscale = captured["w4a16_matmul"]
+    head = w4_line(x, q4, gscale)
+    extra = []
+    shapes = sorted(k[1] for k in captured if isinstance(k, tuple))
+    for shape in shapes:
+        xc, q, g = captured[("w4a16_matmul", shape)]
+        for M in (1, 10, 50, 256):
+            xm = xc[torch.arange(M, device=xc.device) % xc.shape[0]].contiguous()
+            extra.append(w4_line(xm, q, g))
+        torch.cuda.empty_cache()
+    return dict(replaces="bcg_tpu/ops/w4_matmul.py:37 _w4_kernel (pallas_call :116 of "
+                         "_w4a16_2d :107, via w4a16_matmul :150)",
+                **head, library_ms=None, shapes=extra)
+
+
 def phase_kernels(inputs, counts):
     """Each kernel form against its plain version on its home path's
     captured inputs.  ``inputs``/``counts``: per path."""
@@ -698,6 +964,8 @@ def phase_kernels(inputs, counts):
         src = "decode_attention_int8" if name == "chunk_decode_attention_int8" else name
         if name.startswith("paged_"):
             src = "paged_attention"
+        if name == "w4a16_matmul":
+            src = "w4a16"
         per_path = {p: c[name] for p, c in counts.items()}
         # A form on no game path reports its launches summed over the paths.
         return dict(name=name, route="cuda", source=f"bcg_tpu_torch/csrc/{src}.cu",
@@ -927,11 +1195,14 @@ def phase_kernels(inputs, counts):
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
                     shape=[B, V])
 
+    def w4a16():
+        return dict(common("w4a16_matmul"), **w4a16_check(inputs["P9"]))
+
     for phase in (flash, decode, sampler, chunk,
                   lambda: int8_forms("decode_attention_int8", "P4"),
                   lambda: int8_forms("chunk_decode_attention_int8", "P2"),
                   *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
-                    for form in ("decode", "chunk") for lay in PAGED_LAYOUTS]):
+                    for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16):
         results.append(phase())
         torch.cuda.empty_cache()
     extra = flash_p5()
@@ -943,6 +1214,19 @@ def phase_kernels(inputs, counts):
     if not extra["ok"]:
         errors.append("flash_prefill at P5's right-padded input disagrees with its plain version")
     for r in results:
+        if r["name"] == "w4a16_matmul":
+            for e in [r] + r["shapes"]:
+                print(f"kernel w4a16_matmul: shape[M,D,F]={e['shape']} group={e['group']} "
+                      f"rel_row={e['rel_row']:.4g} (tol {W4_REL_ROW_TOL}) "
+                      f"max_abs_err={e['max_abs_err']:.4g} ms={e['ms']:.4f} "
+                      f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
+                      f"({e['bound_by']}) dequantized_bf16_matmul_ms="
+                      f"{e['dequantized_bf16_matmul_ms']:.4f} launches={r['launches']} "
+                      f"per_path={json.dumps(r['launches_per_path'])}", flush=True)
+                if not e["ok"]:
+                    errors.append(f"w4a16_matmul at {e['shape']}: disagrees with its plain "
+                                  "version")
+            continue
         if "rel_row" in r:
             err = (f"max_abs_err={r['max_abs_err']:.4g} ref_rms={r['ref_rms']:.4g} "
                    f"ref_max={r['ref_max']:.4g} rel_row={r['rel_row']:.4g} "

@@ -70,10 +70,10 @@ def test_engine_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(paged_kv=True, quantization="int8"), "A8"),
-    (dict(quantization="int8"), "A8"),
-    (dict(quantization="int4"), "A8"),
-    (dict(kv_cache_dtype="int4", quantization="int4"), "A8"),
+    (dict(paged_kv=True, quantization="int8", tensor_parallel_size=2), "A13"),
+    (dict(quantization="int8", data_parallel_size=2), "A13"),
+    (dict(quantization="int4", sequence_parallel_size=2), "A13"),
+    (dict(kv_cache_dtype="int4", quantization="int4", tensor_parallel_size=2), "A13"),
     (dict(paged_kv=True, tensor_parallel_size=2), "A13"),
     (dict(kv_cache_dtype="int4", paged_kv=True, data_parallel_size=2), "A13"),
     (dict(tensor_parallel_size=2), "A13"),
@@ -96,13 +96,17 @@ def test_unported_knobs_raise(knob, item):
     dict(paged_kv=True),
     dict(paged_kv=True, kv_cache_dtype="int4", decode_fast_forward=True),
     dict(paged_kv=True, kv_cache_dtype="int8", spec_decode=True),
+    dict(quantization="int8", kv_cache_dtype="int8", decode_fast_forward=True),
+    dict(quantization="int4"),
+    dict(quantization="int4", paged_kv=True, kv_cache_dtype="int4", spec_decode=True),
 ])
 def test_ported_decode_paths_are_accepted(knob):
-    """The fast-forward and speculative loops, the int8 dense cache and
-    the paged pools, alone and combined (speculative decoding wins over
-    fast-forward)."""
+    """The fast-forward and speculative loops, the int8 dense cache, the
+    paged pools and the quantized weights, alone and combined
+    (speculative decoding wins over fast-forward)."""
     cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test", **knob)
     eng = TorchEngine(cfg, device="cpu")
+    assert eng.quantization == knob.get("quantization")
     assert eng.kv_int8 == (knob.get("kv_cache_dtype") == "int8")
     assert eng.spec_decode == knob.get("spec_decode", False)
     assert eng.fast_forward == knob.get("decode_fast_forward", False)
@@ -175,7 +179,8 @@ def test_create_engine_serves_torch_only():
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(PKG, "csrc")
     for name in ("flash_prefill", "decode_attention", "guided_sampler",
-                 "chunk_decode_attention", "decode_attention_int8", "paged_attention"):
+                 "chunk_decode_attention", "decode_attention_int8", "paged_attention",
+                 "w4a16"):
         text = open(os.path.join(csrc, f"{name}.cu")).read()
         assert "Replaces: bcg_tpu/ops/" in text
         assert "What bounds it on this card" in text
@@ -198,7 +203,7 @@ def test_cli_builds_a_torch_config_on_cuda_by_default():
 
 @pytest.mark.parametrize("flag", [
     "--tensor-parallel=2", "--sequence-parallel=2", "--data-parallel=2",
-    "--quantization=int8", "--scan-layers", "--spmd-exchange",
+    "--serve", "--scan-layers", "--spmd-exchange",
     "--fake-policy=consensus", "--fault-rate=0.1", "--fault-seed=1", "--backend=torch",
 ])
 def test_cli_offers_no_flag_of_an_unported_path(flag, capsys):
@@ -256,3 +261,23 @@ def test_new_kernel_forms_live_in_modules_that_import_without_jax():
     for fn in (da.decode_attention, da.chunk_decode_attention, da.decode_attention_int8,
                da.chunk_decode_attention_int8):
         assert isinstance(fn.launches, int)
+
+
+def test_weight_quantization_modules_import_without_jax_and_count():
+    """The modules of the weight-quantization slice (the quantizers and
+    ``dense``, the W4A16 kernel's wrapper) are among those the import test
+    walks and the source scan reads; the wrapper carries a launch count
+    and its source is in the build list."""
+    from bcg_tpu_torch.models import quantize
+    from bcg_tpu_torch.ops import _build, w4_matmul
+
+    mods = _modules()
+    for m in ("bcg_tpu_torch.models.quantize", "bcg_tpu_torch.ops.w4_matmul",
+              "bcg_tpu_torch.models.convert", "bcg_tpu_torch.cli"):
+        assert m in mods
+    assert "w4a16" in _build.SOURCES
+    assert isinstance(w4_matmul.w4a16_matmul.launches, int)
+    for name in ("quantize_weight", "quantize_weight_int4", "unpack_int4", "dequantize_int4",
+                 "dense", "quantize_params", "quantize_leaf_transform",
+                 "ensure_quantized_head", "int4_group_for"):
+        assert callable(getattr(quantize, name))

@@ -381,3 +381,144 @@ def test_wrappers_raise_on_cuda_inputs_they_do_not_take(dev):
         decode_attention.decode_attention_int8(
             qc[:, 0], k8, k8, sc[..., :4], sc[..., :4],
             torch.ones((1, 8), dtype=torch.bool, device=dev), 1.0)
+
+
+# ------------------------------------------------------------ weights (B5)
+
+# (in, out) of the int4 weights the engine serves: tiny-test (groups of 32
+# and 64, F = 32), tiny-dh128 and bench-8b (groups of 128; F = 1024 splits
+# the contraction across blocks).
+W4_SHAPES = [(64, 64), (64, 32), (128, 64), (256, 256), (512, 256),
+             (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)]
+W4_IDS = ["tiny-wq-g32", "tiny-wk-F32", "tiny-wdown-g64", "dh128-wq", "dh128-wdown",
+          "8b-wq", "8b-wk", "8b-wgate", "8b-wdown"]
+# Relative L2 error per output row, kernel vs plain version.  Both take
+# the same bf16 products (x and the bf16-rounded dequantized weight) and
+# sum them in f32 in another order: ~1e-6 at these depths.  A wrong nibble,
+# group scale or half reads O(1).
+W4_REL_ROW_TOL = 1e-3
+
+
+def _rel_rows(out, ref):
+    return ((out - ref).pow(2).sum(-1).sqrt() / ref.pow(2).sum(-1).sqrt().clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("M", [1, 10, 50, 256])
+@pytest.mark.parametrize("shape", W4_SHAPES, ids=W4_IDS)
+def test_w4a16_kernel_matches_plain(dev, shape, M):
+    from bcg_tpu_torch.models.quantize import quantize_weight_int4
+    from bcg_tpu_torch.ops import w4_matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(shape[0] + shape[1] + M)
+    w = torch.randn(shape, generator=gen, device=dev) / shape[0] ** 0.5
+    q = quantize_weight_int4(w.to(torch.bfloat16))
+    x = torch.randn((M, shape[0]), generator=gen, device=dev).to(torch.bfloat16)
+    before = w4_matmul.w4a16_matmul.launches
+    out = w4_matmul.w4a16_matmul(x, q["q4"], q["gscale"])
+    torch.cuda.synchronize()
+    assert w4_matmul.w4a16_matmul.launches == before + 1
+    ref = w4_matmul.w4a16_matmul_plain(x, q["q4"], q["gscale"])
+    assert out.dtype == torch.float32 and out.shape == (M, shape[1])
+    assert torch.isfinite(out).all()
+    assert _rel_rows(out, ref) <= W4_REL_ROW_TOL
+
+
+def test_w4a16_kernel_at_the_bench_lm_head_and_3d_rows(dev):
+    from bcg_tpu_torch.models.quantize import quantize_weight_int4
+    from bcg_tpu_torch.ops import w4_matmul
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    q = quantize_weight_int4((torch.randn((4096, 151936), generator=gen, device=dev)
+                              / 64.0).to(torch.bfloat16))
+    x = torch.randn((2, 5, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    out = w4_matmul.w4a16_matmul(x, q["q4"], q["gscale"])
+    ref = w4_matmul.w4a16_matmul_plain(x.reshape(10, 4096), q["q4"], q["gscale"])
+    assert out.shape == (2, 5, 151936)
+    assert _rel_rows(out.reshape(10, -1), ref) <= W4_REL_ROW_TOL
+
+
+def test_w4a16_wrapper_raises_on_shapes_it_does_not_take(dev):
+    from bcg_tpu_torch.models.quantize import quantize_weight_int4
+    from bcg_tpu_torch.ops import w4_matmul
+
+    q = quantize_weight_int4(torch.randn((64, 40), device=dev))           # F % 16
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w4_matmul.w4a16_matmul(torch.zeros((4, 64), dtype=torch.bfloat16, device=dev),
+                               q["q4"], q["gscale"])
+    q = quantize_weight_int4(torch.randn((64, 32), device=dev))
+    with pytest.raises(ValueError, match="rows"):
+        w4_matmul.w4a16_matmul(torch.zeros((257, 64), dtype=torch.bfloat16, device=dev),
+                               q["q4"], q["gscale"])
+
+
+@pytest.mark.parametrize("M", [1, 10, 17, 50, 300])
+def test_int8_dense_on_cuda_equals_the_cpu(dev, M):
+    """W8A8 on the card (``torch._int_mm``, rows padded to 17 where it
+    needs more than 16) gives the CPU's bits: an exact int32 product and
+    the same f32 elementwise steps."""
+    from bcg_tpu_torch.models.quantize import dense, quantize_weight
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(M)
+    w = (torch.randn((4096, 1024), generator=gen) / 64.0).to(torch.bfloat16)
+    x = torch.randn((M, 4096), generator=gen).to(torch.bfloat16)
+    q = quantize_weight(w)
+    ref = dense(x, q, torch.float32)
+    got = dense(x.to(dev), {k: v.to(dev) for k, v in q.items()}, torch.float32)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_model_on_cuda_runs_the_kernels(dev, mode):
+    """tiny-dh128 with quantized weights: prefill and decode steps on the
+    card against the same bf16 weights on the CPU; int4's decode-shaped
+    matmuls launch B5 (7 per layer and the LM head, each step)."""
+    from bcg_tpu_torch.models.quantize import quantize_params
+    from bcg_tpu_torch.ops import w4_matmul
+
+    spec = spec_for_model("bcg-tpu/tiny-dh128")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    p16 = {k: v.to(torch.bfloat16) for k, v in init_params(spec, gen, "cpu", torch.float32).items()}
+    qp = quantize_params(p16, spec, mode=mode)
+
+    def run(params, d):
+        rng = np.random.default_rng(1)
+        B, L, S = 3, 40, 48
+        tokens = torch.from_numpy(rng.integers(0, 256, (B, L))).to(d)
+        valid = torch.ones((B, L), dtype=torch.bool, device=d)
+        valid[1, :9] = False
+        cache = transformer.init_kv_cache(spec, B, S, torch.bfloat16, d)
+        logits, cache = transformer.prefill(params, spec, tokens, valid, cache)
+        outs = [logits.float().cpu()]
+        vm = torch.zeros((B, S), dtype=torch.bool, device=d)
+        vm[:, :L] = valid
+        for i in range(3):
+            vm[:, L + i] = True
+            tok = torch.from_numpy(rng.integers(0, 256, (B,))).to(d)
+            logits, cache = transformer.decode_step(params, spec, tok, L + i,
+                                                    valid.sum(1).to(torch.int32) + i, cache, vm)
+            outs.append(logits.float().cpu())
+        return torch.stack(outs)
+
+    before = w4_matmul.w4a16_matmul.launches
+    got = run({k: ({p: t.to(dev) for p, t in v.items()} if isinstance(v, dict) else v.to(dev))
+               for k, v in qp.items()}, dev)
+    launched = w4_matmul.w4a16_matmul.launches - before
+    assert launched == (4 * (7 * spec.num_layers + 1) if mode == "int4" else 0)
+    ref = run(qp, "cpu")
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 0.15
+
+
+def test_int4_engine_kill_switch_raises_on_cuda(dev, monkeypatch):
+    from bcg_tpu_torch.config import EngineConfig
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+
+    monkeypatch.setenv("BCG_TPU_DISABLE_W4_KERNEL", "1")
+    with pytest.raises(ValueError, match="BCG_TPU_DISABLE_W4_KERNEL"):
+        TorchEngine(EngineConfig(backend="torch", model_name="bcg-tpu/tiny-dh128",
+                                 max_model_len=512, quantization="int4"), device=dev)
