@@ -1,15 +1,18 @@
-// Shared body of the chunk, int8 and paged decode-attention kernels
-// (sm_90a).
+// Shared body of the decode-attention kernels (sm_90a): the bf16 single
+// step (B3a), the bf16 chunk, the int8 and the paged kernels.
 //
-// One block per (kv head hk, batch row b) computes, for the R = Kq * G
-// query rows of that kv head (Kq chunk positions times the GQA group
-// G = H / Hkv, position-major: row r is chunk position r / G, query head
-// hk * G + r % G):
-//   out[r] = sum_s softmax_s(scale * q[r].k[s], mask[r / G or 0][s]) * v[s]
-// over the whole cache window.  The arithmetic is the Pallas decode
-// kernels': masked scores take the -1e30 sentinel, p = exp(s - m) * mask
-// (a fully masked row gives 0), l sums the f32 p, the p.v product takes
-// p rounded to bf16, and out = acc / (l == 0 ? 1 : l).
+// One block per (kv head hk, batch row b, split z) computes, for the
+// R = Kq * G query rows of that kv head (Kq chunk positions times the GQA
+// group G = H / Hkv, position-major: row r is chunk position r / G, query
+// head hk * G + r % G):
+//   out[r] = sum_s softmax_s(scale * q[r].k[s], mask[mrow(r)][s]) * v[s]
+// over the cache window, where the mask has Mk rows per batch row and
+// row r reads mask row 0 (Mk == 1) or r / mask_div (mask_div = G for the
+// chunk forms' [B, Kq, S] mask, 1 for B3a's per-query-row [B, G, S]
+// mask).  The arithmetic is the Pallas decode kernels': masked scores
+// take the -1e30 sentinel, p = exp(s - m) * mask (a fully masked row
+// gives 0), l sums the f32 p, the p.v product takes p rounded to bf16,
+// and out = acc / (l == 0 ? 1 : l).
 //
 // Layout and addressing are two template policies.  KVChunk<kLayout>
 // reads one 16-byte slice of a position's row and writes it to shared
@@ -34,8 +37,33 @@
 // positions of K and V (dequantized to bf16 for a quantized cache; each
 // thread keeps 4 + 4 16-byte loads in flight before storing any) and the
 // mask rows in shared memory; an iteration with no live (row, position)
-// pair loads no K/V.  No TMA and no overlap of one iteration's loads with
-// the previous one's math yet.  Head dim 128; R up to 64.
+// pair loads no K/V.  Shared memory is sized for the rows a launch has
+// (smem_bytes): 74 KB at R <= 16, so three blocks fit on an SM.
+//
+// Split-S (flash-decoding), the SplitS option.  One block per (b, hk)
+// leaves B * Hkv blocks (80 at the bench-8b game shape) on 132 SMs, each
+// streaming the whole window alone: the kernel is then bound by one
+// block's load latency, not by the card's bytes.  With split.len > 0 the
+// grid's third axis cuts the window into gridDim.z contiguous ranges of
+// split.len positions (a multiple of kSuper; the last range takes the
+// rest of S).  Each block writes its rows' f32 partials (the unnormalised
+// acc, the running max m and the sum l over unrounded p) to split.part;
+// the last block of a (b, hk) to arrive — __threadfence, then an
+// atomicAdd on split.count[b * Hkv + hk] — merges the splits in split
+// order (so the result does not depend on arrival order: repeated calls
+// are bit-identical), normalises, writes bf16 and sets the count back to
+// 0.  The merge is the JAX package's flash-decoding merge
+// (bcg_tpu/ops/ring_attention.py sp_chunk_decode_attention): global max,
+// each split weighted by exp(m_z - m), out = acc / l; a split with no
+// live position (l_z == 0) weighs exactly 0, never exp(-1e30 - -1e30).
+// One launch, no second combine kernel, nothing allocated: the caller
+// owns the workspace (ops/decode_attention.py), so a call can be
+// captured in a CUDA graph.  Only B3a turns it on so far; the chunk,
+// int8 and paged launchers take the default (one split).
+//
+// Still missing: no TMA and no overlap of one iteration's loads with the
+// same block's math (other resident blocks cover it).  Head dim 128; R up
+// to 64.
 #pragma once
 
 #include "common.cuh"
@@ -49,9 +77,13 @@ constexpr int kWN = 32;                       // positions per warp per iteratio
 constexpr int kSuper = kWarps * kWN;          // most positions per iteration
 constexpr int kMaxRows = 64;                  // R = Kq * G
 constexpr int kStride = kDh + 8;              // smem row stride (bf16), padded vs bank conflicts
-constexpr size_t kSmemBytes =
-    (size_t)(kMaxRows + 2 * kSuper) * kStride * sizeof(__nv_bfloat16) +
-    (size_t)kMaxRows * kSuper;
+// Dynamic shared memory for `rows` (a multiple of 16) query rows and
+// `mask_rows` staged mask rows; kSmemBytes fits every launch.
+__host__ __device__ constexpr size_t smem_bytes(int rows, int mask_rows) {
+  return (size_t)(rows + 2 * kSuper) * kStride * sizeof(__nv_bfloat16) +
+         (size_t)mask_rows * kSuper;
+}
+constexpr size_t kSmemBytes = smem_bytes(kMaxRows, kMaxRows);
 
 __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -187,6 +219,14 @@ struct PagedAddr {
 
 constexpr int kLoadBatch = 4;   // chunks of K and of V in flight per thread
 
+// The split-S option (see the header).  len == 0: one split per (b, hk),
+// the result written straight to `out`.
+struct SplitS {
+  int len = 0;               // positions per split, a multiple of kSuper
+  float* part = nullptr;     // [B * Hkv][gridDim.z][R][kDh + 2]: acc, m, l
+  unsigned* count = nullptr; // [B * Hkv] arrivals; 0 between launches
+};
+
 template <int kLayout, class Addr>
 __device__ __forceinline__ void decode_tile_body(
     const __nv_bfloat16* __restrict__ q,      // [B, Kq, H, Dh]
@@ -196,17 +236,23 @@ __device__ __forceinline__ void decode_tile_body(
     const typename KVChunk<kLayout>::Scale* __restrict__ v_scale,
     const uint8_t* __restrict__ mask,         // [B, Mk, S], Mk = 1 or Kq
     __nv_bfloat16* __restrict__ out,          // [B, Kq, H, Dh]
-    int S, int H, int Hkv, int Kq, int Mk, const Addr addr, float scale) {
+    int S, int H, int Hkv, int Kq, int Mk, const Addr addr, float scale,
+    int mask_div = 0,                         // rows per mask row; 0: G
+    const SplitS split = SplitS{}) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kMaxRows * kStride;
-  __nv_bfloat16* Vs = Ks + kSuper * kStride;
-  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + kSuper * kStride);   // [Mk][kSuper]
-
   const int hk = blockIdx.x, b = blockIdx.y;
   const int G = H / Hkv;
   const int R = Kq * G;
   const int nM = (R + 15) / 16;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + nM * 16 * kStride;
+  __nv_bfloat16* Vs = Ks + kSuper * kStride;
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + kSuper * kStride);   // [Mk][kSuper]
+  if (mask_div == 0) mask_div = G;
+  // This block's range of positions [s_begin, s_end).
+  const int nz = split.len ? (int)gridDim.z : 1, z = split.len ? (int)blockIdx.z : 0;
+  const int s_begin = z * split.len;
+  const int s_end = z + 1 < nz ? s_begin + split.len : S;
   const int nSplit = kWarps / nM;
   const int P = nSplit * kWN;                 // positions per iteration
   const int tid = threadIdx.x;
@@ -244,7 +290,7 @@ __device__ __forceinline__ void decode_tile_body(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = wr + g + 8 * i;
-    mrow[i] = r < R ? (Mk == 1 ? 0 : r / G) : -1;
+    mrow[i] = r < R ? (Mk == 1 ? 0 : r / mask_div) : -1;
   }
 
   float o[kDh / 8][4];
@@ -257,13 +303,13 @@ __device__ __forceinline__ void decode_tile_body(
   using Chunk = KVChunk<kLayout>;
   constexpr int kChunks = Chunk::kLoads;      // 16-byte loads per cache row
 
-  for (int s0 = 0; s0 < S; s0 += P) {
+  for (int s0 = s_begin; s0 < s_end; s0 += P) {
     __syncthreads();   // the previous iteration's K/V/mask are no longer read
     int live = 0;
     for (int c = tid; c < Mk * P; c += kThreads) {
       const int r = c / P, col = c % P;
       const int s = s0 + col;
-      const uint8_t mv = s < S ? mb[(long long)r * S + s] : 0;
+      const uint8_t mv = s < s_end ? mb[(long long)r * S + s] : 0;
       Ms[r * kSuper + col] = mv;
       live |= mv;
     }
@@ -276,7 +322,7 @@ __device__ __forceinline__ void decode_tile_body(
         const int c = c0 + u * kThreads;
         const int r = c / kChunks, j = c % kChunks;
         const int s = s0 + r;
-        if (c < P * kChunks && s < S) {
+        if (c < P * kChunks && s < s_end) {
           const long long vo = addr.val(s);
           const long long so = kLayout == kBf16 ? 0 : addr.scl(s);
           kc[u].load(k + vo, k_scale + so, j);
@@ -297,7 +343,7 @@ __device__ __forceinline__ void decode_tile_body(
       }
     }
     __syncthreads();
-    if (!active || s0 + wp0 >= S) continue;
+    if (!active || s0 + wp0 >= s_end) continue;
 
     // scores = q . k^T for the warp's 16 rows x 32 positions.
     float sc[kWN / 8][4];
@@ -406,6 +452,9 @@ __device__ __forceinline__ void decode_tile_body(
     }
   }
   __syncthreads();
+  // One split: normalise and store.  Split-S: store this block's partials.
+  const long long pair = (long long)b * Hkv + hk;
+  float* part = split.part + pair * nz * R * (kDh + 2);
   for (int idx = tid; idx < R * kDh; idx += kThreads) {
     const int r = idx / kDh, d = idx % kDh;
     const int rt = r / 16, rl = r % 16;
@@ -418,8 +467,44 @@ __device__ __forceinline__ void decode_tile_body(
       l += a * Lrun[w * 16 + rl];
       acc += a * Os[(w * 16 + rl) * kDh + d];
     }
+    if (nz == 1) {
+      out[q_row(r) + d] = __float2bfloat16(acc / (l == 0.f ? 1.f : l));
+    } else {
+      float* pr = part + ((long long)z * R + r) * (kDh + 2);
+      pr[d] = acc;
+      if (d == 0) {
+        pr[kDh] = m;
+        pr[kDh + 1] = l;
+      }
+    }
+  }
+  if (nz == 1) return;
+
+  // The last block of this (b, hk) to arrive merges the splits in order.
+  __shared__ unsigned is_last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(split.count + pair, 1u) == (unsigned)(nz - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int idx = tid; idx < R * kDh; idx += kThreads) {
+    const int r = idx / kDh, d = idx % kDh;
+    const float* pr = part + (long long)r * (kDh + 2);
+    const long long zstride = (long long)R * (kDh + 2);
+    float m = bcg::kNegInf;
+    for (int s = 0; s < nz; ++s) m = fmaxf(m, __ldcg(pr + s * zstride + kDh));
+    float l = 0.f, acc = 0.f;
+    for (int s = 0; s < nz; ++s) {
+      const float* ps = pr + s * zstride;
+      const float ls = __ldcg(ps + kDh + 1);
+      const float w = ls > 0.f ? expf(__ldcg(ps + kDh) - m) : 0.f;
+      l += w * ls;
+      acc += w * __ldcg(ps + d);
+    }
     out[q_row(r) + d] = __float2bfloat16(acc / (l == 0.f ? 1.f : l));
   }
+  if (tid == 0) split.count[pair] = 0u;
 }
 
 }  // namespace bcg_tile

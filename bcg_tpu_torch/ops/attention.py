@@ -5,9 +5,10 @@ Port of ``bcg_tpu/ops/attention.py``.  :func:`flash_attention` computes
 arbitrary boolean mask, in the model's layouts: q ``[B, T, H, Dh]``,
 k/v ``[B, S, Hkv, Dh]`` (the KV-cache layout, read through its strides),
 mask ``[B, T, S]`` (True = attend).  On a CUDA tensor it launches the
-hand-written kernel ``csrc/flash_prefill.cu``; on a CPU tensor it runs
-:func:`flash_attention_plain`.  Nothing falls back silently: a CUDA
-input the kernel does not take raises.
+hand-written kernel ``csrc/flash_prefill.cu`` (a mask-packing pre-pass,
+then one block per (query tile, kv head, batch row) on ``wgmma``); on a
+CPU tensor it runs :func:`flash_attention_plain`.  Nothing falls back
+silently: a CUDA input the kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -20,8 +21,11 @@ from bcg_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# q, k, v, mask, out, B, T, S, H, Hkv, kv batch stride, kv seq stride, scale, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, ctypes.c_float, _P]
+# q, k, v, mask, bits, flags, out, B, T, S, H, Hkv, Wp, kv batch stride,
+# kv seq stride, scale, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, ctypes.c_float, _P]
+BLOCK_ROWS = 192   # (position, query head) rows of one block (csrc kRows)
+KEY_TILE = 128     # keys per tile (csrc kBN)
 
 
 def flash_attention_plain(q, k, v, mask, scale):
@@ -58,6 +62,9 @@ def _check(q, k, v, mask):
     S, Hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh or H % Hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if H // Hkv > BLOCK_ROWS:
+        raise ValueError(f"flash_attention kernel takes GQA groups up to {BLOCK_ROWS}, "
+                         f"got {H // Hkv}")
     if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != Dh \
             or k.stride(1) % 8 or k.stride(0) % 8:
         raise ValueError(f"flash_attention kernel takes k/v with heads-then-dims "
@@ -78,10 +85,18 @@ def flash_attention_cuda(q, k, v, mask, scale):
     fn = _build.entry("flash_prefill", "bcg_flash_prefill", _ARGTYPES)
     B, T, H, _ = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    # The pre-pass's outputs: the mask as bits (rows of Wp words, a
+    # multiple of 4 so each row is 16-byte aligned) and one live flag per
+    # (batch row, query tile, key tile).
+    tp = BLOCK_ROWS // (H // Hkv)
+    words = -(-S // 32)
+    wp = -(-words // 4) * 4
+    bits = torch.empty((B, T, wp), dtype=torch.int32, device=q.device)
+    flags = torch.empty((B, -(-T // tp), -(-S // KEY_TILE)), dtype=torch.uint8, device=q.device)
     out = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-             B, T, S, H, Hkv, k.stride(0), k.stride(1), float(scale),
-             _build.stream_ptr(q))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), bits.data_ptr(),
+             flags.data_ptr(), out.data_ptr(), B, T, S, H, Hkv, wp, k.stride(0), k.stride(1),
+             float(scale), _build.stream_ptr(q))
     _build.check(err, "flash_prefill")
     flash_attention.launches += 1
     return out

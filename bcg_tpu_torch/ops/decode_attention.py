@@ -7,10 +7,14 @@ version (a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises):
 
 * :func:`decode_attention` — one step over the bf16 cache
-  (``csrc/decode_attention.cu``).  q ``[B, H, Dh]``; k/v
-  ``[B, S, Hkv, Dh]`` (the cache layout, S-major); mask ``[B, S]``
-  (attendable slots, shared by every query row) or ``[B, M, S]`` with
-  ``M`` = 1 or the GQA group.  Returns ``[B, H, Dh]``.
+  (``csrc/decode_attention.cu``, the shared tile body with the window
+  split over S: :func:`decode_split_plan` chooses the split, the
+  wrapper keeps the kernel's workspace, and
+  :func:`decode_attention_split_plain` repeats the split arithmetic for
+  the tests).  q ``[B, H, Dh]``; k/v ``[B, S, Hkv, Dh]`` (the cache
+  layout, S-major); mask ``[B, S]`` (attendable slots, shared by every
+  query row) or ``[B, M, S]`` with ``M`` = 1 or the GQA group (query row
+  g of a kv head reads mask row g).  Returns ``[B, H, Dh]``.
 * :func:`chunk_decode_attention` — a chunk of K positions over the bf16
   cache (``csrc/chunk_decode_attention.cu``): q ``[B, K, H, Dh]``, mask
   ``[B, K, S]``; returns ``[B, K, H, Dh]``.
@@ -23,17 +27,21 @@ kernel or raises):
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from bcg_tpu_torch.ops import _build
-from bcg_tpu_torch.ops.attention import flash_attention_plain
+from bcg_tpu_torch.ops.attention import _NEG_INF, flash_attention_plain
 
-MAX_GROUP = 8   # query rows per kv head the kernel holds (csrc kMaxG)
 MAX_TILE_ROWS = 64   # K * group query rows per kv head (csrc decode_tile.cuh kMaxRows)
+SPLIT_ITER = 128   # positions of one tile-body iteration (csrc decode_tile.cuh kSuper)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# q, k, v, mask, out, B, S, H, Hkv, M, kv batch stride, kv seq stride, scale, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, ctypes.c_float, _P]
+# q, k, v, mask, out, B, S, H, Hkv, M, kv batch stride, kv seq stride, scale,
+# n_split, split_len, partials, counters, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, ctypes.c_float, _I, _I,
+             _P, _P, _P]
+_OCC_ARGTYPES = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]   # H, Hkv, M -> blocks per SM
 # q, k, v, mask, out, B, S, H, Hkv, Kq, Mk, kv batch/head/seq strides, scale, stream
 _CHUNK_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                    ctypes.c_float, _P]
@@ -93,6 +101,70 @@ def decode_attention_plain(q, k, v, mask, scale):
     return torch.stack(outs, dim=2).reshape(B, H, Dh)
 
 
+def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int, blocks_per_sm: int = 2):
+    """How B3a cuts the window: ``(n_split, split_len)``.
+
+    The kernel runs ``B * Hkv * n_split`` blocks; split ``z`` covers
+    positions ``[z * split_len, (z + 1) * split_len)``, the last one
+    ``[(n_split - 1) * split_len, S)``.  ``split_len`` is a whole number
+    of the tile body's 128-position iterations.  The plan aims for one
+    wave of ``blocks_per_sm`` (the kernel's occupancy, at least 2) blocks
+    on each of ``sm_count`` SMs; where ``B * Hkv`` already reaches two
+    blocks per SM it plans one split.  No split is shorter than one
+    iteration: a last split that would be is folded into the one before
+    (which then runs past ``split_len``)."""
+    iters = max(1, -(-S // SPLIT_ITER))
+    pairs = B * Hkv
+    if pairs >= 2 * sm_count:
+        return 1, iters * SPLIT_ITER
+    n = max(1, min(iters, max(2, blocks_per_sm) * sm_count // pairs))
+    per = -(-iters // n) * SPLIT_ITER
+    n = -(-S // per)
+    if n > 1 and S - (n - 1) * per < SPLIT_ITER:
+        n -= 1
+    return (n, per) if n > 1 else (1, iters * SPLIT_ITER)
+
+
+def decode_attention_split_plain(q, k, v, mask, scale, n_split, split_len=None):
+    """Plain version of B3a's split arithmetic (flash-decoding): the
+    window cut into ``n_split`` contiguous ranges of ``split_len``
+    positions (default ``ceil(S / n_split)``; the last range takes the
+    rest), each range's running max ``m``, sum ``l`` over the unrounded
+    ``p = exp(s - m) * mask`` and unnormalised ``acc`` with ``p`` rounded
+    to v's type for the p.v product, relative to the range's own max, as
+    the kernel rounds it; then the merge of the JAX package's
+    ``sp_chunk_decode_attention``: global max, each range weighted by
+    ``exp(m_z - m)`` (exactly 0 for a range with no live position),
+    ``out = acc / l`` (0 for a fully masked row).  Used by the tests and
+    ``chip_smoke.py``, never on the served path."""
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    per = split_len or -(-S // n_split)
+    m3 = _mask3(mask)
+    live = m3[:, None] if m3.shape[1] == 1 else m3.reshape(B, 1, group, S)   # [B, 1, G|1, S]
+    qg = q.float().reshape(B, Hkv, group, Dh)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    scores = torch.where(live, scores, _NEG_INF)
+    ms, ls, accs = [], [], []
+    for z in range(n_split):
+        a, e = z * per, (S if z == n_split - 1 else min((z + 1) * per, S))
+        sz, lz = scores[..., a:e], live[..., a:e]
+        m = sz.amax(dim=-1, keepdim=True) if e > a else torch.full_like(scores[..., :1], _NEG_INF)
+        p = torch.exp(sz - m) * lz
+        ms.append(m[..., 0])
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype).float(), v[:, a:e].float()))
+    m_all = torch.stack(ms)                                   # [n, B, Hkv, G]
+    l_all = torch.stack(ls)
+    m = m_all.amax(dim=0)
+    w = torch.where(l_all > 0, torch.exp(m_all - m), torch.zeros_like(m_all))
+    l = (w * l_all).sum(dim=0)
+    acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return out.reshape(B, H, Dh).to(v.dtype)
+
+
 def _check(q, k, v, m3):
     B, H, Dh = q.shape
     if Dh != 128:
@@ -106,8 +178,9 @@ def _check(q, k, v, m3):
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh or H % Hkv:
         raise ValueError(f"decode_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     group = H // Hkv
-    if group > MAX_GROUP:
-        raise ValueError(f"decode_attention kernel takes GQA groups up to {MAX_GROUP}, got {group}")
+    if group > MAX_TILE_ROWS:   # B3a's rows are the group's query heads
+        raise ValueError(f"decode_attention kernel takes GQA groups up to {MAX_TILE_ROWS}, "
+                         f"got {group}")
     if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != Dh \
             or k.stride(1) % 8 or k.stride(0) % 8:
         raise ValueError(f"decode_attention kernel takes k/v with heads-then-dims "
@@ -123,18 +196,72 @@ def _check(q, k, v, m3):
         raise ValueError("decode_attention: tensors on different devices")
 
 
+class _SplitWorkspace:
+    """B3a's split-S workspace on one device: f32 partials and the
+    per-(batch row, kv head) arrival counters, zeroed once when made.
+    The kernel leaves the counters 0, so the buffers are reused by every
+    call; they grow when a call needs more and never inside a CUDA graph
+    capture (a capture needs them large enough beforehand: one call of
+    the same shape outside it)."""
+
+    def __init__(self):
+        self.part = self.count = None
+
+    def get(self, device, n_part: int, n_count: int):
+        small = (self.part is None or self.part.numel() < n_part
+                 or self.count.numel() < n_count)
+        if small:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("decode_attention: the split-S workspace is too small "
+                                   "for this call inside a CUDA graph capture; call it once "
+                                   "at this shape before capturing")
+            self.part = torch.empty(max(n_part, 1), dtype=torch.float32, device=device)
+            self.count = torch.zeros(max(n_count, 1), dtype=torch.int32, device=device)
+        return self.part, self.count
+
+
+_workspaces = {}
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(dev: int, B: int, H: int, Hkv: int, S: int, M: int):
+    """:func:`decode_split_plan` on device ``dev``, from its SM count and
+    the kernel's occupancy at this group and mask height."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ = ctypes.c_int(0)
+    fn = _build.entry("decode_attention", "bcg_decode_attention_occupancy", _OCC_ARGTYPES)
+    _build.check(fn(H, Hkv, M, ctypes.byref(occ)), "decode_attention occupancy")
+    return decode_split_plan(B, Hkv, S, sms, occ.value)
+
+
+def _split_for(q, Hkv, S, M):
+    """The split plan of a call with q ``[B, H, Dh]`` on a CUDA device."""
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    return _plan(dev, q.shape[0], q.shape[1], Hkv, S, M)
+
+
 def decode_attention_cuda(q, k, v, mask, scale):
-    """Launch ``csrc/decode_attention.cu`` on the current stream."""
+    """Launch ``csrc/decode_attention.cu`` on the current stream: one
+    launch, the window split as :func:`decode_split_plan` says."""
     B, H, Dh = q.shape
     m3 = _mask3(mask)
     _check(q, k, v, m3)
     m3 = m3.contiguous()
     fn = _build.entry("decode_attention", "bcg_decode_attention", _ARGTYPES)
     S, Hkv = k.shape[1], k.shape[2]
+    M = m3.shape[1]
+    n_split, split_len = _split_for(q, Hkv, S, M)
+    part_ptr = count_ptr = 0
+    if n_split > 1:
+        ws = _workspaces.get(q.device)
+        if ws is None:
+            ws = _workspaces[q.device] = _SplitWorkspace()
+        part, count = ws.get(q.device, B * Hkv * n_split * (H // Hkv) * (Dh + 2), B * Hkv)
+        part_ptr, count_ptr = part.data_ptr(), count.data_ptr()
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m3.data_ptr(), out.data_ptr(),
-             B, S, H, Hkv, m3.shape[1], k.stride(0), k.stride(1), float(scale),
-             _build.stream_ptr(q))
+             B, S, H, Hkv, M, k.stride(0), k.stride(1), float(scale), n_split, split_len,
+             part_ptr, count_ptr, _build.stream_ptr(q))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

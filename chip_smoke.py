@@ -69,14 +69,20 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    PyTorch version on its captured inputs (the sampler also on mixed
    greedy / sampled rows at top_p 1.0 and 0.9), with CUDA-event timings
    of the kernel, the plain version and, where one PyTorch call computes
-   the same function, that call; and the bound (bytes at 3.35 TB/s, int8
+   the same function, that call (B1 and B3a also print the ratio of the
+   kernel's time to that call's); and the bound (bytes at 3.35 TB/s, int8
    values and f32 scales counted as stored, or operations at 989
    TFLOP/s).  B5 (the W4A16 matmul) runs at P9's largest call (the LM
    head, M = 10) and at one captured weight of each layer shape with
    M = 1, 10, 50 and 256, held by relative L2 error per output row, with
    ``torch.matmul`` over the already dequantized bf16 weight timed beside
    it (another function: the bf16 product int4 has to beat); its times
-   come from CUDA graphs of calls (``graph_ms``).  Attention errors are
+   come from CUDA graphs of calls (``graph_ms``), as do B3a's and its
+   SDPA yardstick's (a call of tens of microseconds, whose event-timed
+   single call, printed beside it, counts the wrapper's host time).  B3a
+   is also held to the plain version of its split arithmetic at the plan
+   the kernel used (``split``: the split count and positions per split,
+   also in the kernels line).  Attention errors are
    held relative to the reference's own size, and the same measure is
    printed for the plain version with one tile of 64 live keys dropped,
    the size of error the limits must catch.
@@ -640,7 +646,7 @@ PAGED_DERIVED = {"paged_chunk_attention_bf16": ("P5", "paged_decode_attention_bf
 # nothing else on P9); the unpack's scale product and bf16 conversion
 # fall under "other".
 KINDS = (
-    ("flash_prefill_kernel", "flash_prefill"),
+    ("flash_prefill_kernel", "flash_prefill"), ("mask_pack_kernel", "flash_prefill"),
     ("decode_attention_kernel", "decode_attention"),
     ("chunk_decode_bf16_kernel", "chunk_decode_attention"),
     ("decode_int8_kernel", "decode_attention_int8"),
@@ -997,32 +1003,50 @@ def phase_kernels(inputs, counts):
         return dict(common("flash_prefill"),
                     replaces="bcg_tpu/ops/attention.py:37 _flash_kernel",
                     **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib_ms, shape=[B, T, H, Hkv, S], live_pairs=live)
+                    library_ms=lib_ms, library_ratio=ms / lib_ms, shape=[B, T, H, Hkv, S],
+                    live_pairs=live)
 
     def decode():
         q, k, v, mask, scale = inputs["P1"]["decode_attention"]
+        B, H, Dh = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        m3 = mask if mask.dim() == 3 else mask[:, None]
+        split = list(da._split_for(q, Hkv, S, m3.shape[1]))
         out = da.decode_attention_cuda(q, k, v, mask, scale)
         torch.cuda.synchronize()
         ref = da.decode_attention_plain(q, k, v, mask, scale)
         dropped = da.decode_attention_plain(q, k, v, drop_live_keys(mask), scale)
         check = attention_check(out, ref, (-1,), dropped)
-        ms = time_ms(lambda: da.decode_attention_cuda(q, k, v, mask, scale), reps=50)
+        # The split arithmetic's plain version at the plan the kernel used.
+        split_ref = da.decode_attention_split_plain(q, k, v, mask, scale, *split)
+        split_row, split_head = rel_errors(out, split_ref, (-1,))
+        check["split_rel_row"], check["split_rel_head"] = split_row, split_head
+        check["ok"] = (check["ok"] and split_row <= ATTN_REL_ROW_TOL
+                       and split_head <= ATTN_REL_HEAD_TOL)
+        # A call takes tens of microseconds: time it in a CUDA graph of
+        # calls (the event-timed single call counts the wrapper's host
+        # time), and SDPA the same way.  K and V of the captured window
+        # (100+ MB each) exceed the L2, so each call reads them cold.
+        ms = graph_ms([lambda: da.decode_attention_cuda(q, k, v, mask, scale)])
+        event_ms = time_ms(lambda: da.decode_attention_cuda(q, k, v, mask, scale), reps=50)
         plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, mask, scale))
-        B, H, Dh = q.shape
-        S, Hkv = k.shape[1], k.shape[2]
         group = H // Hkv
         m2 = mask if mask.dim() == 2 else mask[:, 0]
         kt = k.transpose(1, 2).repeat_interleave(group, 1)
         vt = v.transpose(1, 2).repeat_interleave(group, 1)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, attn_mask=m2[:, None, None], scale=scale), reps=50)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], kt, vt, attn_mask=m2[:, None, None], scale=scale)
+        lib_ms = graph_ms([sdpa])
+        lib_event_ms = time_ms(sdpa, reps=50)
         valid = m2.sum().item()
         byts = 2 * (2 * valid * Hkv * Dh) + 2 * 2 * q.numel() + m2.numel()
         bms, by = bound(byts, 4 * Dh * H * valid)
         return dict(common("decode_attention"),
                     replaces="bcg_tpu/ops/decode_attention.py:57 _decode_kernel",
-                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib_ms, shape=[B, H, Hkv, S], valid_slots=valid)
+                    **check, ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms, library_event_ms=lib_event_ms,
+                    library_ratio=ms / lib_ms, split=split, shape=[B, H, Hkv, S],
+                    valid_slots=valid)
 
     def chunk():
         q, k, v, mask, scale = inputs["P3"]["chunk_decode_attention"]
@@ -1238,6 +1262,12 @@ def phase_kernels(inputs, counts):
         if "dense_ms" in r:
             err += (f" dense_ms={r['dense_ms']:.4f} dense_rel_row={r['dense_rel_row']:.4g} "
                     f"live_blocks={r['live_blocks']} inputs_from={r['inputs_from']}")
+        if "split" in r:
+            err += (f" split={r['split']} split_plain_rel_row={r['split_rel_row']:.4g} "
+                    f"split_plain_rel_head={r['split_rel_head']:.4g} "
+                    f"event_ms={r['event_ms']:.4f} library_event_ms={r['library_event_ms']:.4f}")
+        if "library_ratio" in r:
+            err += f" library_ratio={r['library_ratio']:.4g}"
         print(f"kernel {r['name']}: {err} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
@@ -1297,7 +1327,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card line", flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}), flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("split",) if k in r}
+                                  for r in results]}), flush=True)
     if errors:
         fail("; ".join(errors))
     print(card, flush=True)

@@ -8,7 +8,9 @@ only PyTorch; there, skip the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Covered: flash prefill, bf16 decode attention (single step and chunk),
+Covered: flash prefill (groups 1-7, edge shapes), bf16 decode attention
+(single step — split over S, repeatable bit for bit and replayed in a
+CUDA graph — and chunk),
 int8 decode attention (single step and chunk, at the bench-8b shapes
 and at a GQA group of 5), paged decode attention over bf16, int8 and
 packed-int4 block pools (single step and chunk, shuffled tables with
@@ -64,7 +66,8 @@ def _prefix_mask(rng, B, T, S, dead_rows):
 
 
 @pytest.mark.parametrize("mask_kind", ["random", "prefix", "padrows"])
-@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 4), (32, 8)], ids=["g1", "g2", "g4"])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 4), (32, 8), (10, 2), (14, 2)],
+                         ids=["g1", "g2", "g4", "g5", "g7"])
 def test_flash_kernel_matches_plain(dev, H, Hkv, mask_kind):
     rng = np.random.default_rng([H, Hkv, len(mask_kind)])
     B, T, S, Dh = 2, 150, 470, 128       # ragged T and S: partial tiles
@@ -89,7 +92,8 @@ def test_flash_kernel_matches_plain(dev, H, Hkv, mask_kind):
 
 
 @pytest.mark.parametrize("per_row", [False, True], ids=["shared-mask", "per-row-mask"])
-@pytest.mark.parametrize("H,Hkv", [(4, 4), (32, 8), (16, 2)], ids=["g1", "g4", "g8"])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (32, 8), (16, 2), (10, 2), (14, 2)],
+                         ids=["g1", "g4", "g8", "g5", "g7"])
 def test_decode_kernel_matches_plain(dev, H, Hkv, per_row):
     rng = np.random.default_rng([H, Hkv, int(per_row)])
     B, S, Dh = 3, 1000, 128
@@ -109,6 +113,118 @@ def test_decode_kernel_matches_plain(dev, H, Hkv, per_row):
     ref = decode_attention.decode_attention_plain(q, k, v, mask, Dh ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
     assert torch.all(out[2] == 0)
+
+
+def _flash_case(dev, rng, B, T, S, H, Hkv, m):
+    Dh = 128
+    q = torch.from_numpy(rng.standard_normal((B, T, H, Dh), np.float32)).to(dev, torch.bfloat16)
+    cache = torch.from_numpy(rng.standard_normal((B, S, 2, Hkv, Dh), np.float32))
+    cache = cache.to(dev, torch.bfloat16)
+    k, v = cache[:, :, 0], cache[:, :, 1]
+    mask = torch.from_numpy(m).to(dev)
+    out = attention.flash_attention(q, k, v, mask, Dh ** -0.5)
+    torch.cuda.synchronize()
+    ref = attention.flash_attention_plain(q, k, v, mask, Dh ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+    assert torch.all(out[~mask.any(dim=2)] == 0)
+
+
+@pytest.mark.parametrize("case", ["T1", "T65", "S-under-a-tile", "last-tile-only",
+                                  "bench-group-T512"])
+def test_flash_kernel_edge_shapes(dev, case):
+    """One query row; one row past a block's positions; fewer keys than a
+    64-key tile; a mask live only in the last (ragged) key tile; the
+    bench-8b group of 4 at a mid-size prefill."""
+    rng = np.random.default_rng(len(case))
+    B, T, S, H, Hkv = {"T1": (2, 1, 300, 32, 8), "T65": (2, 65, 300, 32, 8),
+                       "S-under-a-tile": (2, 37, 40, 32, 8),
+                       "last-tile-only": (2, 70, 330, 32, 8),
+                       "bench-group-T512": (3, 512, 1500, 32, 8)}[case]
+    if case == "last-tile-only":
+        m = np.zeros((B, T, S), bool)
+        m[:, :, 320:] = rng.random((B, T, S - 320)) < 0.6
+        m[0, 5] = False                                  # a dead row
+    elif case == "bench-group-T512":
+        m = _prefix_mask(rng, B, T, S, dead_rows=True)
+    else:
+        m = rng.random((B, T, S)) < 0.5
+    _flash_case(dev, rng, B, T, S, H, Hkv, m)
+
+
+def _decode_inputs(dev, rng, B, S, H, Hkv):
+    Dh = 128
+    q = torch.from_numpy(rng.standard_normal((B, H, Dh), np.float32)).to(dev, torch.bfloat16)
+    cache = torch.from_numpy(rng.standard_normal((2, B, S + 3, Hkv, Dh), np.float32))
+    cache = cache.to(dev, torch.bfloat16)
+    return q, cache[0, :, :S], cache[1, :, :S]
+
+
+@pytest.mark.parametrize("case", ["B1-S8191", "live-first-64", "one-split"])
+def test_decode_kernel_split_shapes(dev, case):
+    """Many splits with a ragged last one (B = 1, S = 8191); live slots
+    only in the first 64 (every other split empty); B * Hkv >= 264 (one
+    split).  Held to the plain version and to the split arithmetic's
+    plain version at the plan the wrapper uses."""
+    rng = np.random.default_rng(len(case) + 1)
+    B, S, H, Hkv = {"B1-S8191": (1, 8191, 32, 8), "live-first-64": (3, 5000, 32, 8),
+                    "one-split": (33, 700, 32, 8)}[case]
+    q, k, v = _decode_inputs(dev, rng, B, S, H, Hkv)
+    m = rng.random((B, S)) < 0.7
+    if case == "live-first-64":
+        m[:, 64:] = False
+    mask = torch.from_numpy(m).to(dev)
+    n_split, split_len = decode_attention._split_for(q, Hkv, S, 1)
+    assert (n_split == 1) == (case == "one-split")
+    scale = 128 ** -0.5
+    out = decode_attention.decode_attention(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    ref = decode_attention.decode_attention_plain(q, k, v, mask, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+    split_ref = decode_attention.decode_attention_split_plain(q, k, v, mask, scale, n_split,
+                                                              split_len)
+    torch.testing.assert_close(out.float(), split_ref.float(), atol=TOL, rtol=TOL)
+
+
+def test_decode_kernel_is_deterministic_and_replays_in_a_graph(dev):
+    """Two calls are bit-identical (the last block merges the splits in
+    split order, whatever order the blocks finish in); the call captured
+    in a CUDA graph and replayed twice gives the same bits; a shrinking
+    then growing shape leaves the arrival counters at 0."""
+    rng = np.random.default_rng(3)
+    B, S, H, Hkv = 4, 3000, 32, 8
+    q, k, v = _decode_inputs(dev, rng, B, S, H, Hkv)
+    mask = torch.from_numpy(rng.random((B, S)) < 0.8).to(dev)
+    scale = 128 ** -0.5
+    assert decode_attention._split_for(q, Hkv, S, 1)[0] > 1
+    first = decode_attention.decode_attention(q, k, v, mask, scale)
+    second = decode_attention.decode_attention(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention.decode_attention(q, k, v, mask, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention.decode_attention(q, k, v, mask, scale)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+    # Shrink (fewer pairs, shorter window), then grow past the first shape.
+    for b, s in [(1, 700), (2, 1500), (6, 4000)]:
+        qs, ks, vs = _decode_inputs(dev, rng, b, s, H, Hkv)
+        ms = torch.from_numpy(rng.random((b, s)) < 0.8).to(dev)
+        got = decode_attention.decode_attention(qs, ks, vs, ms, scale)
+        ref = decode_attention.decode_attention_plain(qs, ks, vs, ms, scale)
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL, rtol=TOL)
+    torch.cuda.synchronize()
+    counts = decode_attention._workspaces[q.device].count
+    assert int(counts.abs().sum()) == 0
 
 
 def _cache_views(rng, dev, B, S, Hkv, Dh, int8):

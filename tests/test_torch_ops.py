@@ -229,7 +229,7 @@ def test_kernel_wrappers_raise_on_cuda_inputs_they_do_not_take():
     kv = torch.zeros((1, 4, 1, 128), dtype=torch.float32)
     with pytest.raises(TypeError, match="bf16"):
         ta._check(q, kv, kv, torch.ones((1, 4, 4), dtype=torch.bool))
-    qd = torch.zeros((1, 18, 128), dtype=torch.bfloat16)
+    qd = torch.zeros((1, 130, 128), dtype=torch.bfloat16)   # group 65: past one tile of 64 rows
     kvd = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="groups up to"):
         td._check(qd, kvd, kvd, torch.ones((1, 1, 8), dtype=torch.bool))
