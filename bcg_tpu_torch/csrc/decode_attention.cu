@@ -56,11 +56,6 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                               /*Kq=*/1, M, addr, scale, /*mask_div=*/1, split);
 }
 
-size_t smem_for(int H, int Hkv, int M) {
-  const int rows = (H / Hkv + 15) / 16 * 16;
-  return bcg_tile::smem_bytes(rows, M);
-}
-
 cudaError_t set_smem() {
   static bool done = false;   // the attribute persists; set it to the most any launch takes
   if (done) return cudaSuccess;
@@ -73,13 +68,16 @@ cudaError_t set_smem() {
 
 }  // namespace
 
-// Blocks of the kernel resident on one SM at this group and mask height
-// (the split plan's occupancy), written to *blocks.
-extern "C" int bcg_decode_attention_occupancy(int H, int Hkv, int M, int* blocks) {
+// Blocks of the kernel resident on one SM at R = rows query rows (the
+// group) and M mask rows (the split plan's occupancy), written to
+// *blocks.  The layout and table arguments are the paged kernel's; unused
+// here.
+extern "C" int bcg_decode_attention_occupancy(int, int rows, int M, int, int, int, int,
+                                              int* blocks) {
   cudaError_t err = set_smem();
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, decode_attention_kernel, bcg_tile::kThreads, smem_for(H, Hkv, M));
+  return bcg_tile::occupancy(decode_attention_kernel,
+                             bcg_tile::launch_smem(rows, M, bcg_tile::kBf16), blocks);
 }
 
 // n_split == 1: no workspace (part and count may be null).  Otherwise part
@@ -99,7 +97,8 @@ extern "C" int bcg_decode_attention(const void* q, const void* k, const void* v,
     split.count = static_cast<unsigned*>(count);
   }
   dim3 grid(Hkv, B, n_split > 1 ? n_split : 1);
-  decode_attention_kernel<<<grid, bcg_tile::kThreads, smem_for(H, Hkv, M),
+  decode_attention_kernel<<<grid, bcg_tile::kThreads,
+                            bcg_tile::launch_smem(H / Hkv, M, bcg_tile::kBf16),
                             (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),

@@ -34,32 +34,42 @@
 // of each block iteration between them (32 positions a warp), each with
 // its own online-softmax state, and the splits are merged once at the
 // end through shared memory.  Every iteration stages 32 * (4 / nM)
-// positions of K and V (dequantized to bf16 for a quantized cache; each
-// thread keeps 4 + 4 16-byte loads in flight before storing any) and the
-// mask rows in shared memory; an iteration with no live (row, position)
-// pair loads no K/V.  Shared memory is sized for the rows a launch has
-// (smem_bytes): 74 KB at R <= 16, so three blocks fit on an SM.
+// positions of K and V (dequantized to bf16 for a quantized cache) and
+// the mask rows in shared memory; an iteration with no live (row,
+// position) pair loads no K/V.  A bf16 cache is loaded an iteration at a
+// time, each thread keeping 4 + 4 16-byte loads in flight before storing
+// any.  A quantized cache is pipelined: the raw rows of the next
+// iteration are copied by cp.async into a staging buffer (raw_bytes)
+// while this one is dequantized and computed, its mask loaded an
+// iteration further ahead into registers so that a dead iteration is
+// never copied (a mask taller than kMaskRegs bytes a thread takes the
+// bf16 cache's loop).  Shared memory is sized for the rows a launch has
+// (launch_smem): 74 KB at R <= 16 for bf16, so three blocks fit on an SM;
+// 108 KB with the int8 staging and 91 KB with the int4 one, two.
 //
 // Split-S (flash-decoding), the SplitS option.  One block per (b, hk)
 // leaves B * Hkv blocks (80 at the bench-8b game shape) on 132 SMs, each
 // streaming the whole window alone: the kernel is then bound by one
 // block's load latency, not by the card's bytes.  With split.len > 0 the
 // grid's third axis cuts the window into gridDim.z contiguous ranges of
-// split.len positions (a multiple of kSuper; the last range takes the
-// rest of S).  Each block writes its rows' f32 partials (the unnormalised
-// acc, the running max m and the sum l over unrounded p) to split.part;
-// the last block of a (b, hk) to arrive — __threadfence, then an
-// atomicAdd on split.count[b * Hkv + hk] — merges the splits in split
-// order (so the result does not depend on arrival order: repeated calls
-// are bit-identical), normalises, writes bf16 and sets the count back to
-// 0.  The merge is the JAX package's flash-decoding merge
+// split.len positions (a multiple of kSuper, and of the block size for a
+// paged pool; the last range takes the rest of S: split_range).  Each
+// block writes its rows' f32 partials (the unnormalised acc, the running
+// max m and the sum l over unrounded p) to split.part; the last block of
+// a (b, hk) to arrive — __threadfence, then an atomicAdd on
+// split.count[b * Hkv + hk] — merges the splits in split order (so the
+// result does not depend on arrival order: repeated calls are
+// bit-identical), normalises, writes bf16 and sets the count back to 0.
+// The merge is the JAX package's flash-decoding merge
 // (bcg_tpu/ops/ring_attention.py sp_chunk_decode_attention): global max,
 // each split weighted by exp(m_z - m), out = acc / l; a split with no
 // live position (l_z == 0) weighs exactly 0, never exp(-1e30 - -1e30).
 // One launch, no second combine kernel, nothing allocated: the caller
 // owns the workspace (ops/decode_attention.py), so a call can be
-// captured in a CUDA graph.  Only B3a turns it on so far; the chunk,
-// int8 and paged launchers take the default (one split).
+// captured in a CUDA graph.  The bf16 single step, the int8 forms and
+// the paged forms turn it on (each paged block stages only its split's
+// range of the block table); the bf16 chunk launcher still takes the
+// default (one split).
 //
 // Still missing: no TMA and no overlap of one iteration's loads with the
 // same block's math (other resident blocks cover it).  Head dim 128; R up
@@ -84,6 +94,21 @@ __host__ __device__ constexpr size_t smem_bytes(int rows, int mask_rows) {
          (size_t)mask_rows * kSuper;
 }
 constexpr size_t kSmemBytes = smem_bytes(kMaxRows, kMaxRows);
+// Bytes of one position's stored row: bf16, int8 or packed int4.
+__host__ __device__ constexpr int row_bytes(int layout) {
+  return layout == 0 ? kDh * 2 : layout == 1 ? kDh : kDh / 2;
+}
+// The quantized layouts' staging of one iteration's raw K and V rows and
+// their scales (as f32), filled by cp.async while the previous iteration
+// is computed; none for bf16.
+__host__ __device__ constexpr size_t raw_bytes(int layout) {
+  return layout == 0 ? 0 : (size_t)2 * kSuper * (row_bytes(layout) + sizeof(float));
+}
+// Shared memory of a launch with R query rows (a whole number of 16-row
+// m-tiles), Mk mask rows and the cache's layout.
+__host__ __device__ inline size_t launch_smem(int R, int Mk, int layout) {
+  return smem_bytes((R + 15) / 16 * 16, Mk) + raw_bytes(layout);
+}
 
 __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -91,6 +116,14 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uin
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Storage layouts of the cache: bf16 values; int8 values with one f32
@@ -137,18 +170,23 @@ struct KVChunk<kInt8> {
     raw = *reinterpret_cast<const uint4*>(row + j * 16);
     sc = *scale;
   }
+  // float(v) exactly without an int-to-float conversion (a quarter-rate
+  // instruction): byte v ^ 0x80 = v + 128 placed in the low mantissa of
+  // 2^23 reads 2^23 + v + 128, and the subtraction is exact.
+  static __device__ __forceinline__ float byte_to_float(uint32_t word, int i) {
+    return __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440u | i)) - 8388736.f;
+  }
   __device__ __forceinline__ void store(__nv_bfloat16* dst, int j) const {
-    uint4 lo, hi;
-    const int8_t* v8 = reinterpret_cast<const int8_t*>(&raw);
-    uint32_t* l32 = reinterpret_cast<uint32_t*>(&lo);
-    uint32_t* h32 = reinterpret_cast<uint32_t*>(&hi);
+    const uint32_t* w32 = reinterpret_cast<const uint32_t*>(&raw);
+    uint32_t out[8];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      l32[i] = bcg::pack_bf16x2((float)v8[2 * i] * sc, (float)v8[2 * i + 1] * sc);
-      h32[i] = bcg::pack_bf16x2((float)v8[8 + 2 * i] * sc, (float)v8[9 + 2 * i] * sc);
+      const uint32_t u = w32[i] ^ 0x80808080u;
+      out[2 * i] = bcg::pack_bf16x2(byte_to_float(u, 0) * sc, byte_to_float(u, 1) * sc);
+      out[2 * i + 1] = bcg::pack_bf16x2(byte_to_float(u, 2) * sc, byte_to_float(u, 3) * sc);
     }
-    *reinterpret_cast<uint4*>(dst + j * 16) = lo;
-    *reinterpret_cast<uint4*>(dst + j * 16 + 8) = hi;
+    *reinterpret_cast<uint4*>(dst + j * 16) = make_uint4(out[0], out[1], out[2], out[3]);
+    *reinterpret_cast<uint4*>(dst + j * 16 + 8) = make_uint4(out[4], out[5], out[6], out[7]);
   }
 };
 
@@ -192,6 +230,9 @@ struct KVChunk<kInt4> {
   }
 };
 
+__device__ __forceinline__ float scale_to_float(float x) { return x; }
+__device__ __forceinline__ float scale_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // Where position s of this block's (batch row, kv head) lives, in
 // storage elements from the value base and the scale base.
 // Dense cache: b * bstride + hk * hstride + s * sstride (scales: their
@@ -204,28 +245,47 @@ struct DenseAddr {
 
 // Block pool: tbl[s / bs] * blk_stride + hk * hstride + (s % bs) * sstride
 // (scales: tbl[s / bs] * sc_blk_stride + hk * sc_hstride + s % bs), with
-// tbl this batch row's block ids, staged in shared memory.
+// tbl this batch row's block ids from block blk0 on (the range of the
+// table that this block's split covers), staged in shared memory.
 struct PagedAddr {
   const int* tbl;
-  int bs;
+  int blk0, bs;
   long long blk_stride, v_hoff, s_stride, sc_blk_stride, sc_hoff;
   __device__ __forceinline__ long long val(int s) const {
-    return (long long)tbl[s / bs] * blk_stride + v_hoff + (long long)(s % bs) * s_stride;
+    return (long long)tbl[s / bs - blk0] * blk_stride + v_hoff + (long long)(s % bs) * s_stride;
   }
   __device__ __forceinline__ long long scl(int s) const {
-    return (long long)tbl[s / bs] * sc_blk_stride + sc_hoff + s % bs;
+    return (long long)tbl[s / bs - blk0] * sc_blk_stride + sc_hoff + s % bs;
   }
 };
 
 constexpr int kLoadBatch = 4;   // chunks of K and of V in flight per thread
+constexpr int kMaskRegs = 4;    // mask bytes a thread holds per iteration (pipelined loop)
 
 // The split-S option (see the header).  len == 0: one split per (b, hk),
 // the result written straight to `out`.
 struct SplitS {
   int len = 0;               // positions per split, a multiple of kSuper
-  float* part = nullptr;     // [B * Hkv][gridDim.z][R][kDh + 2]: acc, m, l
+  float* part = nullptr;     // acc [B * Hkv][gridDim.z][R][kDh], then m, l [..][R][2]
   unsigned* count = nullptr; // [B * Hkv] arrivals; 0 between launches
 };
+
+// Positions [begin, end) of this block's split of an S-position window.
+struct SplitRange {
+  int begin, end;
+};
+__device__ __forceinline__ SplitRange split_range(int S, const SplitS& split) {
+  if (!split.len) return SplitRange{0, S};
+  const int z = blockIdx.z, begin = z * split.len;
+  return SplitRange{begin, z + 1 < (int)gridDim.z ? begin + split.len : S};
+}
+
+// Occupancy of `kernel` (blocks resident on one SM) at `smem` bytes of
+// dynamic shared memory, written to *blocks.
+template <class Kernel>
+int occupancy(Kernel kernel, size_t smem, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+}
 
 template <int kLayout, class Addr>
 __device__ __forceinline__ void decode_tile_body(
@@ -251,8 +311,8 @@ __device__ __forceinline__ void decode_tile_body(
   if (mask_div == 0) mask_div = G;
   // This block's range of positions [s_begin, s_end).
   const int nz = split.len ? (int)gridDim.z : 1, z = split.len ? (int)blockIdx.z : 0;
-  const int s_begin = z * split.len;
-  const int s_end = z + 1 < nz ? s_begin + split.len : S;
+  const SplitRange range = split_range(S, split);
+  const int s_begin = range.begin, s_end = range.end;
   const int nSplit = kWarps / nM;
   const int P = nSplit * kWN;                 // positions per iteration
   const int tid = threadIdx.x;
@@ -302,49 +362,15 @@ __device__ __forceinline__ void decode_tile_body(
   const uint8_t* mb = mask + (long long)b * Mk * S;
   using Chunk = KVChunk<kLayout>;
   constexpr int kChunks = Chunk::kLoads;      // 16-byte loads per cache row
+  constexpr int kRowBytes = row_bytes(kLayout);
+  // The pipelined loop takes the quantized caches whose mask fits its
+  // registers; bf16 (whose raw rows would need a second K/V stage) and a
+  // taller mask take the loop that loads each iteration in turn.
+  const bool pipelined = kLayout != kBf16 && Mk * P <= kMaskRegs * kThreads;
 
-  for (int s0 = s_begin; s0 < s_end; s0 += P) {
-    __syncthreads();   // the previous iteration's K/V/mask are no longer read
-    int live = 0;
-    for (int c = tid; c < Mk * P; c += kThreads) {
-      const int r = c / P, col = c % P;
-      const int s = s0 + col;
-      const uint8_t mv = s < s_end ? mb[(long long)r * S + s] : 0;
-      Ms[r * kSuper + col] = mv;
-      live |= mv;
-    }
-    if (!__syncthreads_or(live)) continue;
-
-    for (int c0 = tid; c0 < P * kChunks; c0 += kLoadBatch * kThreads) {
-      Chunk kc[kLoadBatch], vc[kLoadBatch];
-#pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int c = c0 + u * kThreads;
-        const int r = c / kChunks, j = c % kChunks;
-        const int s = s0 + r;
-        if (c < P * kChunks && s < s_end) {
-          const long long vo = addr.val(s);
-          const long long so = kLayout == kBf16 ? 0 : addr.scl(s);
-          kc[u].load(k + vo, k_scale + so, j);
-          vc[u].load(v + vo, v_scale + so, j);
-        } else {
-          kc[u].clear();
-          vc[u].clear();
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int c = c0 + u * kThreads;
-        if (c < P * kChunks) {
-          const int r = c / kChunks, j = c % kChunks;
-          kc[u].store(Ks + r * kStride, j);
-          vc[u].store(Vs + r * kStride, j);
-        }
-      }
-    }
-    __syncthreads();
-    if (!active || s0 + wp0 >= s_end) continue;
-
+  // One iteration's products and online softmax over the staged K/V/mask.
+  auto attend = [&](int s0) {
+    if (!active || s0 + wp0 >= s_end) return;
     // scores = q . k^T for the warp's 16 rows x 32 positions.
     float sc[kWN / 8][4];
 #pragma unroll
@@ -427,6 +453,137 @@ __device__ __forceinline__ void decode_tile_body(
         mma_16816(o[n], pa, bf);
       }
     }
+  };
+
+  if (!pipelined) {
+    for (int s0 = s_begin; s0 < s_end; s0 += P) {
+      __syncthreads();   // the previous iteration's K/V/mask are no longer read
+      int live = 0;
+      for (int c = tid; c < Mk * P; c += kThreads) {
+        const int r = c / P, col = c % P;
+        const int s = s0 + col;
+        const uint8_t mv = s < s_end ? mb[(long long)r * S + s] : 0;
+        Ms[r * kSuper + col] = mv;
+        live |= mv;
+      }
+      if (!__syncthreads_or(live)) continue;
+
+      for (int c0 = tid; c0 < P * kChunks; c0 += kLoadBatch * kThreads) {
+        Chunk kc[kLoadBatch], vc[kLoadBatch];
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          const int c = c0 + u * kThreads;
+          const int r = c / kChunks, j = c % kChunks;
+          const int s = s0 + r;
+          if (c < P * kChunks && s < s_end) {
+            const long long vo = addr.val(s);
+            const long long so = kLayout == kBf16 ? 0 : addr.scl(s);
+            kc[u].load(k + vo, k_scale + so, j);
+            vc[u].load(v + vo, v_scale + so, j);
+          } else {
+            kc[u].clear();
+            vc[u].clear();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          const int c = c0 + u * kThreads;
+          if (c < P * kChunks) {
+            const int r = c / kChunks, j = c % kChunks;
+            kc[u].store(Ks + r * kStride, j);
+            vc[u].store(Vs + r * kStride, j);
+          }
+        }
+      }
+      __syncthreads();
+      attend(s0);
+    }
+  } else if constexpr (kLayout != kBf16) {
+    // Quantized caches: the raw rows of iteration i + 1 are copied into
+    // RawK/RawV by cp.async (and their scales loaded into registers) while
+    // iteration i is dequantized and computed; the mask runs one iteration
+    // further ahead in registers, so that iteration i + 1 is known live
+    // or dead (and then not loaded) before its copies start.
+    unsigned char* RawK = reinterpret_cast<unsigned char*>(Ms + Mk * kSuper);
+    unsigned char* RawV = RawK + kSuper * kRowBytes;
+    float* ScK = reinterpret_cast<float*>(RawV + kSuper * kRowBytes);
+    float* ScV = ScK + kSuper;
+    auto load_mask = [&](int s0, uint8_t (&m)[kMaskRegs]) {
+#pragma unroll
+      for (int i = 0; i < kMaskRegs; ++i) {
+        const int c = tid + i * kThreads, r = c / P, col = c % P;
+        m[i] = c < Mk * P && s0 + col < s_end ? mb[(long long)r * S + s0 + col] : 0;
+      }
+    };
+    auto any_live = [](const uint8_t (&m)[kMaskRegs]) {
+      int x = 0;
+#pragma unroll
+      for (int i = 0; i < kMaskRegs; ++i) x |= m[i];
+      return x;
+    };
+    // Scales of position s0 + tid of the copies in flight, as stored (read
+    // as float only when staged, so that their loads stay in flight).
+    using Scale = typename Chunk::Scale;
+    Scale sk = Scale(0.f), sv = Scale(0.f);
+    auto prefetch = [&](int s0) {
+      for (int c = tid; c < P * kChunks; c += kThreads) {
+        const int r = c / kChunks, j = c % kChunks;
+        if (s0 + r < s_end) {
+          const long long vo = addr.val(s0 + r);
+          cp_async16(RawK + r * kRowBytes + j * 16, k + vo + j * 16);
+          cp_async16(RawV + r * kRowBytes + j * 16, v + vo + j * 16);
+        }
+      }
+      // A position past the range keeps a scale of 0: its stale raw row
+      // (finite integers) dequantizes to 0.
+      const bool in = tid < P && s0 + tid < s_end;
+      sk = in ? k_scale[addr.scl(s0 + tid)] : Scale(0.f);
+      sv = in ? v_scale[addr.scl(s0 + tid)] : Scale(0.f);
+    };
+    uint8_t mcur[kMaskRegs], mnext[kMaskRegs], mafter[kMaskRegs];
+    load_mask(s_begin, mcur);
+    load_mask(s_begin + P, mnext);
+    int cur_live = __syncthreads_or(any_live(mcur));
+    if (cur_live) prefetch(s_begin);
+    for (int s0 = s_begin; s0 < s_end; s0 += P) {
+#pragma unroll
+      for (int i = 0; i < kMaskRegs; ++i) {
+        const int c = tid + i * kThreads;
+        if (c < Mk * P) Ms[(c / P) * kSuper + c % P] = mcur[i];
+      }
+      if (cur_live) {
+        cp_async_wait_all();
+        if (tid < P) {
+          ScK[tid] = scale_to_float(sk);
+          ScV[tid] = scale_to_float(sv);
+        }
+      }
+      __syncthreads();   // this iteration's raw rows, scales and mask are visible
+      if (cur_live) {
+        for (int c = tid; c < P * kChunks; c += kThreads) {
+          const int r = c / kChunks, j = c % kChunks;
+          Chunk kc, vc;
+          kc.raw = *reinterpret_cast<const uint4*>(RawK + r * kRowBytes + j * 16);
+          vc.raw = *reinterpret_cast<const uint4*>(RawV + r * kRowBytes + j * 16);
+          kc.sc = ScK[r];
+          vc.sc = ScV[r];
+          kc.store(Ks + r * kStride, j);
+          vc.store(Vs + r * kStride, j);
+        }
+      }
+      load_mask(s0 + 2 * P, mafter);
+      // K/V staged and the raw buffer free again; is the next iteration live?
+      const int next_live = __syncthreads_or(any_live(mnext));
+      if (next_live) prefetch(s0 + P);
+      if (cur_live) attend(s0);
+      __syncthreads();   // this iteration's K/V/mask are no longer read
+#pragma unroll
+      for (int i = 0; i < kMaskRegs; ++i) {
+        mcur[i] = mnext[i];
+        mnext[i] = mafter[i];
+      }
+      cur_live = next_live;
+    }
   }
 
   // Merge the position splits of each m-tile: m = max m_i, l = sum
@@ -452,9 +609,13 @@ __device__ __forceinline__ void decode_tile_body(
     }
   }
   __syncthreads();
-  // One split: normalise and store.  Split-S: store this block's partials.
+  // One split: normalise and store.  Split-S: store this block's partials
+  // (the workspace holds every pair's acc [nz][R][kDh] first, then every
+  // pair's (m, l) [nz][R][2], so each acc row is 16-byte aligned).
   const long long pair = (long long)b * Hkv + hk;
-  float* part = split.part + pair * nz * R * (kDh + 2);
+  const long long npairs = (long long)gridDim.x * gridDim.y;
+  float* part_acc = split.part + pair * nz * R * kDh;
+  float* part_ml = split.part + npairs * nz * R * kDh + pair * nz * R * 2;
   for (int idx = tid; idx < R * kDh; idx += kThreads) {
     const int r = idx / kDh, d = idx % kDh;
     const int rt = r / 16, rl = r % 16;
@@ -470,17 +631,18 @@ __device__ __forceinline__ void decode_tile_body(
     if (nz == 1) {
       out[q_row(r) + d] = __float2bfloat16(acc / (l == 0.f ? 1.f : l));
     } else {
-      float* pr = part + ((long long)z * R + r) * (kDh + 2);
-      pr[d] = acc;
+      part_acc[((long long)z * R + r) * kDh + d] = acc;
       if (d == 0) {
-        pr[kDh] = m;
-        pr[kDh + 1] = l;
+        part_ml[(z * R + r) * 2] = m;
+        part_ml[(z * R + r) * 2 + 1] = l;
       }
     }
   }
   if (nz == 1) return;
 
-  // The last block of this (b, hk) to arrive merges the splits in order.
+  // The last block of this (b, hk) to arrive merges the splits in order:
+  // one warp a row, each lane four of its columns (16-byte loads), so
+  // the loads of all splits are in flight at once.
   __shared__ unsigned is_last;
   __threadfence();
   __syncthreads();
@@ -488,21 +650,30 @@ __device__ __forceinline__ void decode_tile_body(
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  for (int idx = tid; idx < R * kDh; idx += kThreads) {
-    const int r = idx / kDh, d = idx % kDh;
-    const float* pr = part + (long long)r * (kDh + 2);
-    const long long zstride = (long long)R * (kDh + 2);
+  for (int r = warp; r < R; r += kWarps) {
+    const float* ml = part_ml + r * 2;
+    const float4* pa = reinterpret_cast<const float4*>(part_acc + (long long)r * kDh) + lane;
+    const long long zstride = (long long)R * kDh / 4;   // float4s between splits
     float m = bcg::kNegInf;
-    for (int s = 0; s < nz; ++s) m = fmaxf(m, __ldcg(pr + s * zstride + kDh));
-    float l = 0.f, acc = 0.f;
+    for (int s = 0; s < nz; ++s) m = fmaxf(m, __ldcg(ml + s * R * 2));
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
     for (int s = 0; s < nz; ++s) {
-      const float* ps = pr + s * zstride;
-      const float ls = __ldcg(ps + kDh + 1);
-      const float w = ls > 0.f ? expf(__ldcg(ps + kDh) - m) : 0.f;
+      const float ls = __ldcg(ml + s * R * 2 + 1);
+      const float w = ls > 0.f ? expf(__ldcg(ml + s * R * 2) - m) : 0.f;
+      const float4 a = __ldcg(pa + s * zstride);
       l += w * ls;
-      acc += w * __ldcg(ps + d);
+      acc.x += w * a.x;
+      acc.y += w * a.y;
+      acc.z += w * a.z;
+      acc.w += w * a.w;
     }
-    out[q_row(r) + d] = __float2bfloat16(acc / (l == 0.f ? 1.f : l));
+    const float den = l == 0.f ? 1.f : l;
+    uint2 o;
+    o.x = bcg::pack_bf16x2(acc.x / den, acc.y / den);
+    o.y = bcg::pack_bf16x2(acc.z / den, acc.w / den);
+    *reinterpret_cast<uint2*>(out + q_row(r) + lane * 4) = o;
   }
   if (tid == 0) split.count[pair] = 0u;
 }

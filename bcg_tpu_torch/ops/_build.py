@@ -125,7 +125,10 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
+def stream_ptr(t) -> int:
+    """The raw handle of the current CUDA stream on t's device, read as
+    PyTorch's own generated kernel launchers read it (a fraction of the
+    host time of building a ``torch.cuda.Stream``)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -19,15 +19,22 @@ kernel or raises):
   cache (``csrc/chunk_decode_attention.cu``): q ``[B, K, H, Dh]``, mask
   ``[B, K, S]``; returns ``[B, K, H, Dh]``.
 * :func:`decode_attention_int8` / :func:`chunk_decode_attention_int8` —
-  the same two over the int8 cache (``csrc/decode_attention_int8.cu``):
-  k/v int8 ``[B, Hkv, S, Dh]`` with f32 per-(position, kv head) scales
-  ``[B, Hkv, S]`` (:func:`quantize_kv`).
+  the same two over the int8 cache (``csrc/decode_attention_int8.cu``,
+  the window split over S as B3a's): k/v int8 ``[B, Hkv, S, Dh]`` with
+  f32 per-(position, kv head) scales ``[B, Hkv, S]`` (:func:`quantize_kv`).
+
+Every split launcher (these and the paged kernel,
+:mod:`bcg_tpu_torch.ops.paged_attention`) shares one planner
+(:func:`decode_split_plan`, at the kernel's own occupancy), one
+workspace per device (:class:`_SplitWorkspace`) and one plain version of
+the split arithmetic (:func:`decode_attention_split_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -41,14 +48,17 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # n_split, split_len, partials, counters, stream
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, ctypes.c_float, _I, _I,
              _P, _P, _P]
-_OCC_ARGTYPES = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]   # H, Hkv, M -> blocks per SM
+# layout, rows, mask rows, table blocks, block size, n_split, split_len ->
+# blocks per SM (the dense kernels take only rows and mask rows)
+_OCC_ARGTYPES = [_I] * 7 + [ctypes.POINTER(ctypes.c_int)]
 # q, k, v, mask, out, B, S, H, Hkv, Kq, Mk, kv batch/head/seq strides, scale, stream
 _CHUNK_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                    ctypes.c_float, _P]
 # q, k, v, k_scale, v_scale, mask, out, B, S, H, Hkv, Kq, Mk,
-# kv batch/head/seq strides, scale batch/head strides, scale, stream
+# kv batch/head/seq strides, scale batch/head strides, scale, n_split,
+# split_len, partials, counters, stream
 _INT8_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
-                  _LL, _LL, ctypes.c_float, _P]
+                  _LL, _LL, ctypes.c_float, _I, _I, _P, _P, _P]
 
 
 # ----------------------------------------------------------- kv quantization
@@ -101,50 +111,74 @@ def decode_attention_plain(q, k, v, mask, scale):
     return torch.stack(outs, dim=2).reshape(B, H, Dh)
 
 
-def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int, blocks_per_sm: int = 2):
-    """How B3a cuts the window: ``(n_split, split_len)``.
+def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int, blocks_per_sm: int = 2,
+                      block_size: int = 1, max_len: int = 0):
+    """How a split kernel cuts the window: ``(n_split, split_len)``.
 
     The kernel runs ``B * Hkv * n_split`` blocks; split ``z`` covers
     positions ``[z * split_len, (z + 1) * split_len)``, the last one
     ``[(n_split - 1) * split_len, S)``.  ``split_len`` is a whole number
-    of the tile body's 128-position iterations.  The plan aims for one
-    wave of ``blocks_per_sm`` (the kernel's occupancy, at least 2) blocks
-    on each of ``sm_count`` SMs; where ``B * Hkv`` already reaches two
-    blocks per SM it plans one split.  No split is shorter than one
-    iteration: a last split that would be is folded into the one before
-    (which then runs past ``split_len``)."""
-    iters = max(1, -(-S // SPLIT_ITER))
+    of units of ``lcm(128, block_size)`` positions: of the tile body's
+    128-position iterations, and for a paged pool of its blocks, so that
+    every split starts on a block boundary (``block_size`` dividing 128
+    leaves the unit at 128).  The plan aims for one wave of
+    ``blocks_per_sm`` (the kernel's occupancy, at least 2) blocks on each
+    of ``sm_count`` SMs; where ``B * Hkv`` already reaches two blocks per
+    SM it plans one split.  No split is shorter than one iteration: a
+    last split that would be is folded into the one before (which then
+    runs past ``split_len``).  ``max_len`` > 0 caps ``split_len`` (the
+    paged kernel stages a split's range of the block table in shared
+    memory)."""
+    unit = math.lcm(SPLIT_ITER, block_size)
+    units = max(1, -(-S // unit))
+    cap = max(1, max_len // unit) if max_len else units   # most units in one split
     pairs = B * Hkv
-    if pairs >= 2 * sm_count:
-        return 1, iters * SPLIT_ITER
-    n = max(1, min(iters, max(2, blocks_per_sm) * sm_count // pairs))
-    per = -(-iters // n) * SPLIT_ITER
+    if pairs >= 2 * sm_count and units <= cap:
+        return 1, units * unit
+    n = max(1, min(units, max(2, blocks_per_sm) * sm_count // pairs), -(-units // cap))
+    per = -(-units // n) * unit
     n = -(-S // per)
     if n > 1 and S - (n - 1) * per < SPLIT_ITER:
         n -= 1
-    return (n, per) if n > 1 else (1, iters * SPLIT_ITER)
+    return (n, per) if n > 1 else (1, units * unit)
 
 
-def decode_attention_split_plain(q, k, v, mask, scale, n_split, split_len=None):
-    """Plain version of B3a's split arithmetic (flash-decoding): the
-    window cut into ``n_split`` contiguous ranges of ``split_len``
+def decode_attention_split_plain(q, k, v, mask, scale, n_split, split_len=None,
+                                 k_scale=None, v_scale=None):
+    """Plain version of the split kernels' arithmetic (flash-decoding):
+    the window cut into ``n_split`` contiguous ranges of ``split_len``
     positions (default ``ceil(S / n_split)``; the last range takes the
     rest), each range's running max ``m``, sum ``l`` over the unrounded
     ``p = exp(s - m) * mask`` and unnormalised ``acc`` with ``p`` rounded
     to v's type for the p.v product, relative to the range's own max, as
-    the kernel rounds it; then the merge of the JAX package's
+    the kernels round it; then the merge of the JAX package's
     ``sp_chunk_decode_attention``: global max, each range weighted by
     ``exp(m_z - m)`` (exactly 0 for a range with no live position),
-    ``out = acc / l`` (0 for a fully masked row).  Used by the tests and
-    ``chip_smoke.py``, never on the served path."""
-    B, H, Dh = q.shape
+    ``out = acc / l`` (0 for a fully masked row).
+
+    One step: q ``[B, H, Dh]``, mask ``[B, S]`` or ``[B, M, S]`` (M = 1,
+    or the group: query row g of a kv head reads mask row g, B3a's form);
+    returns ``[B, H, Dh]``.  A chunk: q ``[B, K, H, Dh]``, mask ``[B, S]``
+    or ``[B, 1 | K, S]`` (position k reads row k); returns ``[B, K, H,
+    Dh]``.  k/v ``[B, S, Hkv, Dh]``, or with ``k_scale``/``v_scale`` the
+    int8 cache ``[B, Hkv, S, Dh]`` with f32 scales ``[B, Hkv, S]``,
+    dequantized as the int8 kernel does (f32 times the scale, rounded to
+    q's type).  Used by the tests and ``chip_smoke.py``, never on the
+    served path."""
+    if k_scale is not None:
+        k = _dequant_heads(k, k_scale, q.dtype)
+        v = _dequant_heads(v, v_scale, q.dtype)
+    step = q.dim() == 3
+    q4 = q[:, None] if step else q
+    B, Kq, H, Dh = q4.shape
     S, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
-    per = split_len or -(-S // n_split)
     m3 = _mask3(mask)
-    live = m3[:, None] if m3.shape[1] == 1 else m3.reshape(B, 1, group, S)   # [B, 1, G|1, S]
-    qg = q.float().reshape(B, Hkv, group, Dh)
-    scores = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    # live broadcasts to [B, Kq, Hkv, G, S].
+    live = m3[:, None, None] if step and m3.shape[1] == group else m3[:, :, None, None]
+    per = split_len or -(-S // n_split)
+    qg = q4.float().reshape(B, Kq, Hkv, group, Dh)
+    scores = torch.einsum("bkhgd,bshd->bkhgs", qg, k.float()) * scale
     scores = torch.where(live, scores, _NEG_INF)
     ms, ls, accs = [], [], []
     for z in range(n_split):
@@ -154,15 +188,16 @@ def decode_attention_split_plain(q, k, v, mask, scale, n_split, split_len=None):
         p = torch.exp(sz - m) * lz
         ms.append(m[..., 0])
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype).float(), v[:, a:e].float()))
-    m_all = torch.stack(ms)                                   # [n, B, Hkv, G]
+        accs.append(torch.einsum("bkhgs,bshd->bkhgd", p.to(v.dtype).float(), v[:, a:e].float()))
+    m_all = torch.stack(ms)                                   # [n, B, Kq, Hkv, G]
     l_all = torch.stack(ls)
     m = m_all.amax(dim=0)
     w = torch.where(l_all > 0, torch.exp(m_all - m), torch.zeros_like(m_all))
     l = (w * l_all).sum(dim=0)
     acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
-    out = acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
-    return out.reshape(B, H, Dh).to(v.dtype)
+    out = (acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]).reshape(B, Kq, H, Dh)
+    out = out.to(v.dtype)
+    return out[:, 0] if step else out
 
 
 def _check(q, k, v, m3):
@@ -197,47 +232,82 @@ def _check(q, k, v, m3):
 
 
 class _SplitWorkspace:
-    """B3a's split-S workspace on one device: f32 partials and the
+    """The split-S workspace on one device: f32 partials and the
     per-(batch row, kv head) arrival counters, zeroed once when made.
-    The kernel leaves the counters 0, so the buffers are reused by every
-    call; they grow when a call needs more and never inside a CUDA graph
-    capture (a capture needs them large enough beforehand: one call of
-    the same shape outside it)."""
+    One workspace serves every split launcher (B3a, the int8 forms, the
+    paged forms): they run in order on one stream, and each kernel
+    leaves the counters 0, so the buffers are reused by every call.  They
+    grow when a call needs more, never inside a CUDA graph capture (a
+    capture needs them large enough beforehand: one call of the same
+    shape outside it); the buffers a growth replaces stay allocated, so a
+    graph captured over them stays valid."""
 
     def __init__(self):
         self.part = self.count = None
+        self.retired = []
 
     def get(self, device, n_part: int, n_count: int):
         small = (self.part is None or self.part.numel() < n_part
                  or self.count.numel() < n_count)
         if small:
             if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("decode_attention: the split-S workspace is too small "
+                raise RuntimeError("decode attention: the split-S workspace is too small "
                                    "for this call inside a CUDA graph capture; call it once "
                                    "at this shape before capturing")
-            self.part = torch.empty(max(n_part, 1), dtype=torch.float32, device=device)
-            self.count = torch.zeros(max(n_count, 1), dtype=torch.int32, device=device)
+            if self.part is not None:
+                self.retired.append((self.part, self.count))
+            n_part = max(n_part, 1 if self.part is None else self.part.numel())
+            n_count = max(n_count, 1 if self.count is None else self.count.numel())
+            self.part = torch.empty(n_part, dtype=torch.float32, device=device)
+            self.count = torch.zeros(n_count, dtype=torch.int32, device=device)
         return self.part, self.count
 
 
 _workspaces = {}
 
 
+def split_buffers(q, Hkv: int, n_split: int, rows: int):
+    """Pointers to the partials and counters of a split launch on q's
+    device with ``rows`` query rows per kv head (0, 0 for one split):
+    ``B * Hkv * n_split * rows * (Dh + 2)`` floats and ``B * Hkv``
+    counters."""
+    if n_split == 1:
+        return 0, 0
+    B, Dh = q.shape[0], q.shape[-1]
+    ws = _workspaces.get(q.device)
+    if ws is None:
+        ws = _workspaces[q.device] = _SplitWorkspace()
+    part, count = ws.get(q.device, B * Hkv * n_split * rows * (Dh + 2), B * Hkv)
+    return part.data_ptr(), count.data_ptr()
+
+
 @functools.lru_cache(maxsize=1024)
-def _plan(dev: int, B: int, H: int, Hkv: int, S: int, M: int):
-    """:func:`decode_split_plan` on device ``dev``, from its SM count and
-    the kernel's occupancy at this group and mask height."""
+def _plan(kernel: str, layout: int, dev: int, B: int, Hkv: int, S: int, rows: int, M: int,
+          bs: int = 0, max_len: int = 0):
+    """:func:`decode_split_plan` on device ``dev`` for the split kernel of
+    library ``kernel``, from the SM count and the kernel's occupancy
+    (``bcg_<kernel>_occupancy``) at this many query and mask rows.  A
+    paged kernel (block size ``bs``) also stages its split's range of the
+    table, so its occupancy is taken again at the first plan's range."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    occ = ctypes.c_int(0)
-    fn = _build.entry("decode_attention", "bcg_decode_attention_occupancy", _OCC_ARGTYPES)
-    _build.check(fn(H, Hkv, M, ctypes.byref(occ)), "decode_attention occupancy")
-    return decode_split_plan(B, Hkv, S, sms, occ.value)
+    fn = _build.entry(kernel, f"bcg_{kernel}_occupancy", _OCC_ARGTYPES)
+
+    def plan(n_split=1, split_len=0):
+        occ = ctypes.c_int(0)
+        _build.check(fn(layout, rows, M, S // bs if bs else 0, bs, n_split, split_len,
+                        ctypes.byref(occ)), f"{kernel} occupancy")
+        return decode_split_plan(B, Hkv, S, sms, occ.value, bs or 1, max_len)
+
+    first = plan()
+    return plan(*first) if bs else first
 
 
-def _split_for(q, Hkv, S, M):
-    """The split plan of a call with q ``[B, H, Dh]`` on a CUDA device."""
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    return _plan(dev, q.shape[0], q.shape[1], Hkv, S, M)
+def _split_for(q, Hkv, S, M, kernel="decode_attention"):
+    """The split plan of a call with q ``[B, H, Dh]`` (one step) or ``[B,
+    Kq, H, Dh]`` on a CUDA device: rows = Kq times the group, ``M`` mask
+    rows (B3a's kernel by default)."""
+    Kq = q.shape[1] if q.dim() == 4 else 1
+    return _plan(kernel, 0, q.device.index, q.shape[0], Hkv, S, Kq * (q.shape[-2] // Hkv), M)
 
 
 def decode_attention_cuda(q, k, v, mask, scale):
@@ -251,13 +321,7 @@ def decode_attention_cuda(q, k, v, mask, scale):
     S, Hkv = k.shape[1], k.shape[2]
     M = m3.shape[1]
     n_split, split_len = _split_for(q, Hkv, S, M)
-    part_ptr = count_ptr = 0
-    if n_split > 1:
-        ws = _workspaces.get(q.device)
-        if ws is None:
-            ws = _workspaces[q.device] = _SplitWorkspace()
-        part, count = ws.get(q.device, B * Hkv * n_split * (H // Hkv) * (Dh + 2), B * Hkv)
-        part_ptr, count_ptr = part.data_ptr(), count.data_ptr()
+    part_ptr, count_ptr = split_buffers(q, Hkv, n_split, H // Hkv)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m3.data_ptr(), out.data_ptr(),
              B, S, H, Hkv, M, k.stride(0), k.stride(1), float(scale), n_split, split_len,
@@ -308,7 +372,7 @@ def check_tile_operands(name, q, k, v, mask, S, Hkv, kv_dtype, dh_store):
     Dh]`` contiguous bf16, head dim 128, ``Kq * group`` rows at most
     :data:`MAX_TILE_ROWS`, k/v of ``kv_dtype`` and one layout, stored
     rows of ``dh_store`` elements 16-byte aligned, a bool mask ``[B, 1 |
-    Kq, S]``, one device."""
+    Kq, S]`` (or ``[B, S]``, one row), one device."""
     B, Kq, H, Dh = q.shape
     if Dh != 128:
         raise ValueError(f"{name} kernel takes head_dim 128, got {Dh}")
@@ -320,19 +384,23 @@ def check_tile_operands(name, q, k, v, mask, S, Hkv, kv_dtype, dh_store):
         raise ValueError(f"{name} kernel takes up to {MAX_TILE_ROWS} query rows per kv "
                          f"head, got {Kq} x {H // max(Hkv, 1)}")
     align = 16 // k.element_size()
-    if k.shape != v.shape or k.stride() != v.stride() or k.stride(3) != 1 \
-            or k.shape[3] != dh_store or any(st % align for st in k.stride()[:3]):
-        raise ValueError(f"{name} kernel takes k/v {tuple(k.shape)} of one layout with "
-                         f"16-byte aligned rows, got strides {k.stride()}/{v.stride()}")
-    if mask.dtype != torch.bool or mask.dim() != 3 or mask.shape[0] != B \
-            or mask.shape[2] != S or mask.shape[1] not in (1, Kq):
+    kst, kshape = k.stride(), k.shape
+    if kshape != v.shape or kst != v.stride() or kst[3] != 1 or kshape[3] != dh_store \
+            or kst[0] % align or kst[1] % align or kst[2] % align:
+        raise ValueError(f"{name} kernel takes k/v {tuple(kshape)} of one layout with "
+                         f"16-byte aligned rows, got strides {kst}/{v.stride()}")
+    mshape = mask.shape
+    if len(mshape) == 2:                    # [B, S]: one row for every query row
+        mshape = (mshape[0], 1, mshape[1])
+    if mask.dtype != torch.bool or len(mshape) != 3 or mshape[0] != B \
+            or mshape[2] != S or mshape[1] not in (1, Kq):
         raise ValueError(f"{name} kernel takes a bool mask [B, 1|{Kq}, {S}], got "
-                         f"{mask.dtype} {tuple(mask.shape)}")
-    if not all(t.device == q.device for t in (k, v, mask)):
+                         f"{mask.dtype} {tuple(mshape)}")
+    dev = q.device
+    if k.device != dev or v.device != dev or mask.device != dev:
         raise ValueError(f"{name}: tensors on different devices")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} kernel takes 16-byte aligned q/k/v")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError(f"{name} kernel takes 16-byte aligned q/k/v")
 
 
 def _check_tile(q, k, v, mask, S, Hkv, int8, scales=()):
@@ -345,9 +413,11 @@ def _check_tile(q, k, v, mask, S, Hkv, int8, scales=()):
     B = q.shape[0]
     if k.shape[0] != B:
         raise ValueError(f"{name} kernel takes k/v of batch {B}, got {tuple(k.shape)}")
+    st0 = scales[0].stride() if scales else None
     for t in scales:
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, Hkv, S) or t.stride(2) != 1 \
-                or t.stride() != scales[0].stride() or t.device != q.device:
+        st = t.stride()
+        if t.dtype != torch.float32 or t.shape != (B, Hkv, S) or st[2] != 1 or st != st0 \
+                or t.device != q.device:
             raise ValueError(f"{name} kernel takes f32 scales [B, Hkv, S] with positions "
                              f"contiguous, got {t.dtype} {tuple(t.shape)} {t.stride()}")
 
@@ -369,17 +439,34 @@ def chunk_decode_attention_cuda(q, k, v, mask, scale):
     return out
 
 
+def int8_split_plan(q, k, mask):
+    """``(n_split, split_len)`` of the int8 kernel's call on these wrapper
+    inputs (q ``[B, H, Dh]`` with mask ``[B, S]``, or q ``[B, K, H,
+    Dh]`` with mask ``[B, K, S]``)."""
+    q4 = q[:, None] if q.dim() == 3 else q
+    return _split_for(q4, k.shape[1], k.shape[2], _mask3(mask).shape[1],
+                      kernel="decode_attention_int8")
+
+
 def _int8_launch(q4, k, v, k_scale, v_scale, m3, scale):
+    """Launch ``csrc/decode_attention_int8.cu``; q4 ``[B, Kq, H, Dh]``,
+    m3 ``[B, 1 | Kq, S]`` or ``[B, S]`` (one row)."""
     B, Kq, H, Dh = q4.shape
     Hkv, S = k.shape[1], k.shape[2]
     _check_tile(q4, k, v, m3, S, Hkv, int8=True, scales=(k_scale, v_scale))
     m3 = m3.contiguous()
+    Mk = m3.shape[1] if m3.dim() == 3 else 1
     fn = _build.entry("decode_attention_int8", "bcg_decode_attention_int8", _INT8_ARGTYPES)
+    rows = Kq * (H // Hkv)
+    n_split, split_len = _plan("decode_attention_int8", 0, q4.device.index, B, Hkv, S, rows,
+                               Mk)
+    part_ptr, count_ptr = split_buffers(q4, Hkv, n_split, rows)
     out = torch.empty_like(q4)
     err = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
              v_scale.data_ptr(), m3.data_ptr(), out.data_ptr(), B, S, H, Hkv, Kq,
-             m3.shape[1], k.stride(0), k.stride(1), k.stride(2), k_scale.stride(0),
-             k_scale.stride(1), float(scale), _build.stream_ptr(q4))
+             Mk, k.stride(0), k.stride(1), k.stride(2), k_scale.stride(0),
+             k_scale.stride(1), float(scale), n_split, split_len, part_ptr, count_ptr,
+             _build.stream_ptr(q4))
     _build.check(err, "decode_attention_int8")
     return out
 
@@ -389,7 +476,7 @@ def decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale):
     GQA group, one mask row shared by all of them)."""
     if mask.dim() != 2:
         raise ValueError(f"decode_attention_int8 takes a [B, S] mask, got {tuple(mask.shape)}")
-    out = _int8_launch(q[:, None], k, v, k_scale, v_scale, mask[:, None, :], scale)
+    out = _int8_launch(q[:, None], k, v, k_scale, v_scale, mask, scale)
     decode_attention_int8.launches += 1
     return out[:, 0]
 

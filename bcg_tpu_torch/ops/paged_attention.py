@@ -23,13 +23,14 @@ new pool).
 
 Two attention forms, each a wrapper with per-layout launch counts, a
 ``*_cuda`` launcher (``csrc/paged_attention.cu``, one source for all
-three layouts and both forms) and a ``*_plain`` version — the gather
-oracle: :func:`paged_gather_entry`, dequantize, then the dense plain
-attention, so paged output is bit-identical to the dense plain path
-given the same block contents.  A CPU tensor runs the plain version; a
-CUDA tensor launches the kernel or raises.  The plain versions count
-their calls (``.calls``), so a run on the card can show it never took
-them.
+three layouts and both forms, the window split over S: :func:`split_plan`)
+and a ``*_plain`` version — the gather oracle: :func:`paged_gather_entry`,
+dequantize, then the dense plain attention, so paged output is
+bit-identical to the dense plain path given the same block contents.  A
+CPU tensor runs the plain version; a CUDA tensor launches the kernel or
+raises.  The plain versions count their calls (``.calls``), so a run on
+the card can show it never took them.  :func:`paged_attention_split_plain`
+repeats the kernel's split arithmetic for the tests.
 """
 
 from __future__ import annotations
@@ -41,16 +42,25 @@ import torch
 
 from bcg_tpu_torch.ops import _build
 from bcg_tpu_torch.ops.decode_attention import (
+    SPLIT_ITER,
+    _plan,
     check_tile_operands,
     chunk_decode_attention_plain,
     decode_attention_plain,
+    decode_attention_split_plain,
+    split_buffers,
 )
 
 LAYOUTS = ("bf16", "int8", "int4")   # csrc bcg_tile::Layout order
+# Most table entries a split stages in shared memory (16 KB): caps a
+# split's positions (decode_split_plan's max_len), so no table is too
+# wide to stage.
+MAX_SPLIT_BLOCKS = 4096
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q, k, v, k_scale, v_scale, tbl, mask, out, B, nblk, bs, H, Hkv, Kq, Mk,
-# layout, blk/h/s strides, scale blk/h strides, scale, stream
-_ARGTYPES = [_P] * 8 + [_I] * 8 + [_LL] * 5 + [ctypes.c_float, _P]
+# layout, blk/h/s strides, scale blk/h strides, scale, n_split, split_len,
+# partials, counters, stream
+_ARGTYPES = [_P] * 8 + [_I] * 8 + [_LL] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P]
 
 
 def is_paged(entry: Dict) -> bool:
@@ -221,54 +231,92 @@ paged_decode_attention_plain.calls = 0
 paged_chunk_attention_plain.calls = 0
 
 
+def paged_attention_split_plain(q, entry: Dict, mask, scale, n_split, split_len=None):
+    """Plain version of the kernel's split arithmetic at a plan: the
+    gathered dense view (a quantized pool dequantized as the kernel does)
+    through :func:`~bcg_tpu_torch.ops.decode_attention.
+    decode_attention_split_plain`.  q ``[B, Kq, H, Dh]``, mask ``[B, S]``
+    (one step) or ``[B, Kq, S]``; returns ``[B, Kq, H, Dh]``.  Used by
+    the tests and ``chip_smoke.py``; not counted in ``.calls``."""
+    k, v = _dense_view(entry, q.dtype)
+    return decode_attention_split_plain(q, k, v, mask, scale, n_split, split_len)
+
+
 # -------------------------------------------------------------------- CUDA
 
 def _check(q, entry, mask):
     """The tile's own checks (:func:`~bcg_tpu_torch.ops.decode_attention.
     check_tile_operands`) plus the table's and the scales'.  Returns the
-    pool's layout."""
+    pool's layout, block size and kv-head count."""
     B, _, _, Dh = q.shape
     lay = layout(entry)
     k, v, tbl = entry["k"], entry["v"], entry["tbl"]
-    if tbl.dtype != torch.int32 or tbl.dim() != 2 or tbl.shape[0] != B \
+    tshape = tbl.shape
+    if tbl.dtype != torch.int32 or len(tshape) != 2 or tshape[0] != B \
             or not tbl.is_contiguous() or tbl.device != q.device:
         raise ValueError(f"paged_attention kernel takes a contiguous int32 table [B, nblk], "
-                         f"got {tbl.dtype} {tuple(tbl.shape)}")
-    check_tile_operands("paged_attention", q, k, v, mask, tbl.shape[1] * block_size(entry),
-                        num_kv_heads(entry), torch.bfloat16 if lay == "bf16" else torch.int8,
+                         f"got {tbl.dtype} {tuple(tshape)}")
+    quant = lay != "bf16"
+    kshape = k.shape
+    bs, Hkv = (kshape[2], kshape[1]) if quant else (kshape[1], kshape[2])
+    check_tile_operands("paged_attention", q, k, v, mask, tshape[1] * bs, Hkv,
+                        torch.int8 if quant else torch.bfloat16,
                         Dh // 2 if lay == "int4" else Dh)
-    if lay != "bf16":
+    if quant:
+        st0 = entry["k_scale"].stride()
         for t in (entry["k_scale"], entry["v_scale"]):
-            if tuple(t.shape) != tuple(k.shape[:3]) or t.stride(2) != 1 \
-                    or t.stride() != entry["k_scale"].stride() or t.device != q.device:
-                raise ValueError(f"paged_attention kernel takes scales {tuple(k.shape[:3])} "
-                                 f"with positions contiguous, got {tuple(t.shape)} {t.stride()}")
-    return lay
+            st = t.stride()
+            if t.shape != kshape[:3] or st[2] != 1 or st != st0 or t.device != q.device:
+                raise ValueError(f"paged_attention kernel takes scales {tuple(kshape[:3])} "
+                                 f"with positions contiguous, got {tuple(t.shape)} {st}")
+    return lay, bs, Hkv
+
+
+def _plan_for(q4, lay, bs, Hkv, nblk, Mk):
+    """The split plan of a call (see :func:`split_plan`)."""
+    rows = q4.shape[1] * (q4.shape[2] // Hkv)
+    return _plan("paged_attention", LAYOUTS.index(lay), q4.device.index, q4.shape[0], Hkv,
+                 nblk * bs, rows, Mk, bs, MAX_SPLIT_BLOCKS * bs - SPLIT_ITER)
+
+
+def split_plan(q4, entry: Dict, m3):
+    """``(n_split, split_len)`` of the kernel's call with q4 ``[B, Kq, H,
+    Dh]`` and a ``[B, 1 | Kq, S]`` mask on a CUDA device: every split a
+    whole number of pool blocks, at most :data:`MAX_SPLIT_BLOCKS` of
+    them."""
+    return _plan_for(q4, layout(entry), block_size(entry), num_kv_heads(entry),
+                     entry["tbl"].shape[1], m3.shape[1] if m3.dim() == 3 else 1)
 
 
 def _launch(q4, entry, m3, scale):
     """Launch ``csrc/paged_attention.cu`` on the current stream; q4
-    ``[B, Kq, H, Dh]``, m3 ``[B, 1 | Kq, S]``.  Returns the layout."""
-    lay = _check(q4, entry, m3)
+    ``[B, Kq, H, Dh]``, m3 ``[B, 1 | Kq, S]`` or ``[B, S]`` (one row).
+    Returns the layout."""
+    lay, bs, Hkv = _check(q4, entry, m3)
     m3 = m3.contiguous()
+    Mk = m3.shape[1] if m3.dim() == 3 else 1
     B, Kq, H, _ = q4.shape
     k, v, tbl = entry["k"], entry["v"], entry["tbl"]
+    kst = k.stride()
     if lay == "bf16":            # [N, bs, Hkv, Dh]
-        blk_st, h_st, s_st = k.stride(0), k.stride(2), k.stride(1)
+        blk_st, h_st, s_st = kst[0], kst[2], kst[1]
         ks_ptr = vs_ptr = 0
         sc_blk = sc_h = 0
     else:                        # [N, Hkv, bs, Dh(/2)] + scales [N, Hkv, bs]
-        blk_st, h_st, s_st = k.stride(0), k.stride(1), k.stride(2)
-        ks_ptr, vs_ptr = entry["k_scale"].data_ptr(), entry["v_scale"].data_ptr()
-        sc_blk, sc_h = entry["k_scale"].stride(0), entry["k_scale"].stride(1)
+        blk_st, h_st, s_st = kst[0], kst[1], kst[2]
+        ks = entry["k_scale"]
+        ks_ptr, vs_ptr = ks.data_ptr(), entry["v_scale"].data_ptr()
+        sc_blk, sc_h = ks.stride(0), ks.stride(1)
     fn = _build.entry("paged_attention", "bcg_paged_attention", _ARGTYPES)
+    nblk = tbl.shape[1]
+    n_split, split_len = _plan_for(q4, lay, bs, Hkv, nblk, Mk)
+    part_ptr, count_ptr = split_buffers(q4, Hkv, n_split, Kq * (H // Hkv))
     out = torch.empty_like(q4)
     err = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr, tbl.data_ptr(),
-             m3.data_ptr(), out.data_ptr(), B, tbl.shape[1], block_size(entry), H,
-             num_kv_heads(entry), Kq, m3.shape[1], LAYOUTS.index(lay), blk_st, h_st, s_st,
-             sc_blk, sc_h, float(scale), _build.stream_ptr(q4))
-    # A table too wide to stage in shared memory fails the launch here.
-    _build.check(err, f"paged_attention ({tbl.shape[1]} table columns)")
+             m3.data_ptr(), out.data_ptr(), B, nblk, bs, H, Hkv, Kq, Mk,
+             LAYOUTS.index(lay), blk_st, h_st, s_st, sc_blk, sc_h, float(scale), n_split,
+             split_len, part_ptr, count_ptr, _build.stream_ptr(q4))
+    _build.check(err, "paged_attention")
     return out, lay
 
 
@@ -277,7 +325,7 @@ def paged_decode_attention_cuda(q, entry: Dict, mask, scale):
     shared by all of them)."""
     if mask.dim() != 2:
         raise ValueError(f"paged_decode_attention takes a [B, S] mask, got {tuple(mask.shape)}")
-    out, lay = _launch(q, entry, mask[:, None, :], scale)
+    out, lay = _launch(q, entry, mask, scale)
     paged_decode_attention.launches[lay] += 1
     return out
 

@@ -75,14 +75,22 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    TFLOP/s).  B5 (the W4A16 matmul) runs at P9's largest call (the LM
    head, M = 10) and at one captured weight of each layer shape with
    M = 1, 10, 50 and 256, held by relative L2 error per output row, with
-   ``torch.matmul`` over the already dequantized bf16 weight timed beside
-   it (another function: the bf16 product int4 has to beat); its times
-   come from CUDA graphs of calls (``graph_ms``), as do B3a's and its
-   SDPA yardstick's (a call of tens of microseconds, whose event-timed
-   single call, printed beside it, counts the wrapper's host time).  B3a
-   is also held to the plain version of its split arithmetic at the plan
-   the kernel used (``split``: the split count and positions per split,
-   also in the kernels line).  Attention errors are
+   ``torch._weight_int4pack_mm`` over the same int4 weight (the library
+   call of B5's function, converted once outside the timing, its error
+   against the plain version printed; a shape this torch build refuses
+   prints the error and keeps ``library_ms`` None) and ``torch.matmul``
+   over the already dequantized bf16 weight timed beside it (another
+   function: the bf16 product int4 has to beat); its times come from
+   CUDA graphs of calls (``graph_ms``), as do B3a's and its SDPA
+   yardstick's (a call of tens of microseconds, whose event-timed single
+   call, printed beside it, counts the wrapper's host time).  The split
+   kernels — B3a, the two int8 forms (B3b) and the six paged forms (B4)
+   — are also held to the plain version of their split arithmetic at the
+   plan the kernel used (``split``: the split count and positions per
+   split, also in the kernels line), and the int8 and paged forms print
+   a ``graph_ms`` (a CUDA graph of calls over enough copies of the
+   captured inputs to read twice the L2) beside their event-timed
+   ``ms``, both also in the kernels line.  Attention errors are
    held relative to the reference's own size, and the same measure is
    printed for the plain version with one tile of 64 live keys dropped,
    the size of error the limits must catch.
@@ -214,6 +222,20 @@ def bound(bytes_moved: float, flops: float):
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     tf = flops / BF16_FLOPS_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def fmt(x) -> str:
+    return "None" if x is None else f"{x:.4g}"
+
+
+def cold_graph_ms(launch, args, nbytes: int) -> float:
+    """``graph_ms`` of ``launch(*args)`` over ``args`` and enough device
+    copies of them (``keep``; at most 8 in all) that the graph's calls
+    read more than twice the 50 MB L2 (``nbytes``: what one call reads),
+    so each call finds its cache cold, as a decode step does."""
+    n = max(1, min(8, -(-100_000_000 // max(nbytes, 1))))
+    sets = [args] + [tuple(keep(a) for a in args) for _ in range(n - 1)]
+    return graph_ms([lambda a=a: launch(*a) for a in sets], max(20, n))
 
 
 # --------------------------------------------------------------- kernels
@@ -895,12 +917,49 @@ def attention_check(out, ref, head_dims, dropped_ref):
                 and bool(torch.isfinite(out).all()))
 
 
+def int4pack_weight(q4, gscale):
+    """The port's int4 weight (``q4`` [D/2, F]: element j in the low
+    nibble of row j, element j + D/2 in the high one; bf16 ``gscale``
+    [D/g, F]) in the layout of ``torch._weight_int4pack_mm``, PyTorch's
+    own W4A16 product (B5's library yardstick, never used by the port):
+    the unsigned nibbles (value + 8) of the transposed weight [F, D],
+    two a byte with the even element in the high nibble, through
+    ``torch._convert_weight_to_int4pack``; and [D/g, F, 2] bf16 scales
+    with zero points 0, so that its (u - 8) * scale is the port's
+    dequantized weight."""
+    import torch
+
+    from bcg_tpu_torch.ops.w4_matmul import unpack_int4
+
+    u = (unpack_int4(q4).to(torch.int32) + 8).t().contiguous()               # [F, D]
+    w = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 2)
+    sz = torch.stack([gscale, torch.zeros_like(gscale)], dim=-1).contiguous()
+    return w, sz
+
+
+def w4_rel(out, ref):
+    """Relative L2 error per output row, the largest."""
+    return ((out.float() - ref).pow(2).sum(-1).sqrt()
+            / ref.pow(2).sum(-1).sqrt().clamp_min(1e-30)).max().item()
+
+
+def split_check(check, out, split_ref, head_dims):
+    """Adds to an attention check the errors against the plain version
+    of the split arithmetic at the kernel's plan, held to the same
+    limits."""
+    row, head = rel_errors(out, split_ref, head_dims)
+    check["split_rel_row"], check["split_rel_head"] = row, head
+    check["ok"] = check["ok"] and row <= ATTN_REL_ROW_TOL and head <= ATTN_REL_HEAD_TOL
+
+
 def w4_line(x, q4, gscale):
     """B5 against its plain version at one input: relative L2 error per
     output row, the kernel's, the plain version's and the bound's
-    times, and beside them ``torch.matmul`` of x with the weight
-    ALREADY dequantized to bf16 (another function: the bf16 product
-    int4 has to beat, not a library call of B5's)."""
+    times; beside them ``torch._weight_int4pack_mm`` over the same int4
+    weight (the library call of B5's function, its error against the
+    plain version printed; its weight converted once, outside the
+    timing) and ``torch.matmul`` of x with the weight ALREADY dequantized
+    to bf16 (another function: the bf16 product int4 has to beat)."""
     import torch
 
     from bcg_tpu_torch.models.quantize import dequantize_int4
@@ -909,11 +968,10 @@ def w4_line(x, q4, gscale):
     out = w4.w4a16_matmul_cuda(x, q4, gscale)
     torch.cuda.synchronize()
     ref = w4.w4a16_matmul_plain(x, q4, gscale)
-    rel = ((out - ref).pow(2).sum(-1).sqrt()
-           / ref.pow(2).sum(-1).sqrt().clamp_min(1e-30)).max().item()
+    rel = w4_rel(out, ref)
     err = (out - ref).abs().max().item()
     ok = rel <= W4_REL_ROW_TOL and bool(torch.isfinite(out).all())
-    del out, ref
+    del out
     # Enough weight copies that a graph of calls reads more than twice the
     # L2 (the LM head alone is 311 MB).
     copies = max(1, min(64, -(-100_000_000 // q4.numel())))
@@ -922,6 +980,17 @@ def w4_line(x, q4, gscale):
     ms = graph_ms([lambda q=q, g=g: w4.w4a16_matmul_cuda(x, q, g) for q, g in ws], reps)
     plain_ms = time_ms(lambda: w4.w4a16_matmul_plain(x, q4, gscale), reps=5)
     xb = x.to(torch.bfloat16)
+    group = 2 * q4.shape[0] // gscale.shape[0]
+    lib_ms = lib_rel = lib_error = None
+    try:
+        packs = [int4pack_weight(q, g) for q, g in ws]
+        lib_rel = w4_rel(torch._weight_int4pack_mm(xb, packs[0][0], group, packs[0][1]), ref)
+        lib_ms = graph_ms([lambda w=w, sz=sz: torch._weight_int4pack_mm(xb, w, group, sz)
+                           for w, sz in packs], reps)
+        del packs
+    except RuntimeError as exc:   # this torch build refuses the shape: recorded, not timed
+        lib_error = str(exc).strip().splitlines()[0][:300]
+    del ref
     w_bfs = [dequantize_int4({"q4": q, "gscale": g}) for q, g in ws]
     deq_ms = graph_ms([lambda w=w: torch.matmul(xb, w) for w in w_bfs], reps)
     del ws, w_bfs
@@ -930,8 +999,9 @@ def w4_line(x, q4, gscale):
     byts = q4.numel() + 2 * gscale.numel() + 2 * x.numel() + 4 * M * F
     bms, by = bound(byts, 2 * M * D * F)
     return dict(max_abs_err=err, rel_row=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, dequantized_bf16_matmul_ms=deq_ms,
-                shape=[M, D, F], group=q4.shape[0] // (gscale.shape[0] // 2))
+                bound_ms=bms, bound_by=by, library_ms=lib_ms, library_rel_row=lib_rel,
+                library_error=lib_error, dequantized_bf16_matmul_ms=deq_ms,
+                shape=[M, D, F], group=group)
 
 
 def w4a16_check(captured):
@@ -952,7 +1022,7 @@ def w4a16_check(captured):
         torch.cuda.empty_cache()
     return dict(replaces="bcg_tpu/ops/w4_matmul.py:37 _w4_kernel (pallas_call :116 of "
                          "_w4a16_2d :107, via w4a16_matmul :150)",
-                **head, library_ms=None, shapes=extra)
+                **head, shapes=extra)
 
 
 def phase_kernels(inputs, counts):
@@ -1018,11 +1088,8 @@ def phase_kernels(inputs, counts):
         dropped = da.decode_attention_plain(q, k, v, drop_live_keys(mask), scale)
         check = attention_check(out, ref, (-1,), dropped)
         # The split arithmetic's plain version at the plan the kernel used.
-        split_ref = da.decode_attention_split_plain(q, k, v, mask, scale, *split)
-        split_row, split_head = rel_errors(out, split_ref, (-1,))
-        check["split_rel_row"], check["split_rel_head"] = split_row, split_head
-        check["ok"] = (check["ok"] and split_row <= ATTN_REL_ROW_TOL
-                       and split_head <= ATTN_REL_HEAD_TOL)
+        split_check(check, out, da.decode_attention_split_plain(q, k, v, mask, scale, *split),
+                    (-1,))
         # A call takes tens of microseconds: time it in a CUDA graph of
         # calls (the event-timed single call counts the wrapper's host
         # time), and SDPA the same way.  K and V of the captured window
@@ -1079,11 +1146,16 @@ def phase_kernels(inputs, counts):
         q, k, v, ks, vs, mask, scale = inputs[path][name]
         launch = getattr(da, f"{name}_cuda")
         plain = getattr(da, f"{name}_plain")
+        split = list(da.int8_split_plan(q, k, mask))
         out = launch(q, k, v, ks, vs, mask, scale)
         torch.cuda.synchronize()
         ref = plain(q, k, v, ks, vs, mask, scale)
         dropped = plain(q, k, v, ks, vs, drop_live_keys(mask), scale)
-        check = attention_check(out, ref, (1, 3) if q.dim() == 4 else (-1,), dropped)
+        head_dims = (1, 3) if q.dim() == 4 else (-1,)
+        check = attention_check(out, ref, head_dims, dropped)
+        split_check(check, out, da.decode_attention_split_plain(
+            q, k, v, mask, scale, *split, k_scale=ks, v_scale=vs), head_dims)
+        del out, ref, dropped
         ms = time_ms(lambda: launch(q, k, v, ks, vs, mask, scale), reps=50)
         plain_ms = time_ms(lambda: plain(q, k, v, ks, vs, mask, scale))
         Hkv, S, Dh = k.shape[1], k.shape[2], k.shape[3]
@@ -1092,15 +1164,17 @@ def phase_kernels(inputs, counts):
         slots = m3.any(1).sum().item()
         # int8 k and v plus their two f32 scales per attended slot and kv
         # head, as stored; q, out (bf16) and the mask once.
-        byts = slots * Hkv * (2 * Dh + 8) + 2 * 2 * q.numel() + m3.numel()
-        bms, by = bound(byts, 4 * Dh * H * m3.sum().item())
+        kv_bytes = slots * Hkv * (2 * Dh + 8)
+        g_ms = cold_graph_ms(launch, (q, k, v, ks, vs, mask, scale), kv_bytes)
+        bms, by = bound(kv_bytes + 2 * 2 * q.numel() + m3.numel(), 4 * Dh * H * m3.sum().item())
         return dict(common(name),
                     replaces=("bcg_tpu/ops/decode_attention.py:113 _decode_kernel_allheads "
                               "(pallas_call :182 of _quantized_attention :166, via "
                               + ("chunk_decode_attention :327-359)" if q.dim() == 4
                                  else "decode_attention :241-264)")),
-                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None, shape=list(q.shape[:-1]) + [Hkv, S], valid_slots=slots)
+                    **check, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None, split=split,
+                    shape=list(q.shape[:-1]) + [Hkv, S], valid_slots=slots)
 
     def flash_p5():
         """B1 at P5's captured prefill input: the paged prefill's tokens
@@ -1146,17 +1220,21 @@ def phase_kernels(inputs, counts):
         q, entry, mask, scale = paged_inputs(name)
         launch = pa.paged_decode_attention_cuda if step else pa.paged_chunk_attention_cuda
         plain = pa.paged_decode_attention_plain if step else pa.paged_chunk_attention_plain
+        m3 = mask[:, None] if step else mask
+        split = list(pa.split_plan(q, entry, m3))
         out = launch(q, entry, mask, scale)
         torch.cuda.synchronize()
         ref = plain(q, entry, mask, scale)
         dropped = plain(q, entry, drop_live_keys(mask), scale)
         check = attention_check(out, ref, (1, 3), dropped)
+        split_check(check, out, pa.paged_attention_split_plain(q, entry, mask, scale, *split),
+                    (1, 3))
+        del ref, dropped
         ms = time_ms(lambda: launch(q, entry, mask, scale), reps=50)
         plain_ms = time_ms(lambda: plain(q, entry, mask, scale))
         # The dense kernel over the gathered dense view of the same inputs
         # (int4: dequantized to bf16, as the dense int4 path serves it).
         dense = pa.paged_gather_entry(entry)
-        m3 = mask[:, None] if step else mask
         if lay == "int8":
             dk = (dense["k"], dense["v"], dense["k_scale"], dense["v_scale"])
             dfn = (lambda: da.decode_attention_int8_cuda(q[:, 0], *dk, mask, scale)[:, None]) \
@@ -1177,7 +1255,9 @@ def phase_kernels(inputs, counts):
         per_pos = {"bf16": 2 * Dh * 2, "int8": 2 * (Dh + 4), "int4": 2 * (Dh // 2 + 2)}[lay]
         # The live blocks' K and V (and scales) read once; q, out (bf16),
         # the mask and the table once.
-        byts = blocks * bs * Hkv * per_pos + 2 * 2 * q.numel() + m3.numel() + 4 * tbl.numel()
+        kv_bytes = blocks * bs * Hkv * per_pos
+        g_ms = cold_graph_ms(launch, (q, entry, mask, scale), kv_bytes)
+        byts = kv_bytes + 2 * 2 * q.numel() + m3.numel() + 4 * tbl.numel()
         bms, by = bound(byts, 4 * Dh * H * m3.sum().item())
         src = PAGED_DERIVED.get(name)
         return dict(common(name),
@@ -1185,8 +1265,9 @@ def phase_kernels(inputs, counts):
                               ":507 of _paged_pallas_attention :432, via "
                               + ("paged_decode_attention :221)" if step
                                  else "paged_chunk_attention :262)")),
-                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None, dense_ms=dense_ms, dense_rel_row=dense_rel_row,
+                    **check, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None, split=split, dense_ms=dense_ms,
+                    dense_rel_row=dense_rel_row,
                     dense_rel_head=dense_rel_head, live_blocks=blocks,
                     inputs_from=(f"{src[0]} {src[1]}" if src else HOME[name]),
                     shape=[B, Kq, H, Hkv, nblk * bs, bs])
@@ -1244,7 +1325,9 @@ def phase_kernels(inputs, counts):
                       f"rel_row={e['rel_row']:.4g} (tol {W4_REL_ROW_TOL}) "
                       f"max_abs_err={e['max_abs_err']:.4g} ms={e['ms']:.4f} "
                       f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
-                      f"({e['bound_by']}) dequantized_bf16_matmul_ms="
+                      f"({e['bound_by']}) library_ms={fmt(e['library_ms'])} "
+                      f"library_rel_row={fmt(e['library_rel_row'])} "
+                      f"library_error={e['library_error']} dequantized_bf16_matmul_ms="
                       f"{e['dequantized_bf16_matmul_ms']:.4f} launches={r['launches']} "
                       f"per_path={json.dumps(r['launches_per_path'])}", flush=True)
                 if not e["ok"]:
@@ -1264,13 +1347,13 @@ def phase_kernels(inputs, counts):
                     f"live_blocks={r['live_blocks']} inputs_from={r['inputs_from']}")
         if "split" in r:
             err += (f" split={r['split']} split_plain_rel_row={r['split_rel_row']:.4g} "
-                    f"split_plain_rel_head={r['split_rel_head']:.4g} "
-                    f"event_ms={r['event_ms']:.4f} library_event_ms={r['library_event_ms']:.4f}")
-        if "library_ratio" in r:
-            err += f" library_ratio={r['library_ratio']:.4g}"
+                    f"split_plain_rel_head={r['split_rel_head']:.4g}")
+        for key in ("event_ms", "library_event_ms", "graph_ms", "library_ratio"):
+            if key in r:
+                err += f" {key}={r[key]:.4g}"
         print(f"kernel {r['name']}: {err} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
+              f"library_ms={fmt(r['library_ms'])} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) launches={r['launches']} "
               f"per_path={json.dumps(r['launches_per_path'])} shape={r['shape']}", flush=True)
         if not r["ok"]:
@@ -1327,7 +1410,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card line", flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("split",) if k in r}
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("graph_ms", "split") if k in r}
                                   for r in results]}), flush=True)
     if errors:
         fail("; ".join(errors))

@@ -14,7 +14,12 @@ CUDA graph — and chunk),
 int8 decode attention (single step and chunk, at the bench-8b shapes
 and at a GQA group of 5), paged decode attention over bf16, int8 and
 packed-int4 block pools (single step and chunk, shuffled tables with
-shared blocks and null padding) and the guided sampler.
+shared blocks and null padding), the eight split forms of the int8 and
+paged kernels (each against its plain version and the plain version of
+its split arithmetic at the plan, at many splits with a ragged last one,
+with live slots only in the first 64 positions and at one split;
+repeatable bit for bit and replayed in a CUDA graph) and the guided
+sampler.
 
 Tolerances: bf16 attention 2e-2 absolute on outputs of magnitude ~1-4.
 The kernels round the unnormalised probabilities to bf16 for the p.v
@@ -371,6 +376,130 @@ def test_paged_kernel_equals_dense_kernel_on_gathered_view(dev, layout):
         k, v = paged_attention._dense_view(entry, torch.bfloat16)
         ref = decode_attention.chunk_decode_attention(q, k, v, mask, Dh ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+
+
+# The eight split forms of the int8 kernel (B3b) and the paged kernel
+# (B4): (cache, K), K = 0 for the single step; the chunks at their home
+# paths' K (fast-forward 4, speculative verify 5).
+SPLIT_FORMS = [("dense-int8", 0), ("dense-int8", 4), ("bf16", 0), ("bf16", 5), ("int8", 0),
+               ("int8", 5), ("int4", 0), ("int4", 4)]
+SPLIT_FORM_IDS = ["b3b-step", "b3b-chunk", "b4-bf16-step", "b4-bf16-chunk", "b4-int8-step",
+                  "b4-int8-chunk", "b4-int4-step", "b4-int4-chunk"]
+
+
+def _split_inputs(dev, rng, form, K, B, S):
+    """q [B, max(K, 1), 32, 128] and the cache of one split form over an
+    S-position window (a paged pool in whole blocks of 16, S rounded up:
+    :func:`_paged_entry`), with the [B, S] slots a mask may make live."""
+    H, Hkv, Dh = 32, 8, 128
+    q = torch.from_numpy(rng.standard_normal((B, max(K, 1), H, Dh), np.float32))
+    q = q.to(dev, torch.bfloat16)
+    if form == "dense-int8":
+        return q, _cache_views(rng, dev, B, S, Hkv, Dh, int8=True), np.ones((B, S), bool)
+    entry, live = _paged_entry(rng, dev, form, B, -(-S // 16), 16, Hkv, Dh)
+    return q, entry, live
+
+
+def _split_calls(form, K, q, cache, m):
+    """The wrapper's call, its plain version, the plain version of the
+    split arithmetic at a given plan, the kernel's plan and the wrapper
+    (its ``.launches``) for one split form; m [B, max(K, 1), S] numpy."""
+    scale = 128 ** -0.5
+    mask = torch.from_numpy(m[:, 0] if K == 0 else m).to(q.device)
+    if form == "dense-int8":
+        k, v, ks, vs = cache
+        qq = q[:, 0] if K == 0 else q
+        da = decode_attention
+        fn, plain = ((da.decode_attention_int8, da.decode_attention_int8_plain) if K == 0 else
+                     (da.chunk_decode_attention_int8, da.chunk_decode_attention_int8_plain))
+        args = (qq, k, v, ks, vs, mask, scale)
+
+        def split(n, length):
+            return da.decode_attention_split_plain(qq, k, v, mask, scale, n, length,
+                                                   k_scale=ks, v_scale=vs)
+
+        return (lambda: fn(*args)), (lambda: plain(*args)), split, \
+            da.int8_split_plan(qq, k, mask), fn
+    pa = paged_attention
+    fn, plain = ((pa.paged_decode_attention, pa.paged_decode_attention_plain) if K == 0 else
+                 (pa.paged_chunk_attention, pa.paged_chunk_attention_plain))
+
+    def split(n, length):
+        return pa.paged_attention_split_plain(q, cache, mask, scale, n, length)
+
+    plan = pa.split_plan(q, cache, mask[:, None] if K == 0 else mask)
+    return (lambda: fn(q, cache, mask, scale)), (lambda: plain(q, cache, mask, scale)), split, \
+        plan, fn
+
+
+def _launches(fn, form):
+    return fn.launches if form == "dense-int8" else fn.launches[form]
+
+
+@pytest.mark.parametrize("case", ["bench", "ragged-many", "live-first-64", "one-split"])
+@pytest.mark.parametrize("form,K", SPLIT_FORMS, ids=SPLIT_FORM_IDS)
+def test_split_forms_match_plain_and_split_plain(dev, form, K, case):
+    """A bench-8b-sized call (several splits); many splits with a ragged
+    last one; live slots only in the first 64 positions (every other
+    split empty); B * Hkv >= 264 (one split).  Held to the plain version
+    and to the split arithmetic's plain version at the plan the wrapper
+    uses; a fully masked query row gives 0."""
+    rng = np.random.default_rng([len(form), K, len(case)])
+    B, S = {"bench": (10, 3000), "ragged-many": (3, 8150), "live-first-64": (3, 5000),
+            "one-split": (33, 700)}[case]
+    q, cache, live = _split_inputs(dev, rng, form, K, B, S)
+    S = live.shape[1]
+    m = (rng.random((B, q.shape[1], S)) < 0.7) & live[:, None]
+    if case == "live-first-64":
+        m[:, :, 64:] = False
+    m[1, -1] = False                               # a fully masked query row gives 0
+    call, plain, split, (n_split, split_len), fn = _split_calls(form, K, q, cache, m)
+    assert (n_split == 1) == (case == "one-split")
+    if case == "ragged-many":
+        assert n_split >= 8 and S - (n_split - 1) * split_len != split_len
+    before = _launches(fn, form)
+    out = call()
+    torch.cuda.synchronize()
+    assert _launches(fn, form) == before + 1
+    torch.testing.assert_close(out.float(), plain().float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(out.float(), split(n_split, split_len).float(), atol=TOL,
+                               rtol=TOL)
+    out4 = out[:, None] if out.dim() == 3 else out
+    assert torch.all(out4[1, -1] == 0)
+
+
+@pytest.mark.parametrize("form,K", SPLIT_FORMS, ids=SPLIT_FORM_IDS)
+def test_split_forms_are_deterministic_and_replay_in_a_graph(dev, form, K):
+    """Two calls are bit-identical (the last block merges the splits in
+    split order); after one call at the shape, the call captured in a
+    CUDA graph and replayed twice gives the same bits; the shared
+    workspace's arrival counters are 0 after it all."""
+    rng = np.random.default_rng([len(form), K, 9])
+    B, S = 4, 3000
+    q, cache, live = _split_inputs(dev, rng, form, K, B, S)
+    m = (rng.random((B, q.shape[1], live.shape[1])) < 0.8) & live[:, None]
+    call, _, _, (n_split, _), _ = _split_calls(form, K, q, cache, m)
+    assert n_split > 1
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    counts = decode_attention._workspaces[q.device].count
+    assert int(counts.abs().sum()) == 0
 
 
 def _int4_model_step(params, dev, K):
