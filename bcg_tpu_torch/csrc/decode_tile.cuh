@@ -36,14 +36,19 @@
 // end through shared memory.  Every iteration stages 32 * (4 / nM)
 // positions of K and V (dequantized to bf16 for a quantized cache) and
 // the mask rows in shared memory; an iteration with no live (row,
-// position) pair loads no K/V.  A bf16 cache is loaded an iteration at a
-// time, each thread keeping 4 + 4 16-byte loads in flight before storing
-// any.  A quantized cache is pipelined: the raw rows of the next
-// iteration are copied by cp.async into a staging buffer (raw_bytes)
-// while this one is dequantized and computed, its mask loaded an
-// iteration further ahead into registers so that a dead iteration is
-// never copied (a mask taller than kMaskRegs bytes a thread takes the
-// bf16 cache's loop).  Shared memory is sized for the rows a launch has
+// position) pair loads no K/V.  A bf16 cache at one m-tile (R <= 16) is
+// loaded an iteration at a time, each thread keeping 4 + 4 16-byte loads
+// in flight before storing any; at two m-tiles or more an iteration holds
+// 64 positions or fewer, so the K/V space sized for 128 holds two stages
+// and the next iteration's rows are copied by cp.async while this one is
+// computed (the bf16 ring, compiled in by the kRing option).  A quantized
+// cache is pipelined: the raw rows of the next iteration are copied by
+// cp.async into a staging buffer (raw_bytes) while this one is
+// dequantized and computed.  Both
+// pipelined loops load the mask an iteration further ahead into
+// registers, so that a dead iteration is never copied (a mask taller
+// than kMaskRegs bytes a thread takes the loop that loads an iteration
+// at a time).  Shared memory is sized for the rows a launch has
 // (launch_smem): 74 KB at R <= 16 for bf16, so three blocks fit on an SM;
 // 108 KB with the int8 staging and 91 KB with the int4 one, two.
 //
@@ -66,14 +71,12 @@
 // live position (l_z == 0) weighs exactly 0, never exp(-1e30 - -1e30).
 // One launch, no second combine kernel, nothing allocated: the caller
 // owns the workspace (ops/decode_attention.py), so a call can be
-// captured in a CUDA graph.  The bf16 single step, the int8 forms and
-// the paged forms turn it on (each paged block stages only its split's
-// range of the block table); the bf16 chunk launcher still takes the
-// default (one split).
+// captured in a CUDA graph.  Every launcher turns it on (each paged
+// block stages only its split's range of the block table).
 //
-// Still missing: no TMA and no overlap of one iteration's loads with the
-// same block's math (other resident blocks cover it).  Head dim 128; R up
-// to 64.
+// Still missing: no TMA, and at one m-tile no overlap of one iteration's
+// bf16 loads with the same block's math (other resident blocks cover
+// it).  Head dim 128; R up to 64.
 #pragma once
 
 #include "common.cuh"
@@ -121,6 +124,12 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uin
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+// The same, or 16 zero bytes where `pred` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(pred ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -287,7 +296,10 @@ int occupancy(Kernel kernel, size_t smem, int* blocks) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
 }
 
-template <int kLayout, class Addr>
+// kRing: compile the bf16 ring in (bf16 only; its extra live registers
+// cost a block an SM at one m-tile, so launchers take it only for launches
+// of two m-tiles or more).
+template <int kLayout, bool kRing = false, class Addr>
 __device__ __forceinline__ void decode_tile_body(
     const __nv_bfloat16* __restrict__ q,      // [B, Kq, H, Dh]
     const typename KVChunk<kLayout>::Elem* __restrict__ k,   // addressed through `addr`
@@ -363,13 +375,38 @@ __device__ __forceinline__ void decode_tile_body(
   using Chunk = KVChunk<kLayout>;
   constexpr int kChunks = Chunk::kLoads;      // 16-byte loads per cache row
   constexpr int kRowBytes = row_bytes(kLayout);
-  // The pipelined loop takes the quantized caches whose mask fits its
-  // registers; bf16 (whose raw rows would need a second K/V stage) and a
-  // taller mask take the loop that loads each iteration in turn.
-  const bool pipelined = kLayout != kBf16 && Mk * P <= kMaskRegs * kThreads;
+  // The pipelined loops take a mask that fits their registers: the
+  // quantized caches always (their raw rows staged apart), bf16 where two
+  // m-tiles or more leave room for a second K/V stage (P <= 64 of the
+  // kSuper rows).  The others load each iteration in turn.
+  const bool fits = Mk * P <= kMaskRegs * kThreads;
+  const bool pipelined = kLayout != kBf16 && fits;
+  const bool bf16_ring = kRing && kLayout == kBf16 && nM >= 2 && fits;
+  // The mask of the P positions from s0 into registers (pipelined loops).
+  auto load_mask = [&](int s0, uint8_t (&m)[kMaskRegs]) {
+#pragma unroll
+    for (int i = 0; i < kMaskRegs; ++i) {
+      const int c = tid + i * kThreads, r = c / P, col = c % P;
+      m[i] = c < Mk * P && s0 + col < s_end ? mb[(long long)r * S + s0 + col] : 0;
+    }
+  };
+  auto any_live = [](const uint8_t (&m)[kMaskRegs]) {
+    int x = 0;
+#pragma unroll
+    for (int i = 0; i < kMaskRegs; ++i) x |= m[i];
+    return x;
+  };
+  auto stage_mask = [&](const uint8_t (&m)[kMaskRegs]) {
+#pragma unroll
+    for (int i = 0; i < kMaskRegs; ++i) {
+      const int c = tid + i * kThreads;
+      if (c < Mk * P) Ms[(c / P) * kSuper + c % P] = m[i];
+    }
+  };
 
-  // One iteration's products and online softmax over the staged K/V/mask.
-  auto attend = [&](int s0) {
+  // One iteration's products and online softmax over the K/V staged at
+  // Kt/Vt and the staged mask.
+  auto attend = [&](int s0, const __nv_bfloat16* Kt, const __nv_bfloat16* Vt) {
     if (!active || s0 + wp0 >= s_end) return;
     // scores = q . k^T for the warp's 16 rows x 32 positions.
     float sc[kWN / 8][4];
@@ -379,7 +416,7 @@ __device__ __forceinline__ void decode_tile_body(
     for (int kk = 0; kk < kDh / 16; ++kk) {
 #pragma unroll
       for (int j = 0; j < kWN / 8; ++j) {
-        const __nv_bfloat16* kr = Ks + (wp0 + j * 8 + g) * kStride + kk * 16 + t4 * 2;
+        const __nv_bfloat16* kr = Kt + (wp0 + j * 8 + g) * kStride + kk * 16 + t4 * 2;
         uint32_t bf[2];
         bf[0] = *reinterpret_cast<const uint32_t*>(kr);
         bf[1] = *reinterpret_cast<const uint32_t*>(kr + 8);
@@ -444,7 +481,7 @@ __device__ __forceinline__ void decode_tile_body(
       pa[2] = bcg::pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
       pa[3] = bcg::pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
       const unsigned short* vr =
-          reinterpret_cast<const unsigned short*>(Vs) + (wp0 + kk * 16 + t4 * 2) * kStride + g;
+          reinterpret_cast<const unsigned short*>(Vt) + (wp0 + kk * 16 + t4 * 2) * kStride + g;
 #pragma unroll
       for (int n = 0; n < kDh / 8; ++n) {
         uint32_t bf[2];
@@ -455,7 +492,7 @@ __device__ __forceinline__ void decode_tile_body(
     }
   };
 
-  if (!pipelined) {
+  if (!pipelined && !bf16_ring) {
     for (int s0 = s_begin; s0 < s_end; s0 += P) {
       __syncthreads();   // the previous iteration's K/V/mask are no longer read
       int live = 0;
@@ -496,7 +533,48 @@ __device__ __forceinline__ void decode_tile_body(
         }
       }
       __syncthreads();
-      attend(s0);
+      attend(s0, Ks, Vs);
+    }
+  } else if constexpr (kRing && kLayout == kBf16) {
+    // bf16 at two m-tiles or more: K and V of iteration i + 1 are copied
+    // by cp.async into the other half of Ks/Vs (stage (i + 1) % 2, P rows
+    // each) while iteration i is computed; positions past the range are
+    // zero-filled, so that p = 0 never meets a stale value.  The mask runs
+    // an iteration further ahead in registers, as in the quantized loop,
+    // so that a dead iteration is never copied.
+    auto prefetch = [&](int s0, int st) {
+      __nv_bfloat16* kd = Ks + st * P * kStride;
+      __nv_bfloat16* vd = Vs + st * P * kStride;
+      for (int c = tid; c < P * kChunks; c += kThreads) {
+        const int r = c / kChunks, j = c % kChunks;
+        const bool in = s0 + r < s_end;
+        const long long vo = in ? addr.val(s0 + r) : 0;
+        cp_async16(kd + r * kStride + j * 8, k + vo + j * 8, in);
+        cp_async16(vd + r * kStride + j * 8, v + vo + j * 8, in);
+      }
+    };
+    uint8_t mcur[kMaskRegs], mnext[kMaskRegs], mafter[kMaskRegs];
+    load_mask(s_begin, mcur);
+    load_mask(s_begin + P, mnext);
+    int cur_live = __syncthreads_or(any_live(mcur));
+    if (cur_live) prefetch(s_begin, 0);
+    int st = 0;
+    for (int s0 = s_begin; s0 < s_end; s0 += P, st ^= 1) {
+      stage_mask(mcur);
+      if (cur_live) cp_async_wait_all();   // this iteration's copies, the only ones in flight
+      load_mask(s0 + 2 * P, mafter);
+      // This iteration's K/V and mask are visible; the other stage was
+      // last read before the previous iteration's closing barrier.
+      const int next_live = __syncthreads_or(any_live(mnext));
+      if (next_live) prefetch(s0 + P, st ^ 1);
+      if (cur_live) attend(s0, Ks + st * P * kStride, Vs + st * P * kStride);
+      __syncthreads();   // this iteration's K/V stage and mask are no longer read
+#pragma unroll
+      for (int i = 0; i < kMaskRegs; ++i) {
+        mcur[i] = mnext[i];
+        mnext[i] = mafter[i];
+      }
+      cur_live = next_live;
     }
   } else if constexpr (kLayout != kBf16) {
     // Quantized caches: the raw rows of iteration i + 1 are copied into
@@ -508,19 +586,6 @@ __device__ __forceinline__ void decode_tile_body(
     unsigned char* RawV = RawK + kSuper * kRowBytes;
     float* ScK = reinterpret_cast<float*>(RawV + kSuper * kRowBytes);
     float* ScV = ScK + kSuper;
-    auto load_mask = [&](int s0, uint8_t (&m)[kMaskRegs]) {
-#pragma unroll
-      for (int i = 0; i < kMaskRegs; ++i) {
-        const int c = tid + i * kThreads, r = c / P, col = c % P;
-        m[i] = c < Mk * P && s0 + col < s_end ? mb[(long long)r * S + s0 + col] : 0;
-      }
-    };
-    auto any_live = [](const uint8_t (&m)[kMaskRegs]) {
-      int x = 0;
-#pragma unroll
-      for (int i = 0; i < kMaskRegs; ++i) x |= m[i];
-      return x;
-    };
     // Scales of position s0 + tid of the copies in flight, as stored (read
     // as float only when staged, so that their loads stay in flight).
     using Scale = typename Chunk::Scale;
@@ -546,11 +611,7 @@ __device__ __forceinline__ void decode_tile_body(
     int cur_live = __syncthreads_or(any_live(mcur));
     if (cur_live) prefetch(s_begin);
     for (int s0 = s_begin; s0 < s_end; s0 += P) {
-#pragma unroll
-      for (int i = 0; i < kMaskRegs; ++i) {
-        const int c = tid + i * kThreads;
-        if (c < Mk * P) Ms[(c / P) * kSuper + c % P] = mcur[i];
-      }
+      stage_mask(mcur);
       if (cur_live) {
         cp_async_wait_all();
         if (tid < P) {
@@ -575,7 +636,7 @@ __device__ __forceinline__ void decode_tile_body(
       // K/V staged and the raw buffer free again; is the next iteration live?
       const int next_live = __syncthreads_or(any_live(mnext));
       if (next_live) prefetch(s0 + P);
-      if (cur_live) attend(s0);
+      if (cur_live) attend(s0, Ks, Vs);
       __syncthreads();   // this iteration's K/V/mask are no longer read
 #pragma unroll
       for (int i = 0; i < kMaskRegs; ++i) {

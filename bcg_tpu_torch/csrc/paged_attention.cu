@@ -39,13 +39,18 @@
 // table in shared memory (about 80 ints at the bench shape), after the
 // tile's buffers, which are sized by the launch's rows and layout (the
 // int8 and int4 pools' raw rows are copied by cp.async an iteration
-// ahead of their dequantization: decode_tile.cuh).
+// ahead of their dequantization, and a bf16 launch of more than 16 rows
+// takes the kernel with the bf16 ring, the next iteration's K and V
+// copied while this one is computed: decode_tile.cuh).
 
 #include "decode_tile.cuh"
 
 namespace {
 
-template <int kLayout>
+// kRing: the bf16 pool's kernel with the tile body's bf16 ring (for
+// launches of more than 16 rows; it costs a launch of one m-tile its
+// third block an SM).
+template <int kLayout, bool kRing = false>
 __global__ void __launch_bounds__(bcg_tile::kThreads)
 paged_kernel(const __nv_bfloat16* __restrict__ q,
              const typename bcg_tile::KVChunk<kLayout>::Elem* __restrict__ k,
@@ -70,8 +75,8 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   const bcg_tile::PagedAddr addr{tbl_s, blk0, bs, blk_stride, (long long)hk * h_stride,
                                  s_stride, sc_blk_stride, (long long)hk * sc_h_stride};
-  bcg_tile::decode_tile_body<kLayout>(q, k, v, k_scale, v_scale, mask, out, S, H, Hkv, Kq, Mk,
-                                      addr, scale, /*mask_div=*/0, split);
+  bcg_tile::decode_tile_body<kLayout, kRing>(q, k, v, k_scale, v_scale, mask, out, S, H, Hkv,
+                                             Kq, Mk, addr, scale, /*mask_div=*/0, split);
 }
 
 // Table entries of the longest split (the last may run past split_len).
@@ -87,10 +92,10 @@ size_t smem_for(int rows, int Mk, int nblk, int bs, int n_split, int split_len) 
          (size_t)table_range(nblk, bs, n_split, split_len) * sizeof(int);
 }
 
-// The attribute persists: set it once per layout, to the most dynamic
+// The attribute persists: set it once per kernel, to the most dynamic
 // shared memory a block may take on this device beside the kernel's
 // static shared memory (a launch past it fails at launch).
-template <int kLayout>
+template <int kLayout, bool kRing>
 cudaError_t set_smem() {
   static bool done = false;
   if (done) return cudaSuccess;
@@ -99,31 +104,31 @@ cudaError_t set_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, paged_kernel<kLayout>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, paged_kernel<kLayout, kRing>);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(paged_kernel<kLayout>,
+    err = cudaFuncSetAttribute(paged_kernel<kLayout, kRing>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin - (int)attr.sharedSizeBytes);
   done = err == cudaSuccess;
   return err;
 }
 
-template <int kLayout>
+template <int kLayout, bool kRing = false>
 int occupancy(int rows, int Mk, int nblk, int bs, int n_split, int split_len, int* blocks) {
-  cudaError_t err = set_smem<kLayout>();
+  cudaError_t err = set_smem<kLayout, kRing>();
   if (err != cudaSuccess) return (int)err;
-  return bcg_tile::occupancy(paged_kernel<kLayout>,
+  return bcg_tile::occupancy(paged_kernel<kLayout, kRing>,
                              smem_for<kLayout>(rows, Mk, nblk, bs, n_split, split_len), blocks);
 }
 
-template <int kLayout>
+template <int kLayout, bool kRing = false>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* tbl, const void* mask, void* out, int B, int nblk,
            int bs, int H, int Hkv, int Kq, int Mk, long long blk_stride, long long h_stride,
            long long s_stride, long long sc_blk_stride, long long sc_h_stride, float scale,
            int n_split, int split_len, void* part, void* count, cudaStream_t stream) {
   using Chunk = bcg_tile::KVChunk<kLayout>;
-  cudaError_t err = set_smem<kLayout>();
+  cudaError_t err = set_smem<kLayout, kRing>();
   if (err != cudaSuccess) return (int)err;
   bcg_tile::SplitS split;
   if (n_split > 1) {
@@ -135,7 +140,7 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   }
   dim3 grid(Hkv, B, n_split);
   const size_t smem = smem_for<kLayout>(Kq * (H / Hkv), Mk, nblk, bs, n_split, split_len);
-  paged_kernel<kLayout><<<grid, bcg_tile::kThreads, smem, stream>>>(
+  paged_kernel<kLayout, kRing><<<grid, bcg_tile::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const typename Chunk::Elem*>(k),
       static_cast<const typename Chunk::Elem*>(v),
       static_cast<const typename Chunk::Scale*>(k_scale),
@@ -154,7 +159,9 @@ extern "C" int bcg_paged_attention_occupancy(int layout, int rows, int Mk, int n
                                              int n_split, int split_len, int* blocks) {
   switch (layout) {
     case bcg_tile::kBf16:
-      return occupancy<bcg_tile::kBf16>(rows, Mk, nblk, bs, n_split, split_len, blocks);
+      return rows > 16
+                 ? occupancy<bcg_tile::kBf16, true>(rows, Mk, nblk, bs, n_split, split_len, blocks)
+                 : occupancy<bcg_tile::kBf16>(rows, Mk, nblk, bs, n_split, split_len, blocks);
     case bcg_tile::kInt8:
       return occupancy<bcg_tile::kInt8>(rows, Mk, nblk, bs, n_split, split_len, blocks);
     case bcg_tile::kInt4:
@@ -181,6 +188,11 @@ extern "C" int bcg_paged_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   switch (layout) {
     case bcg_tile::kBf16:
+      if (Kq * (H / Hkv) > 16)
+        return launch<bcg_tile::kBf16, true>(q, k, v, k_scale, v_scale, tbl, mask, out, B, nblk,
+                                             bs, H, Hkv, Kq, Mk, blk_stride, h_stride, s_stride,
+                                             sc_blk_stride, sc_h_stride, scale, n_split,
+                                             split_len, part, count, st);
       return launch<bcg_tile::kBf16>(q, k, v, k_scale, v_scale, tbl, mask, out, B, nblk, bs, H,
                                      Hkv, Kq, Mk, blk_stride, h_stride, s_stride, sc_blk_stride,
                                      sc_h_stride, scale, n_split, split_len, part, count, st);

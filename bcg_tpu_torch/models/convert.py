@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from bcg_tpu_torch.models.configs import ModelSpec
-from bcg_tpu_torch.models.quantize import int4_group_for, int8_weight_layout
+from bcg_tpu_torch.models.quantize import int4_group_for, int4_weight_layout, int8_weight_layout
 from bcg_tpu_torch.models.transformer import param_plan
 
 NamedArrays = Union[Mapping[str, np.ndarray], Iterable[Tuple[str, np.ndarray]]]
@@ -53,7 +53,8 @@ def params_from_numpy(named_arrays: NamedArrays, spec: ModelSpec,
     into ``"layers.{i}.wq"``.  A quantized weight comes as its parts
     (``"layers.3.wq.q"`` + ``".scale"``, or ``".q4"`` + ``".gscale"``; a
     tied-embedding model may add a quantized ``"lm_head"``) and becomes a
-    dict under its logical name, each part in its own dtype.  Every plan
+    dict under its logical name, each part in its own dtype, ``q`` and
+    ``q4`` stored output-major as the port's quantizer stores them.  Every plan
     leaf must be present with its plan shape; unknown names raise.  Other
     leaves are cast to ``dtype`` (``None`` keeps each array's own type)."""
     items = named_arrays.items() if isinstance(named_arrays, Mapping) else named_arrays
@@ -92,6 +93,8 @@ def params_from_numpy(named_arrays: NamedArrays, spec: ModelSpec,
                 leaf[part] = t.to(device=device)
             if "q" in leaf:
                 leaf["q"] = int8_weight_layout(leaf["q"])
+            if "q4" in leaf:
+                leaf["q4"] = int4_weight_layout(leaf["q4"])
             out[name] = leaf
             continue
         t = _to_tensor(flat[name])

@@ -27,7 +27,9 @@ Weight packing: the B5 kernel's contract, defined with it in
 :mod:`bcg_tpu_torch.ops.w4_matmul` (packed along the CONTRACTION axis, so
 the product splits into ``x[:, :in/2]`` against the low nibbles and
 ``x[:, in/2:]`` against the high ones).  Groups of ``g = gcd(in/2, 128)``
-rows.
+rows.  Both quantized weights are stored output-major (the int8 ``q`` for
+cuBLAS's int8 kernel, the packed ``q4`` for B5's loads): the same values
+as the JAX package's, in another layout.
 
 **KV cache.** Packing contract of the int4 KV entries, identical to the
 JAX package's: symmetric absmax over the head dim (the last axis), range
@@ -48,7 +50,8 @@ import torch
 
 from bcg_tpu_torch.models.configs import DenseRoute, ModelSpec
 # unpack_int4 is the op's packing format, re-exported beside the quantizer.
-from bcg_tpu_torch.ops.w4_matmul import dequantize_int4, unpack_int4, w4a16_matmul  # noqa: F401
+from bcg_tpu_torch.ops.w4_matmul import (  # noqa: F401
+    dequantize_int4, int4_weight_layout, unpack_int4, w4a16_matmul)
 from bcg_tpu_torch.runtime import envflags
 
 QuantizedDense = Dict[str, torch.Tensor]
@@ -98,10 +101,11 @@ def int4_group_for(in_dim: int, group: int = INT4_GROUP) -> int:
 
 
 def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> QuantizedDense:
-    """``[in, out]`` bf16/f32 -> packed int4 ``q4`` ``[in/2, out]`` + bf16
-    per-(group, output) absmax ``gscale`` ``[in/g, out]`` (``absmax / 7``,
-    rounded to bf16 BEFORE the values are quantized against it, so the
-    half-step error bound holds for what dequantization reads)."""
+    """``[in, out]`` bf16/f32 -> packed int4 ``q4`` ``[in/2, out]`` (stored
+    output-major, ``int4_weight_layout``) + bf16 per-(group, output)
+    absmax ``gscale`` ``[in/g, out]`` (``absmax / 7``, rounded to bf16
+    BEFORE the values are quantized against it, so the half-step error
+    bound holds for what dequantization reads)."""
     in_dim, out_dim = w.shape
     g = int4_group_for(in_dim, group)
     grouped = w.float().reshape(in_dim // g, g, out_dim)
@@ -111,7 +115,7 @@ def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP) -> QuantizedD
     q = q.to(torch.int8).reshape(in_dim, out_dim)
     half = in_dim // 2
     packed = (q[:half] & 0x0F) | (q[half:] << 4)
-    return {"q4": packed.to(torch.int8), "gscale": scale.to(torch.bfloat16)}
+    return {"q4": int4_weight_layout(packed.to(torch.int8)), "gscale": scale.to(torch.bfloat16)}
 
 
 def is_quantized(w: DenseWeight) -> bool:

@@ -16,8 +16,9 @@ kernel or raises):
   query row) or ``[B, M, S]`` with ``M`` = 1 or the GQA group (query row
   g of a kv head reads mask row g).  Returns ``[B, H, Dh]``.
 * :func:`chunk_decode_attention` — a chunk of K positions over the bf16
-  cache (``csrc/chunk_decode_attention.cu``): q ``[B, K, H, Dh]``, mask
-  ``[B, K, S]``; returns ``[B, K, H, Dh]``.
+  cache (``csrc/chunk_decode_attention.cu``, the window split over S as
+  B3a's: :func:`chunk_split_plan`): q ``[B, K, H, Dh]``, mask ``[B, K,
+  S]``; returns ``[B, K, H, Dh]``.
 * :func:`decode_attention_int8` / :func:`chunk_decode_attention_int8` —
   the same two over the int8 cache (``csrc/decode_attention_int8.cu``,
   the window split over S as B3a's): k/v int8 ``[B, Hkv, S, Dh]`` with
@@ -26,7 +27,7 @@ kernel or raises):
 Every split launcher (these and the paged kernel,
 :mod:`bcg_tpu_torch.ops.paged_attention`) shares one planner
 (:func:`decode_split_plan`, at the kernel's own occupancy), one
-workspace per device (:class:`_SplitWorkspace`) and one plain version of
+workspace per device (:class:`SplitWorkspace`) and one plain version of
 the split arithmetic (:func:`decode_attention_split_plain`).
 """
 
@@ -51,9 +52,10 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, ctypes.c_float, _
 # layout, rows, mask rows, table blocks, block size, n_split, split_len ->
 # blocks per SM (the dense kernels take only rows and mask rows)
 _OCC_ARGTYPES = [_I] * 7 + [ctypes.POINTER(ctypes.c_int)]
-# q, k, v, mask, out, B, S, H, Hkv, Kq, Mk, kv batch/head/seq strides, scale, stream
+# q, k, v, mask, out, B, S, H, Hkv, Kq, Mk, kv batch/head/seq strides, scale,
+# n_split, split_len, partials, counters, stream
 _CHUNK_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
-                   ctypes.c_float, _P]
+                   ctypes.c_float, _I, _I, _P, _P, _P]
 # q, k, v, k_scale, v_scale, mask, out, B, S, H, Hkv, Kq, Mk,
 # kv batch/head/seq strides, scale batch/head strides, scale, n_split,
 # split_len, partials, counters, stream
@@ -231,18 +233,20 @@ def _check(q, k, v, m3):
         raise ValueError("decode_attention: tensors on different devices")
 
 
-class _SplitWorkspace:
-    """The split-S workspace on one device: f32 partials and the
-    per-(batch row, kv head) arrival counters, zeroed once when made.
-    One workspace serves every split launcher (B3a, the int8 forms, the
-    paged forms): they run in order on one stream, and each kernel
-    leaves the counters 0, so the buffers are reused by every call.  They
-    grow when a call needs more, never inside a CUDA graph capture (a
-    capture needs them large enough beforehand: one call of the same
-    shape outside it); the buffers a growth replaces stay allocated, so a
-    graph captured over them stays valid."""
+class SplitWorkspace:
+    """A split kernel's workspace on one device: f32 partials and arrival
+    counters, the counters zeroed once when made.  One workspace serves
+    every split-S launcher (B3a, B3a-chunk, the int8 forms, the paged
+    forms), another B5's split contraction: the calls of each run in
+    order on one stream, and each kernel leaves the counters 0, so the
+    buffers are reused by every call.  They grow when a call needs more,
+    never inside a CUDA graph capture (a capture needs them large enough
+    beforehand: one call of the same shape outside it); the buffers a
+    growth replaces stay allocated, so a graph captured over them stays
+    valid.  ``name`` names the kernels in the capture error."""
 
-    def __init__(self):
+    def __init__(self, name: str = "decode attention"):
+        self.name = name
         self.part = self.count = None
         self.retired = []
 
@@ -251,9 +255,9 @@ class _SplitWorkspace:
                  or self.count.numel() < n_count)
         if small:
             if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("decode attention: the split-S workspace is too small "
-                                   "for this call inside a CUDA graph capture; call it once "
-                                   "at this shape before capturing")
+                raise RuntimeError(f"{self.name}: the split workspace is too small for this "
+                                   "call inside a CUDA graph capture; call it once at this "
+                                   "shape before capturing")
             if self.part is not None:
                 self.retired.append((self.part, self.count))
             n_part = max(n_part, 1 if self.part is None else self.part.numel())
@@ -276,7 +280,7 @@ def split_buffers(q, Hkv: int, n_split: int, rows: int):
     B, Dh = q.shape[0], q.shape[-1]
     ws = _workspaces.get(q.device)
     if ws is None:
-        ws = _workspaces[q.device] = _SplitWorkspace()
+        ws = _workspaces[q.device] = SplitWorkspace()
     part, count = ws.get(q.device, B * Hkv * n_split * rows * (Dh + 2), B * Hkv)
     return part.data_ptr(), count.data_ptr()
 
@@ -422,18 +426,33 @@ def _check_tile(q, k, v, mask, S, Hkv, int8, scales=()):
                              f"contiguous, got {t.dtype} {tuple(t.shape)} {t.stride()}")
 
 
+def chunk_split_plan(q, k, mask):
+    """``(n_split, split_len)`` of the bf16 chunk kernel's call on these
+    wrapper inputs (q ``[B, K, H, Dh]``, k ``[B, S, Hkv, Dh]``, mask
+    ``[B, K, S]``)."""
+    return _split_for(q, k.shape[2], k.shape[1], _mask3(mask).shape[1],
+                      kernel="chunk_decode_attention")
+
+
 def chunk_decode_attention_cuda(q, k, v, mask, scale):
-    """Launch ``csrc/chunk_decode_attention.cu`` on the current stream."""
+    """Launch ``csrc/chunk_decode_attention.cu`` on the current stream: one
+    launch, the window split as :func:`decode_split_plan` says at the
+    kernel's occupancy."""
     B, Kq, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     _check_tile(q, k, v, mask, S, Hkv, int8=False)
     mask = mask.contiguous()
+    Mk = mask.shape[1] if mask.dim() == 3 else 1
     fn = _build.entry("chunk_decode_attention", "bcg_chunk_decode_attention",
                       _CHUNK_ARGTYPES)
+    rows = Kq * (H // Hkv)
+    n_split, split_len = _plan("chunk_decode_attention", 0, q.device.index, B, Hkv, S, rows,
+                               Mk)
+    part_ptr, count_ptr = split_buffers(q, Hkv, n_split, rows)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-             B, S, H, Hkv, Kq, mask.shape[1], k.stride(0), k.stride(2), k.stride(1),
-             float(scale), _build.stream_ptr(q))
+             B, S, H, Hkv, Kq, Mk, k.stride(0), k.stride(2), k.stride(1),
+             float(scale), n_split, split_len, part_ptr, count_ptr, _build.stream_ptr(q))
     _build.check(err, "chunk_decode_attention")
     chunk_decode_attention.launches += 1
     return out

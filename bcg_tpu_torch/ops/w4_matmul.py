@@ -14,27 +14,52 @@ row ``i`` in its low nibble and row ``D/2 + i`` in its high nibble, and
 the kernel's launches.
 
 The kernel takes 1 to :data:`MAX_ROWS` rows, groups that are multiples of
-32 and ``F`` a multiple of 16; where the output has too few 128-column
-blocks to fill the card it splits the contraction across blocks
-(:func:`split_plan`).
+32 and ``F`` a multiple of 16, with ``q4`` stored output-major
+(:func:`int4_weight_layout`: the same logical tensor, laid out as the
+transpose of a contiguous ``[F, D/2]``, so that a column's packed rows
+are contiguous); ``models/quantize`` and ``models/convert`` emit that
+layout.  :func:`split_plan` sizes the launch; where it splits the
+contraction across blocks, the kernel's partials and arrival counters
+live in a workspace the wrapper owns (:func:`workspace`), grown outside
+CUDA graph capture only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple
 
 import torch
 
 from bcg_tpu_torch.ops import _build
+from bcg_tpu_torch.ops.decode_attention import SplitWorkspace
 
 MAX_ROWS = 256       # rows the kernel takes (the dense dispatch's decode shapes)
-_BN, _KT = 128, 32   # csrc/w4a16.cu: output columns per block, packed rows per stage
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# x, q4, gscale, out, ws, M, P, F, group, splits, kt_per_split, mt, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-_SMS: Dict[int, int] = {}
+# csrc/w4a16.cu: threads (warps) a block, packed rows of a warp step,
+# the ring (four stages of each thread's 2 x 16 weight bytes and four
+# scale words), a warp's staged accumulators per n-tile.
+_THREADS, _WARPS, _CHUNK = 512, 16, 64
+_RING_BYTES = 4 * _THREADS * (2 * 16 + 4 * 4)
+_RED_BYTES = 8 * 20 * 4
+SMEM_BUDGET = 225 * 1024   # dynamic shared memory a launch may take (the card's 227 KB opt-in)
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# x, q4, gscale, out, part, count, M, P, F, ng, gmagic, gshift, nt, wc,
+# splits, kb, gx, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _I, _I, _I, _I, _P]
+
+
+def int4_weight_layout(q4: torch.Tensor) -> torch.Tensor:
+    """A packed int4 weight ``[D/2, F]`` as the kernel takes it: the same
+    values, laid out output-major (the transpose of a contiguous ``[F,
+    D/2]``), so that the 16 bytes a thread copies are 16 packed rows of one
+    output column."""
+    return q4.t().contiguous().t()
+
+
+def is_kernel_layout(q4: torch.Tensor) -> bool:
+    return q4.dim() == 2 and q4.stride() == (1, q4.shape[0])
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -64,18 +89,89 @@ def w4a16_matmul_plain(x, q4, gscale):
     return x.to(torch.bfloat16).float() @ w.float()
 
 
-def split_plan(M: int, P: int, F: int, sms: int) -> Tuple[int, int, int]:
-    """``(mt, splits, kt_per_split)`` of a launch: m-tiles of 16 rows per
-    block (1, 2 or 4), and the contraction split into ``splits`` ranges of
-    ``kt_per_split`` 32-row stages each, so that the grid holds about two
-    blocks per SM where the output alone gives fewer (a split keeps at
-    least 4 stages)."""
-    mt = 1 if M <= 16 else 2 if M <= 32 else 4
-    base = -(-F // _BN) * -(-M // (16 * mt))
-    nkt = P // _KT
-    splits = max(1, min(-(-2 * sms // base), nkt // 4))
-    kt_per_split = -(-nkt // splits)
-    return mt, -(-nkt // kt_per_split), kt_per_split
+class W4Plan(NamedTuple):
+    """A launch of ``csrc/w4a16.cu``: ``nt`` n-tiles of 8 rows a row block
+    (``mblocks`` row blocks), ``wc`` column warps (tiles of ``16 * wc``
+    output columns; the other ``16 / wc`` warps of a column share its
+    packed rows), the contraction cut into ``splits`` ranges of ``kb``
+    packed rows, ``gx`` blocks along the columns (each walking every
+    ``gx``-th tile)."""
+    nt: int
+    wc: int
+    splits: int
+    kb: int
+    gx: int
+    mblocks: int
+
+
+def smem_bytes(nt: int, wc: int, rows: int, kb: int) -> int:
+    """Dynamic shared memory of a launch: the ring, the accumulators the
+    warps past each column's first stage, and x's ``rows`` rows over
+    ``kb`` packed rows of each half (csrc/w4a16.cu)."""
+    return _RING_BYTES + (_WARPS - wc) * nt * _RED_BYTES + rows * (2 * kb + 4) * 2
+
+
+# The planner's cost model, µs, fitted to graph-timed sweeps of every plan
+# at bench-8b's shapes (``tools/w4_kernels.py --sweep``; one block an
+# SM): the weight bytes at the card's rate, or the busiest block's at the
+# rate one SM streams them, whichever is longer; every block's x from L2;
+# a block barrier a tile (longer with more k-groups to add); and for a
+# split, each tile's merge (the counter's round trip, and the last
+# block's read of every split's partial).
+_HBM_BYTES_PER_US = 3.35e6
+_SM_BYTES_PER_US = 16e3
+_L2_BYTES_PER_US = 5e6
+_MERGE_BYTES_PER_US = 50e3
+_FLUSH_US, _FLUSH_US_PER_KGROUP = 1.0, 0.1
+_MERGE_US = 1.5
+
+
+def split_plan(M: int, P: int, F: int, sms: int) -> W4Plan:
+    """The launch for x ``[M, 2P]`` times a ``[P, F]`` packed weight on
+    ``sms`` SMs: rows in n-tiles of 8 (up to 64 a row block), then the
+    column warps and contraction splits of least modelled time (the cost
+    model above), among those whose x fits shared memory.  One block an
+    SM: more tiles than SMs are walked by each block in turn, fewer are
+    split along the contraction where that pays for its merge."""
+    nt = 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+    mblocks = -(-M // (8 * nt))
+    rows = min(M, 8 * nt)
+    nchunk = -(-P // _CHUNK)
+    best = None
+    for wc in (16, 8, 4, 2, 1):
+        bn = 16 * wc
+        tiles = -(-F // bn)
+        seen = set()
+        for want in range(1, nchunk + 1):
+            cps = -(-nchunk // want)                 # chunks a split
+            splits = -(-nchunk // cps)
+            kb = cps * _CHUNK
+            if splits in seen or smem_bytes(nt, wc, rows, kb) > SMEM_BUDGET:
+                continue
+            seen.add(splits)
+            per_row = splits * mblocks
+            gx = tiles if tiles * per_row <= sms else max(1, sms // per_row)
+            rounds = -(-tiles // gx)                  # tiles the busiest block walks
+            cost = (max(P * F * mblocks / _HBM_BYTES_PER_US, rounds * bn * kb / _SM_BYTES_PER_US)
+                    + gx * per_row * rows * 4 * kb / _L2_BYTES_PER_US
+                    + rounds * (_FLUSH_US + _FLUSH_US_PER_KGROUP * (_WARPS // wc)
+                                + (splits > 1) * (_MERGE_US + splits * rows * bn * 4
+                                                  / _MERGE_BYTES_PER_US)))
+            if best is None or cost < best[0]:
+                best = (cost, W4Plan(nt, wc, splits, kb, gx, mblocks))
+    if best is None:
+        raise ValueError(f"w4a16: no launch fits shared memory for {M} rows over P = {P}")
+    return best[1]
+
+
+def group_magic(group: int):
+    """``(gmagic, gshift)`` with ``(umulhi(r, gmagic) + r) >> gshift ==
+    r // group`` for every packed row ``r < 2**31`` (round-up
+    multiply-shift division, Granlund and Montgomery): the kernel's group
+    of a row without a divide."""
+    shift = max(0, math.ceil(math.log2(group)))
+    magic = (2 ** 32 * (2 ** shift - group)) // group + 1
+    return magic, shift
 
 
 def _check(x, q4, gscale):
@@ -90,35 +186,61 @@ def _check(x, q4, gscale):
     ng = gscale.shape[0] // 2
     if not 1 <= M <= MAX_ROWS:
         raise ValueError(f"w4a16 kernel takes 1 to {MAX_ROWS} rows, got {M}")
-    if P % ng or (P // ng) % _KT:
-        raise ValueError(f"w4a16 kernel takes groups that are multiples of {_KT} rows, "
+    if P % ng or (P // ng) % 32:
+        raise ValueError(f"w4a16 kernel takes groups that are multiples of 32 rows, "
                          f"got {P}/{ng}")
     if F % 16:
         raise ValueError(f"w4a16 kernel takes an output width that is a multiple of 16, got {F}")
+    if not is_kernel_layout(q4):
+        raise ValueError(f"w4a16 kernel takes q4 output-major (int4_weight_layout: strides "
+                         f"(1, {P})), got strides {q4.stride()}")
     for t in (x, q4, gscale):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("w4a16 kernel takes contiguous, 16-byte aligned tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("w4a16 kernel takes 16-byte aligned tensors")
+    if not (x.is_contiguous() and gscale.is_contiguous()):
+        raise ValueError("w4a16 kernel takes contiguous x and gscale")
     if not (x.device == q4.device == gscale.device):
         raise ValueError("w4a16: tensors on different devices")
 
 
-def w4a16_matmul_cuda(x, q4, gscale):
-    """Launch ``csrc/w4a16.cu`` on the current stream (``x`` ``[M, D]``)."""
+_workspaces: Dict[torch.device, SplitWorkspace] = {}
+
+
+def workspace(device, plan: W4Plan, M: int, F: int):
+    """Pointers to the partials and counters of a launch (0, 0 for one
+    split): ``splits * M * F`` floats and a counter per (row block,
+    tile)."""
+    if plan.splits == 1:
+        return 0, 0
+    ws = _workspaces.get(device)
+    if ws is None:
+        ws = _workspaces[device] = SplitWorkspace("w4a16")
+    part, count = ws.get(device, plan.splits * M * F, plan.mblocks * -(-F // (16 * plan.wc)))
+    return part.data_ptr(), count.data_ptr()
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_for(M: int, P: int, F: int, dev: int) -> W4Plan:
+    return split_plan(M, P, F, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def w4a16_matmul_cuda(x, q4, gscale, plan: W4Plan = None):
+    """Launch ``csrc/w4a16.cu`` on the current stream (``x`` ``[M, D]``):
+    one launch, at :func:`split_plan`'s plan unless ``plan`` is given."""
     x = x.to(torch.bfloat16).contiguous()
     _check(x, q4, gscale)
     M, P, F = x.shape[0], q4.shape[0], q4.shape[1]
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    sms = _SMS.get(dev)
-    if sms is None:
-        sms = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    mt, splits, kt_per_split = split_plan(M, P, F, sms)
+    if plan is None:
+        plan = _plan_for(M, P, F, dev)
+    ng = gscale.shape[0] // 2
+    gmagic, gshift = group_magic(P // ng)
+    part_ptr, count_ptr = workspace(x.device, plan, M, F)
     out = torch.empty((M, F), dtype=torch.float32, device=x.device)
-    ws = (torch.empty((splits, M, F), dtype=torch.float32, device=x.device)
-          if splits > 1 else out)
     fn = _build.entry("w4a16", "bcg_w4a16", _ARGTYPES)
-    err = fn(x.data_ptr(), q4.data_ptr(), gscale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-             M, P, F, P // (gscale.shape[0] // 2), splits, kt_per_split, mt,
-             _build.stream_ptr(x))
+    err = fn(x.data_ptr(), q4.data_ptr(), gscale.data_ptr(), out.data_ptr(), part_ptr,
+             count_ptr, M, P, F, ng, gmagic, gshift, plan.nt, plan.wc, plan.splits, plan.kb,
+             plan.gx, _build.stream_ptr(x))
     _build.check(err, "w4a16")
     w4a16_matmul.launches += 1
     return out

@@ -1,8 +1,9 @@
 """The attention kernels against their plain versions at bench-8b's game
 shapes with synthetic inputs, in one process: B1 (flash prefill) and B3a
 (bf16 decode step) also against ``scaled_dot_product_attention``, and the
-split forms of B3b (int8 decode: single step and chunk) and B4 (paged
-decode over bf16, int8 and int4 pools: single step and chunk).
+split forms of B3a-chunk (bf16 chunk), B3b (int8 decode: single step and
+chunk) and B4 (paged decode over bf16, int8 and int4 pools: single step
+and chunk).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -12,10 +13,11 @@ Inputs (made on the card from the seed): 32 query heads over 8 kv heads
 of 128 dims; B1 at 10 rows of a 4096-position left-padded causal suffix
 over a 768-position left-padded cached prefix (S 4864, the shape of the
 sampled game's largest prefill); B3a at 10 rows over a 5065-slot window
-with a left pad per row; B3b and B4 at 10 rows over a 5072-slot window
-with a left pad per row (B4: a pool of shuffled blocks of 16, one table
-row each), the chunks at their paths' K (B3b 4; B4 bf16 5, int8 5, int4
-4, each chunk position one more slot than the one before).  K/V of the
+with a left pad per row; B3a-chunk, B3b and B4 at 10 rows over a
+5072-slot window with a left pad per row (B4: a pool of shuffled blocks
+of 16, one table row each), the chunks at their paths' K (B3a-chunk 5;
+B3b 4; B4 bf16 5, int8 5, int4 4, each chunk position one more slot than
+the one before).  K/V of the
 bf16 cache are strided views of one [B, S, 2, Hkv, Dh] buffer, as the
 cache holds them.  For each kernel: the relative L2 error per query row
 and head and per batch row and head against the plain version (limits
@@ -196,8 +198,10 @@ def run_decode(gen, reps):
                 bound_by=by)
 
 
-# B3b's and B4's split forms: (name, cache, K), K = 0 for the single step.
-SPLIT_FORMS = [("decode_attention_int8", "dense-int8", 0),
+# B3a-chunk's, B3b's and B4's split forms: (name, cache, K), K = 0 for
+# the single step.
+SPLIT_FORMS = [("chunk_decode_attention", "dense-bf16", 5),
+               ("decode_attention_int8", "dense-int8", 0),
                ("chunk_decode_attention_int8", "dense-int8", 4),
                ("paged_decode_attention_bf16", "bf16", 0),
                ("paged_chunk_attention_bf16", "bf16", 5),
@@ -208,8 +212,9 @@ SPLIT_FORMS = [("decode_attention_int8", "dense-int8", 0),
 
 
 def split_inputs(gen, cache, K, B=10, S=5072, H=32, Hkv=8, Dh=128, bs=16):
-    """q [B, max(K, 1), H, Dh], the cache (int8 k/v/scales, or a paged
-    entry over a pool of B * S / bs shuffled blocks and block 0) and the
+    """q [B, max(K, 1), H, Dh], the cache (bf16 k/v as strided views of
+    one [B, S, 2, Hkv, Dh] buffer, int8 k/v/scales, or a paged entry over
+    a pool of B * S / bs shuffled blocks and block 0) and the
     mask [B, max(K, 1), S]: a left pad per row, chunk position k
     attending one more slot than k - 1."""
     import torch
@@ -225,6 +230,9 @@ def split_inputs(gen, cache, K, B=10, S=5072, H=32, Hkv=8, Dh=128, bs=16):
     s = torch.arange(S, device=dev)
     end = S - Kq + 1 + torch.arange(Kq, device=dev)                   # [Kq]
     mask = (s[None, None] >= pad[:, None, None]) & (s[None, None] < end[None, :, None])
+    if cache == "dense-bf16":
+        kv = torch.randn((B, S, 2, Hkv, Dh), generator=gen, device=dev).to(torch.bfloat16)
+        return q, (kv[:, :, 0], kv[:, :, 1]), mask
     if cache == "dense-int8":
         x = torch.randn((2, B, Hkv, S, Dh), generator=gen, device=dev)
         vals, sc = da.quantize_kv(x)
@@ -255,7 +263,15 @@ def run_split(gen, reps, name, cache, K):
     q, kv, mask = split_inputs(gen, cache, K)
     scale = 128 ** -0.5
     B, Kq, H, Dh = q.shape
-    if cache == "dense-int8":
+    if cache == "dense-bf16":
+        launch, plain = da.chunk_decode_attention_cuda, da.chunk_decode_attention_plain
+        call = lambda: launch(q, *kv, mask, scale)   # noqa: E731
+        ref = plain(q, *kv, mask, scale)
+        plan = da.chunk_split_plan(q, kv[0], mask)
+        split_ref = da.decode_attention_split_plain(q, *kv, mask, scale, *plan)
+        S, Hkv = kv[0].shape[1], kv[0].shape[2]
+        byts = mask.any(1).sum().item() * Hkv * 2 * Dh * 2
+    elif cache == "dense-int8":
         qq, m = (q[:, 0], mask[:, 0]) if K == 0 else (q, mask)
         launch, plain = getattr(da, f"{name}_cuda"), getattr(da, f"{name}_plain")
         call = lambda: launch(qq, *kv, m, scale)   # noqa: E731

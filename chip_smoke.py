@@ -80,17 +80,21 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    against the plain version printed; a shape this torch build refuses
    prints the error and keeps ``library_ms`` None) and ``torch.matmul``
    over the already dequantized bf16 weight timed beside it (another
-   function: the bf16 product int4 has to beat); its times come from
-   CUDA graphs of calls (``graph_ms``), as do B3a's and its SDPA
-   yardstick's (a call of tens of microseconds, whose event-timed single
-   call, printed beside it, counts the wrapper's host time).  The split
-   kernels — B3a, the two int8 forms (B3b) and the six paged forms (B4)
-   — are also held to the plain version of their split arithmetic at the
-   plan the kernel used (``split``: the split count and positions per
-   split, also in the kernels line), and the int8 and paged forms print
-   a ``graph_ms`` (a CUDA graph of calls over enough copies of the
-   captured inputs to read twice the L2) beside their event-timed
-   ``ms``, both also in the kernels line.  Attention errors are
+   function: the bf16 product int4 has to beat); and at each layer shape
+   the route's crossover: B5 against the weight dequantized whole and
+   one bf16 product, the dequantization counted, at 16 to 256 rows
+   (``quantize.W4_KERNEL_MAX_ROWS`` sits where the second starts to
+   win).  Its times come from CUDA graphs of calls (``graph_ms``), as do
+   B3a's and its SDPA yardstick's (a call of tens of microseconds, whose
+   event-timed single call, printed beside it, counts the wrapper's host
+   time).  The split kernels — B3a, B3a-chunk, the two int8 forms (B3b)
+   and the six paged forms (B4) — are also held to the plain version of
+   their split arithmetic at the plan the kernel used (``split``: the
+   split count and positions per split, also in the kernels line), and
+   B3a-chunk, the int8 and the paged forms print a ``graph_ms`` (a CUDA
+   graph of calls over enough copies of the captured inputs to read twice
+   the L2) beside their event-timed ``ms``, both also in the kernels
+   line.  Attention errors are
    held relative to the reference's own size, and the same measure is
    printed for the plain version with one tile of 64 live keys dropped,
    the size of error the limits must catch.
@@ -674,7 +678,7 @@ KINDS = (
     ("decode_int8_kernel", "decode_attention_int8"),
     ("guided_sampler_kernel", "guided_sampler"),
     ("paged_kernel", "paged_attention"),
-    ("w4a16_kernel", "w4a16_matmul"), ("w4a16_reduce", "w4a16_matmul"),
+    ("w4a16_kernel", "w4a16_matmul"),
     ("s8s8", "int8_gemm"), ("i8i8", "int8_gemm"), ("i8i32", "int8_gemm"), ("imma", "int8_gemm"),
     ("int8gemm", "int8_gemm"), ("_s8_", "int8_gemm"), ("igemm", "int8_gemm"),
     ("shift", "dequant"),
@@ -1004,25 +1008,54 @@ def w4_line(x, q4, gscale):
                 shape=[M, D, F], group=group)
 
 
+ROUTE_ROWS = (16, 32, 64, 128, 256)
+
+
+def w4_route(x, q4, gscale):
+    """Where B5 stops paying (``quantize.W4_KERNEL_MAX_ROWS``): at each
+    row count of ``ROUTE_ROWS`` (the captured rows repeated), B5 against
+    ``quantize.dense``'s other route, the weight dequantized whole and one
+    bf16 product, the dequantization counted; both in CUDA graphs over
+    two weight copies.  Returns one dict a row count."""
+    import torch
+
+    from bcg_tpu_torch.models.quantize import dequantize_int4
+    from bcg_tpu_torch.ops import w4_matmul as w4
+
+    ws = [(q4, gscale), (q4.clone(), gscale.clone())]
+    out = []
+    for M in ROUTE_ROWS:
+        xm = x[torch.arange(M, device=x.device) % x.shape[0]].contiguous()
+        b5 = graph_ms([lambda q=q, g=g: w4.w4a16_matmul_cuda(xm, q, g) for q, g in ws], 20)
+        route = graph_ms([lambda q=q, g=g: xm @ dequantize_int4({"q4": q, "gscale": g})
+                          for q, g in ws], 4)
+        out.append(dict(M=M, b5_ms=b5, dequantize_matmul_ms=route))
+    del ws
+    return out
+
+
 def w4a16_check(captured):
     """B5 at P9's largest call (the LM head at M = 10), then at one
     captured weight of each layer shape with M = 1, 10, 50 and 256 rows
-    (the captured rows repeated).  ``captured``: P9's captured inputs."""
+    (the captured rows repeated), and each layer shape's route crossover
+    (``w4_route``).  ``captured``: P9's captured inputs."""
     import torch
 
     x, q4, gscale = captured["w4a16_matmul"]
     head = w4_line(x, q4, gscale)
-    extra = []
+    extra, routes = [], []
     shapes = sorted(k[1] for k in captured if isinstance(k, tuple))
     for shape in shapes:
         xc, q, g = captured[("w4a16_matmul", shape)]
         for M in (1, 10, 50, 256):
             xm = xc[torch.arange(M, device=xc.device) % xc.shape[0]].contiguous()
             extra.append(w4_line(xm, q, g))
+        if shape[1] != q4.shape[1]:             # the LM head never takes prefill rows here
+            routes.append(dict(shape=[2 * shape[0], shape[1]], rows=w4_route(xc, q, g)))
         torch.cuda.empty_cache()
     return dict(replaces="bcg_tpu/ops/w4_matmul.py:37 _w4_kernel (pallas_call :116 of "
                          "_w4a16_2d :107, via w4a16_matmul :150)",
-                **head, shapes=extra)
+                **head, shapes=extra, routes=routes)
 
 
 def phase_kernels(inputs, counts):
@@ -1031,6 +1064,7 @@ def phase_kernels(inputs, counts):
     import torch
     import torch.nn.functional as F
 
+    from bcg_tpu_torch.models.quantize import W4_KERNEL_MAX_ROWS
     from bcg_tpu_torch.ops import attention, decode_attention as da, guided_sampler
 
     results = []
@@ -1117,11 +1151,15 @@ def phase_kernels(inputs, counts):
 
     def chunk():
         q, k, v, mask, scale = inputs["P3"]["chunk_decode_attention"]
+        split = list(da.chunk_split_plan(q, k, mask))
         out = da.chunk_decode_attention_cuda(q, k, v, mask, scale)
         torch.cuda.synchronize()
         ref = da.chunk_decode_attention_plain(q, k, v, mask, scale)
         dropped = da.chunk_decode_attention_plain(q, k, v, drop_live_keys(mask), scale)
         check = attention_check(out, ref, (1, 3), dropped)
+        split_check(check, out, da.decode_attention_split_plain(q, k, v, mask, scale, *split),
+                    (1, 3))
+        del out, ref, dropped
         ms = time_ms(lambda: da.chunk_decode_attention_cuda(q, k, v, mask, scale), reps=50)
         plain_ms = time_ms(lambda: da.chunk_decode_attention_plain(q, k, v, mask, scale))
         B, K, H, Dh = q.shape
@@ -1131,16 +1169,20 @@ def phase_kernels(inputs, counts):
         vt = v.transpose(1, 2).repeat_interleave(group, 1)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), kt, vt, attn_mask=mask[:, None], scale=scale), reps=50)
+        del kt, vt
         # Slots any chunk row of a batch row attends, read once; q, out
         # (bf16) and the [B, K, S] mask once.
         slots = mask.any(1).sum().item()
-        byts = 2 * (2 * slots * Hkv * Dh) + 2 * 2 * q.numel() + mask.numel()
-        bms, by = bound(byts, 4 * Dh * H * mask.sum().item())
+        kv_bytes = 2 * (2 * slots * Hkv * Dh)
+        g_ms = cold_graph_ms(da.chunk_decode_attention_cuda, (q, k, v, mask, scale), kv_bytes)
+        bms, by = bound(kv_bytes + 2 * 2 * q.numel() + mask.numel(),
+                        4 * Dh * H * mask.sum().item())
         return dict(common("chunk_decode_attention"),
                     replaces="bcg_tpu/ops/decode_attention.py:381 _decode_kernel (chunk "
                              "pallas_call of chunk_decode_attention :308)",
-                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib_ms, shape=[B, K, H, Hkv, S], valid_slots=slots)
+                    **check, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms, split=split, shape=[B, K, H, Hkv, S],
+                    valid_slots=slots)
 
     def int8_forms(name, path):
         q, k, v, ks, vs, mask, scale = inputs[path][name]
@@ -1333,6 +1375,15 @@ def phase_kernels(inputs, counts):
                 if not e["ok"]:
                     errors.append(f"w4a16_matmul at {e['shape']}: disagrees with its plain "
                                   "version")
+            for rt in r["routes"]:
+                # The fewest rows at which the dequantize route is faster (None: never).
+                cross = next((e["M"] for e in rt["rows"]
+                              if e["dequantize_matmul_ms"] < e["b5_ms"]), None)
+                print(f"kernel w4a16_matmul route: shape[D,F]={rt['shape']} crossover_rows="
+                      f"{cross} (W4_KERNEL_MAX_ROWS {W4_KERNEL_MAX_ROWS}) "
+                      + " ".join(f"M={e['M']}: b5_ms={e['b5_ms']:.4f} dequantize_matmul_ms="
+                                 f"{e['dequantize_matmul_ms']:.4f}" for e in rt["rows"]),
+                      flush=True)
             continue
         if "rel_row" in r:
             err = (f"max_abs_err={r['max_abs_err']:.4g} ref_rms={r['ref_rms']:.4g} "

@@ -378,13 +378,15 @@ def test_paged_kernel_equals_dense_kernel_on_gathered_view(dev, layout):
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
 
 
-# The eight split forms of the int8 kernel (B3b) and the paged kernel
-# (B4): (cache, K), K = 0 for the single step; the chunks at their home
-# paths' K (fast-forward 4, speculative verify 5).
-SPLIT_FORMS = [("dense-int8", 0), ("dense-int8", 4), ("bf16", 0), ("bf16", 5), ("int8", 0),
-               ("int8", 5), ("int4", 0), ("int4", 4)]
-SPLIT_FORM_IDS = ["b3b-step", "b3b-chunk", "b4-bf16-step", "b4-bf16-chunk", "b4-int8-step",
-                  "b4-int8-chunk", "b4-int4-step", "b4-int4-chunk"]
+# The split forms of the bf16 chunk kernel (B3a-chunk: R = 16, one
+# m-tile, and R = 20, two m-tiles and the bf16 ring), the int8 kernel
+# (B3b) and the paged kernel (B4): (cache, K), K = 0 for the single step;
+# the chunks at their home paths' K (fast-forward 4, speculative verify 5).
+SPLIT_FORMS = [("dense-bf16", 4), ("dense-bf16", 5), ("dense-int8", 0), ("dense-int8", 4),
+               ("bf16", 0), ("bf16", 5), ("int8", 0), ("int8", 5), ("int4", 0), ("int4", 4)]
+SPLIT_FORM_IDS = ["b3a-chunk-r16", "b3a-chunk-r20", "b3b-step", "b3b-chunk", "b4-bf16-step",
+                  "b4-bf16-chunk", "b4-int8-step", "b4-int8-chunk", "b4-int4-step",
+                  "b4-int4-chunk"]
 
 
 def _split_inputs(dev, rng, form, K, B, S):
@@ -394,8 +396,9 @@ def _split_inputs(dev, rng, form, K, B, S):
     H, Hkv, Dh = 32, 8, 128
     q = torch.from_numpy(rng.standard_normal((B, max(K, 1), H, Dh), np.float32))
     q = q.to(dev, torch.bfloat16)
-    if form == "dense-int8":
-        return q, _cache_views(rng, dev, B, S, Hkv, Dh, int8=True), np.ones((B, S), bool)
+    if form.startswith("dense"):
+        return q, _cache_views(rng, dev, B, S, Hkv, Dh, int8=form == "dense-int8"), \
+            np.ones((B, S), bool)
     entry, live = _paged_entry(rng, dev, form, B, -(-S // 16), 16, Hkv, Dh)
     return q, entry, live
 
@@ -406,6 +409,17 @@ def _split_calls(form, K, q, cache, m):
     (its ``.launches``) for one split form; m [B, max(K, 1), S] numpy."""
     scale = 128 ** -0.5
     mask = torch.from_numpy(m[:, 0] if K == 0 else m).to(q.device)
+    if form == "dense-bf16":
+        k, v = cache[:2]
+        da = decode_attention
+        args = (q, k, v, mask, scale)
+
+        def split(n, length):
+            return da.decode_attention_split_plain(q, k, v, mask, scale, n, length)
+
+        return (lambda: da.chunk_decode_attention(*args)), \
+            (lambda: da.chunk_decode_attention_plain(*args)), split, \
+            da.chunk_split_plan(q, k, mask), da.chunk_decode_attention
     if form == "dense-int8":
         k, v, ks, vs = cache
         qq = q[:, 0] if K == 0 else q
@@ -433,7 +447,7 @@ def _split_calls(form, K, q, cache, m):
 
 
 def _launches(fn, form):
-    return fn.launches if form == "dense-int8" else fn.launches[form]
+    return fn.launches if form.startswith("dense") else fn.launches[form]
 
 
 @pytest.mark.parametrize("case", ["bench", "ragged-many", "live-first-64", "one-split"])
@@ -631,12 +645,15 @@ def test_wrappers_raise_on_cuda_inputs_they_do_not_take(dev):
 # ------------------------------------------------------------ weights (B5)
 
 # (in, out) of the int4 weights the engine serves: tiny-test (groups of 32
-# and 64, F = 32), tiny-dh128 and bench-8b (groups of 128; F = 1024 splits
-# the contraction across blocks).
+# and 64, F = 32), tiny-dh128 and bench-8b (groups of 128; w_down's
+# contraction is split across blocks); and two ragged ones: 96 packed
+# rows in groups of 32 (a half chunk of 64 at the end), and an output
+# width that ends a column tile early.
 W4_SHAPES = [(64, 64), (64, 32), (128, 64), (256, 256), (512, 256),
-             (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)]
+             (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096), (192, 48),
+             (4096, 1040)]
 W4_IDS = ["tiny-wq-g32", "tiny-wk-F32", "tiny-wdown-g64", "dh128-wq", "dh128-wdown",
-          "8b-wq", "8b-wk", "8b-wgate", "8b-wdown"]
+          "8b-wq", "8b-wk", "8b-wgate", "8b-wdown", "ragged-P96-g32", "ragged-F1040"]
 # Relative L2 error per output row, kernel vs plain version.  Both take
 # the same bf16 products (x and the bf16-rounded dequantized weight) and
 # sum them in f32 in another order: ~1e-6 at these depths.  A wrong nibble,
@@ -668,6 +685,97 @@ def test_w4a16_kernel_matches_plain(dev, shape, M):
     assert out.dtype == torch.float32 and out.shape == (M, shape[1])
     assert torch.isfinite(out).all()
     assert _rel_rows(out, ref) <= W4_REL_ROW_TOL
+
+
+def _w4_case(dev, D, F, M, seed):
+    from bcg_tpu_torch.models.quantize import quantize_weight_int4
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = quantize_weight_int4((torch.randn((D, F), generator=gen, device=dev)
+                              / D ** 0.5).to(torch.bfloat16))
+    x = torch.randn((M, D), generator=gen, device=dev).to(torch.bfloat16)
+    return x, q["q4"], q["gscale"]
+
+
+# Plans the planner may not pick for these shapes: one k-group a column
+# (wc 16), sixteen (wc 1), contraction splits with a ragged last one, and
+# fewer blocks than tiles (each block walking several), at M = 10 and at
+# M = 70 (two row blocks of 64).
+W4_PLANS = [(16, 512, 3), (1, 128, 64), (4, 256, 5), (8, 128, 1), (2, 64, 7)]
+
+
+@pytest.mark.parametrize("M", [10, 70])
+@pytest.mark.parametrize("wc,kb,gx", W4_PLANS, ids=["wc16-2split-walk", "wc1-5split",
+                                                     "wc4-3split-walk", "wc8-one-block",
+                                                     "wc2-9split-walk"])
+def test_w4a16_kernel_matches_plain_at_any_plan(dev, wc, kb, gx, M):
+    from bcg_tpu_torch.ops import w4_matmul
+
+    D, F = 1152, 1024                                   # P = 576: 9 chunks of 64
+    x, q4, gs = _w4_case(dev, D, F, M, wc + kb + M)
+    nt = 2 if M <= 16 else 8
+    mblocks = -(-M // (8 * nt))
+    splits = -(-(D // 2) // kb)
+    plan = w4_matmul.W4Plan(nt, wc, splits, kb, gx, mblocks)
+    out = w4_matmul.w4a16_matmul_cuda(x, q4, gs, plan)
+    torch.cuda.synchronize()
+    assert _rel_rows(out, w4_matmul.w4a16_matmul_plain(x, q4, gs)) <= W4_REL_ROW_TOL
+    ws = w4_matmul._workspaces.get(x.device)
+    assert ws is None or int(ws.count.abs().sum()) == 0
+
+
+def test_w4a16_kernel_is_deterministic_and_replays_in_a_graph(dev):
+    """Two calls are bit-identical (the last block of a tile adds the
+    splits in split order), one call is one launch, a captured call
+    replays to the same bits, and the workspace refuses to grow inside a
+    capture; the arrival counters are 0 after it all."""
+    from bcg_tpu_torch.ops import w4_matmul
+
+    x, q4, gs = _w4_case(dev, 12288, 4096, 10, 21)      # bench-8b w_down: split
+    plan = w4_matmul._plan_for(10, 6144, 4096, x.device.index)
+    assert plan.splits > 1
+    before = w4_matmul.w4a16_matmul.launches
+    first = w4_matmul.w4a16_matmul(x, q4, gs)
+    second = w4_matmul.w4a16_matmul(x, q4, gs)
+    torch.cuda.synchronize()
+    assert w4_matmul.w4a16_matmul.launches == before + 2
+    assert torch.equal(first, second)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w4_matmul.w4a16_matmul(x, q4, gs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = w4_matmul.w4a16_matmul(x, q4, gs)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+    # A call needing a larger workspace than any before it (256 rows in 96
+    # splits: 96 * 256 * 4096 partials), inside a capture.
+    x256 = x[torch.arange(256, device=dev) % 10].contiguous()
+    big = w4_matmul.W4Plan(8, 16, 96, 64, 1, 4)
+    ws = w4_matmul._workspaces[x.device]
+    assert ws.part.numel() < 96 * 256 * 4096
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            w4_matmul.w4a16_matmul_cuda(x256, q4, gs, big)
+    torch.cuda.synchronize()
+    assert int(ws.count.abs().sum()) == 0
+
+
+def test_w4a16_kernel_takes_only_its_layout(dev):
+    from bcg_tpu_torch.ops import w4_matmul
+
+    x, q4, gs = _w4_case(dev, 256, 64, 4, 2)
+    with pytest.raises(ValueError, match="output-major"):
+        w4_matmul.w4a16_matmul(x, q4.contiguous(), gs)
 
 
 def test_w4a16_kernel_at_the_bench_lm_head_and_3d_rows(dev):

@@ -159,6 +159,7 @@ def test_weight_quantizers_bit_identical_to_jax(shape, src):
     assert tuple(b4["q4"].shape) == (shape[0] // 2, shape[1])
     assert tuple(b4["gscale"].shape) == (shape[0] // g, shape[1])
     assert b4["q4"].dtype == torch.int8 and b4["gscale"].dtype == torch.bfloat16
+    assert tw4.is_kernel_layout(b4["q4"])            # stored output-major for B5
     assert np.array_equal(_bits(a4["q4"]), _bits(b4["q4"]))
     assert np.array_equal(_bits(a4["gscale"]), _bits(b4["gscale"]))
 
@@ -228,9 +229,11 @@ def test_w8a16_below_threshold_keeps_w8a8(monkeypatch):
 
 # ------------------------------------------------------------- B5 plain
 
-@pytest.mark.parametrize("xshape", [(8, 512), (10, 512), (1, 512), (2, 4, 512)],
-                         ids=["m8", "ragged-m10", "m1", "3d"])
-def test_w4_plain_matches_pallas_interpret(xshape):
+@pytest.mark.parametrize("xshape", [(8, 512), (10, 512), (1, 512), (2, 4, 512), (10, 512)],
+                         ids=["m8", "ragged-m10", "m1", "3d", "kernel-layout-m10"])
+def test_w4_plain_matches_pallas_interpret(request, xshape):
+    """Groups of 128; the last case takes the weight in B5's output-major
+    layout (``int4_weight_layout``), as the engine stores it."""
     rng = np.random.default_rng(xshape[0])
     jw, _ = _src(rng, (512, 128), jnp.bfloat16)
     jx, tx = _src(rng, xshape, jnp.bfloat16)
@@ -238,6 +241,9 @@ def test_w4_plain_matches_pallas_interpret(xshape):
     assert w4a16_supported((int(np.prod(xshape[:-1])), 512), qa["q4"].shape, qa["gscale"].shape)
     want = np.asarray(j_w4a16(jx, qa["q4"], qa["gscale"], interpret=True), np.float32)
     q4, gs = _to_tensor(np.asarray(qa["q4"])), _to_tensor(np.asarray(qa["gscale"]))
+    if "kernel-layout" in request.node.callspec.id:
+        q4 = tw4.int4_weight_layout(q4)
+        assert tw4.is_kernel_layout(q4) and gs.shape[0] == 512 // 128
     got = tw4.w4a16_matmul(tx, q4, gs)
     assert got.dtype == torch.float32 and tuple(got.shape) == xshape[:-1] + (128,)
     np.testing.assert_allclose(got.numpy(), want, rtol=W4_F32_RTOL,
@@ -313,18 +319,88 @@ def test_w4_kernel_checks_refuse_what_it_cannot_take():
         tw4._check(torch.zeros(4, 64), q["q4"], q["gscale"])
 
 
+# bench-8b's int4 shapes (P = in / 2, F) at the decode and prefill row
+# counts, the tiny models' and a ragged one.
+W4_PLAN_SHAPES = [(M, P, F) for M in (1, 10, 16, 17, 50, 64, 65, 256)
+                  for P, F in ((2048, 1024), (2048, 4096), (2048, 12288), (6144, 4096),
+                               (2048, 151936), (32, 32), (96, 48))]
+
+
 def test_split_plan_fills_the_card():
-    # bench-8b: wk/wv (8 column blocks) split the contraction, the LM head
-    # does not; every split keeps at least 4 stages; stages cover P once.
-    for M, P, F in ((10, 2048, 1024), (10, 2048, 151936), (50, 6144, 4096),
-                    (256, 2048, 12288), (1, 32, 32)):
-        mt, splits, per = tw4.split_plan(M, P, F, 132)
-        nkt = P // 32
-        assert mt in (1, 2, 4) and 16 * mt >= min(M, 64)
-        assert (splits - 1) * per < nkt <= splits * per
-        assert splits == 1 or per >= 4
-    assert tw4.split_plan(10, 2048, 1024, 132)[1] > 1
-    assert tw4.split_plan(10, 2048, 151936, 132)[1] == 1
+    """The launch of every shape: rows in whole n-tiles of 8 (up to 64 a
+    row block, row blocks covering M), the contraction cut into splits of
+    whole 64-row chunks that cover it once with none empty, x within
+    shared memory, no more blocks than SMs unless the splits alone are
+    more, and each tile's walk covering every tile."""
+    for M, P, F in W4_PLAN_SHAPES:
+        p = tw4.split_plan(M, P, F, 132)
+        assert p.nt in (1, 2, 4, 8) and 8 * p.nt >= min(M, 64) and p.mblocks * 8 * p.nt >= M
+        assert (p.mblocks - 1) * 8 * p.nt < M
+        assert p.kb % 64 == 0 and (p.splits - 1) * p.kb < P <= p.splits * p.kb
+        assert tw4.smem_bytes(p.nt, p.wc, min(M, 8 * p.nt), p.kb) <= tw4.SMEM_BUDGET
+        tiles = -(-F // (16 * p.wc))
+        assert 1 <= p.gx <= tiles and 16 % p.wc == 0
+        assert p.gx * p.splits * p.mblocks <= max(132, p.splits * p.mblocks)
+    # P9's decode calls: the LM head is not split and every block walks
+    # its tiles; w_down's x (P = 6144) does not fit one block, so it splits.
+    head = tw4.split_plan(10, 2048, 151936, 132)
+    assert head.splits == 1 and head.gx == 132
+    assert tw4.split_plan(10, 6144, 4096, 132).splits > 1
+
+
+@pytest.mark.parametrize("group", [32, 64, 96, 128, 160, 4096])
+def test_group_magic_divides_exactly(group):
+    """The kernel finds a packed row's group as (umulhi(r, m) + r) >> s
+    (no divide): exact for every 16-aligned row below 2**20."""
+    m, sh = tw4.group_magic(group)
+    r = np.arange(0, 1 << 20, 16, dtype=np.uint64)
+    got = (((r * np.uint64(m)) >> np.uint64(32)) + r) >> np.uint64(sh)
+    assert np.array_equal(got, r // np.uint64(group))
+
+
+def _kernel_dequant(q4, gscale):
+    """B5's dequantization written out as the kernel does it, from the
+    weight in its stored layout: each 32-bit word of a column's packed
+    rows (bytes 4j..4j+3), bytes 0, 1 (then 2, 3) moved to the two 16-bit
+    halves by a byte permute, shifted by 0 (low nibbles) or 4 (high
+    nibbles), lop3 ``(w & 0x000F000F) ^ 0x43084308`` (the nibble XOR 8 in
+    the mantissa of bf16 128), one bf16 subtraction of 136 and one bf16
+    multiply by the group scale (a single rounding of the exact product).
+    Returns ``[D, F]`` bf16."""
+    P, F = q4.shape
+    ng = gscale.shape[0] // 2
+    words = q4.t().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF   # [F, P/4]
+    out = torch.empty((2 * P, F), dtype=torch.bfloat16)
+    rows = torch.arange(0, P, 4)
+    for first in (0, 2):                                  # byte permute 0x4140 / 0x4342
+        t = ((words >> (8 * first)) & 0xFF) | (((words >> (8 * first + 8)) & 0xFF) << 16)
+        for sh, half in ((0, 0), (4, 1)):
+            u = ((t >> sh) & 0x000F000F) ^ 0x43084308
+            for part, off in ((u & 0xFFFF, 0), (u >> 16, 1)):   # bf16 lanes: bytes first, +1
+                v = part.to(torch.int16).view(torch.bfloat16).float() - 136.0    # exact
+                r = rows + first + off                                           # packed row
+                s = gscale[half * ng + r // (P // ng)].float()                   # [P/4, F]
+                out[half * P + r] = (v.t() * s).to(torch.bfloat16)
+    return out
+
+
+def test_kernel_dequantization_equals_dequantize_int4_bit_for_bit():
+    """Every byte (all 16 low and 16 high nibbles) times every bf16 scale
+    the quantizer can yield (``bf16(max(absmax, 1e-12) / 7)``, from the
+    clamp's floor to f32's largest over 7), through the kernel's bit
+    operations: the same bits as ``dequantize_int4``."""
+    lo = torch.tensor([1e-12 / 7], dtype=torch.bfloat16).view(torch.int16).item()
+    hi = torch.tensor([3.4028235e38 / 7], dtype=torch.bfloat16).view(torch.int16).item()
+    scales = torch.arange(lo, hi + 1, dtype=torch.int16).view(torch.bfloat16)   # [F]
+    F = scales.numel() // 16 * 16
+    scales = scales[:F]
+    # Two groups a half (low half: ascending scales; high half: reversed).
+    gscale = torch.stack([scales, scales.roll(1), scales.flip(0), scales.flip(0).roll(1)])
+    q4 = tw4.int4_weight_layout(torch.arange(256, dtype=torch.int32).to(torch.uint8)
+                                .view(torch.int8)[:, None].repeat(1, F))          # [256, F]
+    want = tq.dequantize_int4({"q4": q4, "gscale": gscale})
+    got = _kernel_dequant(q4, gscale)
+    assert np.array_equal(_bits(got), _bits(want))
 
 
 # ---------------------------------------------------------------- trees
@@ -385,6 +461,8 @@ def test_jax_quantized_tree_carries_across(mode):
                 assert tp[name][part].dtype == leaf[part].dtype
                 assert tp[name][part].stride() == leaf[part].stride()
                 assert np.array_equal(_bits(tp[name][part]), _bits(leaf[part])), (name, part)
+            if mode == "int4":                   # B5's layout, the JAX package's values
+                assert tw4.is_kernel_layout(tp[name]["q4"])
     with pytest.raises(ValueError, match="shape"):
         cut = "layers.0.wq." + ("scale" if mode == "int8" else "gscale")
         bad = [(n, a[:-1] if n == cut else a) for n, a in named_arrays(jq_tree)]

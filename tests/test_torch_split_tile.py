@@ -1,18 +1,20 @@
-"""The split-S arithmetic of the int8 and paged decode kernels against the
-JAX package, on the CPU.
+"""The split-S arithmetic of the bf16 chunk, int8 and paged decode kernels
+against the JAX package, on the CPU.
 
-The int8 decode kernel (``csrc/decode_attention_int8.cu``, single step and
-chunk) and the paged kernel (``csrc/paged_attention.cu``, bf16, int8 and
-int4 pools) cut the cache window into contiguous ranges, one block each,
+The bf16 chunk kernel (``csrc/chunk_decode_attention.cu``), the int8
+decode kernel (``csrc/decode_attention_int8.cu``, single step and chunk)
+and the paged kernel (``csrc/paged_attention.cu``, bf16, int8 and int4
+pools) cut the cache window into contiguous ranges, one block each,
 and merge the ranges' partials (running max, sum of exp, unnormalised
 accumulator) the way the JAX package's sequence-parallel decode does.
 Their plain version, ``decode_attention_split_plain`` (and
 ``paged_attention_split_plain`` over a gathered pool), repeats that
 arithmetic range by range.  Here it gets the same seeded numpy inputs as:
 
-* the JAX package's ``decode_attention`` and ``chunk_decode_attention``
-  with int8 scales (the Pallas kernel in interpret mode, as the JAX
-  package's own tests run it), for 1, 2, 3 and 7 ranges;
+* the JAX package's ``chunk_decode_attention`` over a bf16 cache, and
+  ``decode_attention`` and ``chunk_decode_attention`` with int8 scales
+  (the Pallas kernel in interpret mode, as the JAX package's own tests
+  run it), for 1, 2, 3 and 7 ranges;
 * ``sp_chunk_decode_attention`` with int8 scales on sp meshes of 2 and 4
   CPU devices, where each device holds one range of the cache;
 * the JAX paged kernel (``impl=PALLAS_INTERPRET``) over bf16 and int8
@@ -25,7 +27,8 @@ range (every other range empty) and a fully masked query row, which gives
 0 (ROADMAP C-port-2; the JAX oracle of the int4 case gives the uniform
 average there, so that row is checked against 0 alone).
 ``decode_split_plan``'s rule for paged pools (ranges of whole blocks:
-``split_len`` a multiple of lcm(128, block size)) is tested beside it.
+``split_len`` a multiple of lcm(128, block size)) and its plan at the
+speculative verify's 20 rows are tested beside it.
 
 Tolerances: f32 1e-4 (the same math in another summation order); bf16
 2e-2, the port's bf16 attention tolerance (each side rounds p to bf16
@@ -163,6 +166,44 @@ def test_int8_chunk_split_matches_jax_chunk_decode_attention(H, Hkv, K, dt, n_sp
     assert out.shape == q.shape
     np.testing.assert_allclose(_np(out), ref, atol=TOL[dt], rtol=TOL[dt])
     assert np.all(_np(out)[2, 1] == 0.0)         # every range empty: 0, not NaN
+
+
+# ------------------------------------------------------------ dense bf16
+
+_BF16 = {}
+
+
+def _bf16_chunk_case(H, Hkv, K, dt):
+    """A bf16 cache [B, S, Hkv, Dh] (B3a-chunk's layout), q, the chunk
+    mask and the JAX Pallas kernel's output (interpret mode), once for
+    every split count."""
+    key = (H, Hkv, K, dt)
+    if key not in _BF16:
+        B, S, Dh = 3, 300, 128
+        rng = np.random.default_rng([H, Hkv, K, len(dt), 16])
+        kv = rng.standard_normal((2, B, S, Hkv, Dh)).astype(np.float32)
+        m = _chunk_mask(rng, B, K, S)
+        q = rng.standard_normal((B, K, H, Dh)).astype(np.float32)
+        ref = j_chunk_decode_attention(_j(q, dt), _j(kv[0], dt), _j(kv[1], dt), jnp.asarray(m),
+                                       SCALE, block_s=128, interpret=True)
+        _BF16[key] = (q, kv, m, _f32(ref))
+    return _BF16[key]
+
+
+@pytest.mark.parametrize("n_split", SPLITS)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("K", [4, 5], ids=["ff", "spec"])
+@pytest.mark.parametrize("H,Hkv", GROUPS, ids=GROUP_IDS)
+def test_bf16_chunk_split_matches_jax_chunk_decode_attention(H, Hkv, K, dt, n_split):
+    """B3a-chunk's split arithmetic (K = 4: R = 4 G rows; K = 5, the
+    speculative verify: R = 20 at bench-8b's group of 4) against the JAX
+    package's bf16 chunk form; a fully masked chunk row gives 0."""
+    q, kv, m, ref = _bf16_chunk_case(H, Hkv, K, dt)
+    out = decode_attention_split_plain(_t(q, dt), _t(kv[0], dt), _t(kv[1], dt),
+                                       torch.from_numpy(m), SCALE, n_split)
+    assert out.shape == q.shape
+    np.testing.assert_allclose(_np(out), ref, atol=TOL[dt], rtol=TOL[dt])
+    assert np.all(_np(out)[2, 1] == 0.0)
 
 
 @pytest.mark.parametrize("K", [0, 4], ids=["step", "chunk"])
@@ -379,6 +420,23 @@ def test_split_plan_caps_the_range_length(B, Hkv, S, bs):
     assert longest < per + SPLIT_ITER
     assert -(-longest // bs) <= tpa.MAX_SPLIT_BLOCKS
     assert _ranges(S, n, per)[-1][1] == S
+
+
+@pytest.mark.parametrize("S", [3122, 5072, 700, 129])
+def test_split_plan_at_the_verify_rows_covers_the_window(S):
+    """B3a-chunk at the speculative verify: R = K * G = 20 query rows (two
+    m-tiles, two blocks an SM) and Mk = K = 5 mask rows, 10 batch rows
+    over 8 kv heads on 132 SMs: contiguous ranges of whole iterations,
+    exactly [0, S), one wave of at most two blocks an SM; P3's window
+    (~3122 positions) takes more than one split."""
+    n, per = decode_split_plan(10, 8, S, 132, 2)
+    assert per % SPLIT_ITER == 0 and 10 * 8 * n <= 2 * 132
+    ranges = [(z * per, S if z == n - 1 else (z + 1) * per) for z in range(n)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == S
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(e - a >= min(S, SPLIT_ITER) for a, e in ranges)
+    if S >= 3000:
+        assert n > 1
 
 
 def test_split_plan_at_the_bench_paged_shapes():
