@@ -4,7 +4,8 @@ Port of ``bcg_tpu/ops/guided_sampler.py``.  Every decode step runs the
 guided sampler over the whole ``[B, V]`` logits: the DFA allowed-mask
 (a ``min_budget[dfa, state]`` row), the EOS gate, temperature, the
 top-p cutoff by bisection of the kept mass, and the greedy argmax or the
-inverse-CDF draw — one block per row in ``csrc/guided_sampler.cu``.
+inverse-CDF draw — one thread-block cluster per row in
+``csrc/guided_sampler.cu``, laid out by :func:`sampler_plan`.
 
 :func:`sample_rows` is the kernel-level function (``[token, any_tok]``
 per row from explicit per-row scalars, ``u`` included);
@@ -18,7 +19,9 @@ dead-end EOS override and the DFA transition.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from collections import namedtuple
+from typing import Callable, Optional
 
 import torch
 
@@ -32,9 +35,99 @@ _TOPP_ITERS = 30
 _CDF_ITERS = 21
 _TOPP_RANGE = 30.0
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# logits, min_budget, dfa_ids, states, meta_i, meta_f, out, B, V, Vp,
-# n_states, eos_id, top_p, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# logits, min_budget, dfa_ids, states, meta_i, meta_f, token, any_tok,
+# dims (int[9], see _launch_dims), top_p, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P]
+# c, smem, out (int*)
+_MAX_CLUSTERS_ARGTYPES = [_I, _I, _P]
+
+# The kernel's launch geometry (``csrc/guided_sampler.cu``): threads a CTA,
+# the top-p tree's thread-private bins, cluster sizes it may take (largest
+# first; above 8 only where the occupancy query admits them), the fewest
+# tokens a CTA of a cluster of more than one takes, the most tokens a
+# thread's bit masks cover, and the dynamic shared memory a CTA may ask
+# for: the block's 227 KB less 8 KB for the kernel's static arrays (the
+# cluster's mailboxes, the barriers, each warp's tree).
+SAMPLER_THREADS = 512
+SAMPLER_BINS = 32
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+MIN_SLICE = 4096
+MAX_CHUNK = 96
+SMEM_LIMIT = 232448 - 8192
+
+SamplerPlan = namedtuple("SamplerPlan", "c slice chunk smem_bytes one_wave")
+
+
+def _chunk(slice_len: int) -> int:
+    """Tokens a thread owns contiguously: at least its share of the slice,
+    4 mod 8 so that a quarter warp's 16-byte reads of eight chunks hit
+    distinct shared-memory banks."""
+    ch = max(1, -(-slice_len // SAMPLER_THREADS))
+    return ch + (4 - ch) % 8
+
+
+def sampler_plan(B: int, V: int, top_p: float, sms: int = 132,
+                 max_clusters: Optional[Callable[[int, int], int]] = None) -> SamplerPlan:
+    """The kernel's launch plan for ``B`` rows of ``V`` tokens: ``c`` CTAs
+    a row, CTA r owning tokens ``[r * slice, min((r + 1) * slice, V))``
+    (``slice`` a multiple of 8), each thread ``chunk`` of them, and the
+    dynamic shared memory: x for ``SAMPLER_THREADS * chunk`` tokens, then
+    the slice's int16 budgets as they land, a space the top-p bins reuse
+    when ``top_p < 1``.  The largest ``c`` whose ``B * c``
+    CTAs fit ``sms`` SMs and whose ``B`` clusters the card holds at once
+    (``max_clusters(c, smem)``, the occupancy query; ``sms // c`` when not
+    given), so that the rows run in one wave; where none does, the smallest
+    ``c`` whose slice fits shared memory (``one_wave``: the card holds all
+    ``B`` clusters at once).  Raises if no ``c`` fits."""
+    topp = top_p < 1.0
+    fits = []
+    for c in CLUSTER_SIZES:
+        per = -(-V // c)
+        if c > 1 and per < MIN_SLICE:
+            continue
+        sl = -(-per // 8) * 8
+        ch = _chunk(sl)
+        smem = 4 * SAMPLER_THREADS * ch + max(2 * sl, 4 * SAMPLER_BINS * SAMPLER_THREADS * topp)
+        if smem > SMEM_LIMIT or ch > MAX_CHUNK:
+            continue
+        held = max_clusters(c, smem) if max_clusters is not None else sms // c
+        if held >= 1:
+            fits.append((c, sl, ch, smem, held))
+    if not fits:
+        raise ValueError(f"guided_sampler: no cluster plan fits {V} tokens a row "
+                         f"(top_p {top_p}) in {SMEM_LIMIT} bytes of shared memory a CTA")
+    c, sl, ch, smem, held = next((f for f in fits if B * f[0] <= sms and f[4] >= B), fits[-1])
+    return SamplerPlan(c, sl, ch, smem, held >= B)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, c: int, smem: int) -> int:
+    fn = _build.entry("guided_sampler", "bcg_guided_sampler_max_clusters",
+                      _MAX_CLUSTERS_ARGTYPES)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(fn(c, smem, ctypes.addressof(n)), "guided_sampler occupancy query")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_plan(index: int, B: int, V: int, top_p: float) -> SamplerPlan:
+    return sampler_plan(B, V, top_p, _sms(index), lambda c, smem: _max_clusters(index, c, smem))
+
+
+def cuda_plan(device, B: int, V: int, top_p: float) -> SamplerPlan:
+    """:func:`sampler_plan` on CUDA ``device``, with its SM count and the
+    kernel's occupancy query (both cached, so a launch inside a graph
+    capture asks nothing of the runtime once a call of the same shape ran
+    before it)."""
+    index = torch.device(device).index
+    return _cuda_plan(torch.cuda.current_device() if index is None else index, B, V,
+                      float(top_p))
 
 
 def vocab_rows(V: int):
@@ -104,40 +197,57 @@ def sample_rows_plain(logits, min_budget, dfa_ids, states, meta_i, meta_f,
 
 def _check(logits, min_budget, dfa_ids, states, meta_i, meta_f):
     B, V = logits.shape
-    want = [
-        (logits, torch.float32, (B, V)), (dfa_ids, torch.int32, (B,)),
-        (states, torch.int32, (B,)), (meta_i, torch.int32, (B, 4)),
-        (meta_f, torch.float32, (B, 2)),
-    ]
-    for t, dt, shape in want:
-        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+    f32, i32, dev = torch.float32, torch.int32, logits.get_device()
+    for t, dt, shape in ((logits, f32, (B, V)), (dfa_ids, i32, (B,)), (states, i32, (B,)),
+                         (meta_i, i32, (B, 4)), (meta_f, f32, (B, 2))):
+        if t.dtype != dt or t.shape != shape or not t.is_contiguous():
             raise ValueError(f"guided_sampler kernel takes contiguous {dt} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
+        if t.get_device() != dev:
+            raise ValueError("guided_sampler: tensors on different devices")
     if min_budget.dtype != torch.int16 or min_budget.dim() != 3 \
             or min_budget.shape[2] != V or not min_budget.is_contiguous():
         raise ValueError(f"guided_sampler kernel takes a contiguous int16 min_budget "
                          f"[n_dfa, n_states, {V}], got {min_budget.dtype} "
                          f"{tuple(min_budget.shape)}")
-    for t in (min_budget, dfa_ids, states, meta_i, meta_f):
-        if t.device != logits.device:
-            raise ValueError("guided_sampler: tensors on different devices")
+    if min_budget.get_device() != dev:
+        raise ValueError("guided_sampler: tensors on different devices")
+
+
+# The kernel's scalars for each call shape, packed once:
+# [B, V, Vp, n_states, eos_id, c, slice, chunk, smem_bytes].
+_dims = {}
+
+
+def _launch_dims(index: int, B: int, V: int, n_states: int, eos_id: int, top_p: float):
+    key = (index, B, V, n_states, eos_id, top_p)
+    dims = _dims.get(key)
+    if dims is None:
+        plan = _cuda_plan(index, B, V, top_p)
+        dims = _dims[key] = (ctypes.c_int * 9)(
+            B, V, vocab_rows(V)[0], n_states, eos_id, plan.c, plan.slice, plan.chunk,
+            plan.smem_bytes)
+    return ctypes.addressof(dims)
 
 
 def sample_rows_cuda(logits, min_budget, dfa_ids, states, meta_i, meta_f,
                      eos_id: int, top_p: float):
-    """Launch ``csrc/guided_sampler.cu`` on the current stream."""
+    """Launch ``csrc/guided_sampler.cu`` on the current stream: one
+    cluster launch at :func:`cuda_plan`'s plan (raises if there is none or
+    the runtime refuses the launch)."""
     _check(logits, min_budget, dfa_ids, states, meta_i, meta_f)
     fn = _build.entry("guided_sampler", "bcg_guided_sampler", _ARGTYPES)
     B, V = logits.shape
-    Vp, _ = vocab_rows(V)
-    out = torch.empty((B, 2), dtype=torch.int32, device=logits.device)
+    index = logits.get_device()
+    dims = _launch_dims(index, B, V, min_budget.shape[1], int(eos_id), float(top_p))
+    tok = torch.empty((B,), dtype=torch.int32, device=logits.device)
+    any_tok = torch.empty((B,), dtype=torch.bool, device=logits.device)
     err = fn(logits.data_ptr(), min_budget.data_ptr(), dfa_ids.data_ptr(),
-             states.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), out.data_ptr(),
-             B, V, Vp, min_budget.shape[1], int(eos_id), float(top_p),
-             _build.stream_ptr(logits))
+             states.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), tok.data_ptr(),
+             any_tok.data_ptr(), dims, float(top_p), _build.stream_ptr(logits))
     _build.check(err, "guided_sampler")
     sample_rows.launches += 1
-    return out[:, 0], out[:, 1] > 0
+    return tok, any_tok
 
 
 def sample_rows(logits, min_budget, dfa_ids, states, meta_i, meta_f,

@@ -66,8 +66,12 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    its largest call, with their strides (k/v are views into the KV
    cache).
 7. Kernel phase: each of the thirteen kernel forms against its plain
-   PyTorch version on its captured inputs (the sampler also on mixed
-   greedy / sampled rows at top_p 1.0 and 0.9), with CUDA-event timings
+   PyTorch version on its captured inputs (the sampler, B2, on mixed
+   greedy / sampled rows at top_p 1.0 and 0.9, at P1's 10 rows and at
+   ``SAMPLER_BIG_BATCH`` rows, P1's tiled past one wave of clusters, token
+   for token; its cluster plan printed; event- and graph-timed at both
+   top_p values; ``--save-sampler-inputs FILE`` also writes P1's call for
+   ``python -m bcg_tpu_torch.tools.sampler_kernel``), with CUDA-event timings
    of the kernel, the plain version and, where one PyTorch call computes
    the same function, that call (B1 and B3a also print the ratio of the
    kernel's time to that call's); and the bound (bytes at 3.35 TB/s, int8
@@ -151,6 +155,9 @@ INT8_REF_SEEDS = (7, 8, 9)
 # take the same bf16 products and sum them in f32 in another order (~1e-6
 # at these depths); a wrong nibble, half or group scale reads O(1).
 W4_REL_ROW_TOL = 1e-3
+# The sampler's second batch: P1's captured rows tiled past one wave of
+# clusters (B2 is compared token for token, no tolerance).
+SAMPLER_BIG_BATCH = 150
 MODEL = "bcg-tpu/bench-8b"
 DEVICE = "cuda"
 # Blocks of 16 tokens in each paged path's pool: 19.3 GB of bf16, 10.0 GB
@@ -1058,6 +1065,32 @@ def w4a16_check(captured):
                 **head, shapes=extra, routes=routes)
 
 
+def compact_sampler_call(call):
+    """The sampler call ``call`` with its min_budget rows gathered into a
+    ``[1, B, V]`` table that ``dfa_ids`` 0 and ``states`` 0..B-1 index:
+    the same function of the same data, without copying the whole table."""
+    import torch
+
+    logits, minb, dfa_ids, states, meta_i, meta_f, eos_id, top_p = call
+    B = logits.shape[0]
+    rows = minb[dfa_ids.long(), states.long()][None].contiguous()
+    return (logits, rows, torch.zeros_like(dfa_ids),
+            torch.arange(B, dtype=torch.int32, device=logits.device), meta_i, meta_f,
+            eos_id, top_p)
+
+
+def save_sampler_inputs(call, path):
+    """P1's captured sampler call, compacted, written to ``path`` on the CPU."""
+    import torch
+
+    logits, rows, dfa_ids, states, meta_i, meta_f, eos_id, top_p = compact_sampler_call(call)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(dict(logits=logits.cpu(), min_budget=rows.cpu(), dfa_ids=dfa_ids.cpu(),
+                    states=states.cpu(), meta_i=meta_i.cpu(), meta_f=meta_f.cpu(),
+                    eos_id=int(eos_id), top_p=float(top_p)), path)
+    print(f"sampler inputs: P1's call {list(logits.shape)} written to {path}", flush=True)
+
+
 def phase_kernels(inputs, counts):
     """Each kernel form against its plain version on its home path's
     captured inputs.  ``inputs``/``counts``: per path."""
@@ -1322,25 +1355,44 @@ def phase_kernels(inputs, counts):
         # per-row scalars otherwise.
         mi = meta_i.clone()
         mi[:, 2] = (torch.arange(B, device=mi.device) % 2 == 0).to(torch.int32)
-        mismatches, err = 0, 0
-        for top_p in (1.0, 0.9):
-            tk, ak = guided_sampler.sample_rows_cuda(logits, minb, dfa_ids, states, mi,
-                                                     meta_f, eos_id, top_p)
-            tp, ap = guided_sampler.sample_rows_plain(logits, minb, dfa_ids, states, mi,
-                                                      meta_f, eos_id, top_p)
-            mismatches += int((tk.long() != tp.long()).sum()) + int((ak != ap).sum())
-            err = max(err, int((tk.long() - tp.long()).abs().max()))
-        ms = time_ms(lambda: guided_sampler.sample_rows_cuda(
-            logits, minb, dfa_ids, states, mi, meta_f, eos_id, 1.0), reps=50)
-        plain_ms = time_ms(lambda: guided_sampler.sample_rows_plain(
-            logits, minb, dfa_ids, states, mi, meta_f, eos_id, 1.0), reps=5)
+        p1 = (logits, minb, dfa_ids, states, mi, meta_f)
+        # A batch above one wave: the captured rows tiled, each copy with
+        # its own uniform.
+        nb = SAMPLER_BIG_BATCH
+        reps = -(-nb // B)
+        gen = torch.Generator(device=logits.device)
+        gen.manual_seed(0)
+        mf_big = meta_f.repeat(reps, 1)[:nb].contiguous()
+        mf_big[:, 1] = torch.rand(nb, generator=gen, device=logits.device)
+        big = (logits.repeat(reps, 1)[:nb].contiguous(), minb, dfa_ids.repeat(reps)[:nb],
+               states.repeat(reps)[:nb], mi.repeat(reps, 1)[:nb].contiguous(), mf_big)
+        mismatches, err = {}, 0
+        for label, args in (("P1", p1), (f"B{nb}", big)):
+            for top_p in (1.0, 0.9):
+                tk, ak = guided_sampler.sample_rows_cuda(*args, eos_id, top_p)
+                tp, ap = guided_sampler.sample_rows_plain(*args, eos_id, top_p)
+                mismatches[f"{label} top_p {top_p}"] = (int((tk.long() != tp.long()).sum())
+                                                        + int((ak != ap).sum()))
+                err = max(err, int((tk.long() - tp.long()).abs().max()))
+        del big
+        # Timed on the compacted call: the same rows read, no table copies.
+        p1 = compact_sampler_call(p1 + (eos_id, 1.0))[:6]
+        plans = {f"top_p {tp}": guided_sampler.cuda_plan(logits.device, B, V, tp)._asdict()
+                 for tp in (1.0, 0.9)}
+        ms = time_ms(lambda: guided_sampler.sample_rows_cuda(*p1, eos_id, 1.0), reps=50)
+        ms_topp = time_ms(lambda: guided_sampler.sample_rows_cuda(*p1, eos_id, 0.9), reps=50)
+        plain_ms = time_ms(lambda: guided_sampler.sample_rows_plain(*p1, eos_id, 1.0), reps=5)
         byts = B * V * (4 + 2) + meta_i.numel() * 4 + meta_f.numel() * 4 + B * 8
+        g_ms, g_ms_topp = (cold_graph_ms(guided_sampler.sample_rows_cuda, p1 + (eos_id, tp),
+                                         B * V * (4 + 2)) for tp in (1.0, 0.9))
         bms, by = bound(byts, 0)
+        total = sum(mismatches.values())
         return dict(common("guided_sampler"),
                     replaces="bcg_tpu/ops/guided_sampler.py:93 _sampler_kernel",
-                    max_abs_err=float(err), token_mismatches=mismatches, ok=mismatches == 0,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-                    shape=[B, V])
+                    max_abs_err=float(err), token_mismatches=mismatches, ok=total == 0,
+                    ms=ms, graph_ms=g_ms, topp_event_ms=ms_topp, topp_graph_ms=g_ms_topp,
+                    plan=plans, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None, shape=[B, V])
 
     def w4a16():
         return dict(common("w4a16_matmul"), **w4a16_check(inputs["P9"]))
@@ -1392,14 +1444,16 @@ def phase_kernels(inputs, counts):
                    f"(tol {ATTN_REL_HEAD_TOL}) with {DROP_KEYS} live keys dropped: "
                    f"rel_row={r['dropped_rel_row']:.4g} rel_head={r['dropped_rel_head']:.4g}")
         else:
-            err = f"token_mismatches={r['token_mismatches']} (tol 0)"
+            err = (f"token_mismatches={json.dumps(r['token_mismatches'])} (tol 0) "
+                   f"plan={json.dumps(r['plan'])}")
         if "dense_ms" in r:
             err += (f" dense_ms={r['dense_ms']:.4f} dense_rel_row={r['dense_rel_row']:.4g} "
                     f"live_blocks={r['live_blocks']} inputs_from={r['inputs_from']}")
         if "split" in r:
             err += (f" split={r['split']} split_plain_rel_row={r['split_rel_row']:.4g} "
                     f"split_plain_rel_head={r['split_rel_head']:.4g}")
-        for key in ("event_ms", "library_event_ms", "graph_ms", "library_ratio"):
+        for key in ("event_ms", "library_event_ms", "graph_ms", "topp_event_ms",
+                    "topp_graph_ms", "library_ratio"):
             if key in r:
                 err += f" {key}={r[key]:.4g}"
         print(f"kernel {r['name']}: {err} "
@@ -1413,7 +1467,12 @@ def phase_kernels(inputs, counts):
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--save-sampler-inputs", metavar="FILE",
+                        help="also write P1's captured sampler call to FILE (torch.save), "
+                             "the input of python -m bcg_tpu_torch.tools.sampler_kernel "
+                             "--inputs FILE")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1455,13 +1514,16 @@ def main() -> int:
         t0 = time.perf_counter()
         counts[path], inputs[path] = phase_path(path, params)
         print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.save_sampler_inputs:
+        save_sampler_inputs(inputs["P1"]["guided_sampler"], args.save_sampler_inputs)
     t0 = time.perf_counter()
     results, errors = phase_kernels(inputs, counts)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card line", flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("graph_ms", "split") if k in r}
+    extra_keys = ("graph_ms", "split", "topp_graph_ms", "plan")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra_keys if k in r}
                                   for r in results]}), flush=True)
     if errors:
         fail("; ".join(errors))

@@ -19,7 +19,9 @@ paged kernels (each against its plain version and the plain version of
 its split arithmetic at the plan, at many splits with a ragged last one,
 with live slots only in the first 64 positions and at one split;
 repeatable bit for bit and replayed in a CUDA graph) and the guided
-sampler.
+sampler (one cluster a row: at 1 to 150 rows, both vocabularies and top_p
+values, with the edge rows of ``_sampler_case``; repeatable bit for bit and
+replayed in a CUDA graph; a row no cluster plan holds raises).
 
 Tolerances: bf16 attention 2e-2 absolute on outputs of magnitude ~1-4.
 The kernels round the unnormalised probabilities to bf16 for the p.v
@@ -586,25 +588,62 @@ def test_paged_wrappers_raise_on_cuda_inputs_they_do_not_take(dev):
             q.float(), entry, torch.ones((3, 64), dtype=torch.bool, device=dev), 1.0)
 
 
-@pytest.mark.parametrize("top_p", [1.0, 0.9])
-@pytest.mark.parametrize("V", [151936, 300], ids=["qwen-vocab", "offlane-v300"])
-def test_sampler_kernel_matches_plain(dev, V, top_p):
-    rng = np.random.default_rng([V, int(top_p * 10)])
-    B, n_dfa, n_states, eos = 8, 2, 5, 3
+def _sampler_case(B, V, seed):
+    """Sampler arguments: random rows over a small DFA, and where B > 6 the
+    edge rows: 0 a dead-end state; 1 tied maxima (greedy, the first index
+    wins); 2 forbid on the greedy argmax; 3 a one-token nucleus that is
+    also forbidden (greedy: the 2^24 sentinel at top_p < 1); 4 all gated,
+    EOS too (sampled: Vp - 1); 5 u = 0; 6 u = 0.99999994 over three equal
+    weights.  Row 6's weights make every sum exact: on a dense row a
+    target one ulp below the total sits within rounding of a CDF step,
+    where kernel and plain version, summing in other orders, may part."""
+    rng = np.random.default_rng([B, V, seed])
+    n_dfa, n_states, eos = 2, 12, 3
+    big = np.iinfo(np.int16).max
     minb = rng.integers(1, 6, (n_dfa, n_states, V)).astype(np.int16)
-    minb[rng.random((n_dfa, n_states, V)) < 0.4] = np.iinfo(np.int16).max
-    minb[1, 4] = np.iinfo(np.int16).max           # a dead-end state
-    states = rng.integers(0, n_states, B).astype(np.int32)
+    minb[rng.random((n_dfa, n_states, V)) < 0.4] = big
+    logits = (rng.standard_normal((B, V)) * 3).astype(np.float32)
+    states = rng.integers(0, 5, B).astype(np.int32)
     dfa_ids = rng.integers(0, n_dfa, B).astype(np.int32)
-    dfa_ids[0], states[0] = 1, 4
     meta_i = np.stack([rng.integers(2, 9, B),                          # budget_left
                        np.where(rng.random(B) < 0.4, rng.integers(0, V, B), -1),  # forbid
                        np.arange(B) % 2,                               # greedy rows
                        rng.integers(0, 2, B)], axis=1).astype(np.int32)  # eos_ok
     meta_f = np.stack([np.full(B, 0.7), rng.random(B)], axis=1).astype(np.float32)
-    args = [torch.from_numpy(a).to(dev) for a in (
-        (rng.standard_normal((B, V)) * 3).astype(np.float32), minb, dfa_ids, states,
-        meta_i, meta_f)]
+    if B > 6:
+        for r in range(7):
+            dfa_ids[r], states[r] = 1, 5 + r
+        minb[1, 5] = big
+        minb[1, 6] = 1
+        tied = [V // 3, V // 3 + 5, V - 2]
+        logits[1, tied] = logits[1].max() + 1.0
+        meta_i[1, 1:3] = (-1, 1)
+        meta_i[2, 2:4] = (1, 0)
+        gate = (minb[1, 7] <= meta_i[2, 0]) & (np.arange(V) != eos)
+        meta_i[2, 1] = int(np.argmax(np.where(gate, logits[2], -np.inf)))
+        one = V // 2
+        minb[1, 8, one] = 1
+        logits[3, one] = logits[3].max() + 60.0
+        meta_i[3, 1:3] = (one, 1)
+        minb[1, 9] = big
+        meta_i[4, 2:4] = (0, 0)
+        meta_i[5, 2], meta_f[5, 1] = 0, 0.0
+        three = [5, V // 2, V - 1]
+        minb[1, 11] = big
+        minb[1, 11, three] = 1
+        logits[6, three] = 1.5
+        dfa_ids[6], states[6] = 1, 11
+        meta_i[6, 1:4] = (-1, 0, 0)
+        meta_f[6, 1] = np.float32(0.99999994)
+    return (logits, minb, dfa_ids, states, meta_i, meta_f), eos
+
+
+@pytest.mark.parametrize("top_p", [1.0, 0.9])
+@pytest.mark.parametrize("V", [151936, 300], ids=["qwen-vocab", "offlane-v300"])
+@pytest.mark.parametrize("B", [1, 10, 33, 150])
+def test_sampler_kernel_matches_plain(dev, B, V, top_p):
+    case, eos = _sampler_case(B, V, int(top_p * 10))
+    args = [torch.from_numpy(a).to(dev) for a in case]
     before = guided_sampler.sample_rows.launches
     tok, any_tok = guided_sampler.sample_rows(*args, eos, top_p)
     torch.cuda.synchronize()
@@ -612,7 +651,54 @@ def test_sampler_kernel_matches_plain(dev, V, top_p):
     ref_tok, ref_any = guided_sampler.sample_rows_plain(*args, eos, top_p)
     assert tok.tolist() == ref_tok.tolist()
     assert any_tok.tolist() == ref_any.tolist()
-    assert not any_tok[0]
+    if B > 6:
+        Vp, _ = guided_sampler.vocab_rows(V)
+        assert not any_tok[0]
+        assert tok[1] == V // 3
+        assert tok[2] != args[4][2, 1]
+        if top_p < 1.0:
+            assert tok[3] == 1 << 24
+        assert tok[4] == Vp - 1
+        assert tok[6] == V - 1
+
+
+def test_sampler_kernel_is_deterministic_and_replays_in_a_graph(dev):
+    case, eos = _sampler_case(10, 151936, 3)
+    args = [torch.from_numpy(a).to(dev) for a in case]
+    for top_p in (1.0, 0.9):
+        first = guided_sampler.sample_rows_cuda(*args, eos, top_p)
+        again = guided_sampler.sample_rows_cuda(*args, eos, top_p)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            guided_sampler.sample_rows_cuda(*args, eos, top_p)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tok, any_tok = guided_sampler.sample_rows_cuda(*args, eos, top_p)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(tok, first[0]) and torch.equal(any_tok, first[1])
+        # The graph reads its inputs in place: new uniforms, replay == eager.
+        args[5][:, 1] = torch.rand(10, device=dev)
+        graph.replay()
+        eager = guided_sampler.sample_rows_cuda(*args, eos, top_p)
+        torch.cuda.synchronize()
+        assert torch.equal(tok, eager[0]) and torch.equal(any_tok, eager[1])
+
+
+def test_sampler_kernel_without_a_plan_raises(dev):
+    V = 1 << 21                     # no cluster of 16 holds the row's x
+    args = (torch.zeros((1, V), device=dev), torch.ones((1, 1, V), dtype=torch.int16, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.tensor([[4, -1, 1, 1]], dtype=torch.int32, device=dev),
+            torch.tensor([[1.0, 0.5]], device=dev))
+    before = guided_sampler.sample_rows.launches
+    with pytest.raises(ValueError, match="no cluster plan"):
+        guided_sampler.sample_rows(*args, 3, 1.0)
+    assert guided_sampler.sample_rows.launches == before
 
 
 def test_wrappers_raise_on_cuda_inputs_they_do_not_take(dev):
