@@ -5,7 +5,8 @@ model, seed, network and channel, prefix caching and length buckets,
 guided grammar, weight quantization (int8 or int4), the KV-cache dtype
 (bfloat16 or int8), fast-forward and speculative decoding, results and
 checkpoints, plus ``--device``: the game runs on the CUDA card unless
-``--device cpu`` is given.  The other flags come back with the ROADMAP
+``--device cpu`` is given, and ``--profile-dir`` (a ``torch.profiler``
+trace of the run).  The other flags come back with the ROADMAP
 item that ports what they switch on (parallelism A13, the fake backend
 and fault injection A11).  As in the JAX package, the block-paged KV
 cache and the packed-int4 KV cache have no flag: they are
@@ -56,6 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-save", action="store_true", help="Disable result files")
     p.add_argument("--plots", action="store_true", help="Save per-run plots (value trajectories, agreement)")
     p.add_argument("--checkpoint-every-round", action="store_true", help="Write a resumable checkpoint after each round")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="Write a torch.profiler trace of the run to this directory (trace.json)")
     p.add_argument("--resume", type=str, default=None, help="Resume from checkpoint file")
     p.add_argument("--quantization", type=str, default=None, choices=["int8", "int4"],
                    help="Weight quantization: int8 = dynamic W8A8 (halves the weight "
@@ -209,7 +212,10 @@ def main(argv: Optional[list] = None) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     try:
-        sim.run()
+        from bcg_tpu_torch.runtime.profiler import torch_trace
+
+        with torch_trace(args.profile_dir):
+            sim.run()
     finally:
         sim.engine.shutdown()
         sim.close()

@@ -233,7 +233,7 @@ def accept_draft(logits_all, draft, draft_mask, states_v, emitted, generator,
 def spec_decode_loop(params, model_spec, cache, first_logits, valid_mask, prompt_lens,
                      L: int, batch, row_temp, row_budget, hist, generator, *,
                      sampler, eos_id: int, top_p: float, max_new: int, k: int, n: int,
-                     done_check: int):
+                     done_check: int, all_done=None, census=None):
     """The speculative decode loop (the loop of the JAX package's
     ``build_spec_loop``), eager: greedy rows token-identical to the plain
     loop, sampled rows distribution-preserving.
@@ -242,8 +242,10 @@ def spec_decode_loop(params, model_spec, cache, first_logits, valid_mask, prompt
     ``[B, L + max_new]`` int32 (row i's prompt tokens at
     ``[0, prompt_lens[i])``, -1 elsewhere), ``sampler`` the engine's
     guided sampler (the fused kernel).  The host polls "all rows done"
-    every ``done_check`` iterations; iterations after every row finished
-    change nothing.  Returns ``(out [B, max_new] int32, steps, drafted
+    every ``done_check`` iterations (``all_done(done) -> bool``, the
+    engine's audited poll; default ``bool(done.all())``); iterations after
+    every row finished change nothing.  ``census``: the launch census's
+    step recorder (``obs/hlo.py``), or None.  Returns ``(out [B, max_new] int32, steps, drafted
     [B], accepted [B])``, all on the device — ``steps`` counts the
     iterations the JAX loop runs."""
     from bcg_tpu_torch.models.transformer import decode_chunk_spec
@@ -271,9 +273,13 @@ def spec_decode_loop(params, model_spec, cache, first_logits, valid_mask, prompt
     steps = torch.zeros((), dtype=i32, device=dev)
     logits = first_logits
     eos_t = torch.full((B,), eos_id, dtype=i32, device=dev)
+    if all_done is None:
+        all_done = lambda d: bool(d.all())  # noqa: E731
     for i in range(max_new):
-        if i % done_check == 0 and bool(done.all()):
+        if i % done_check == 0 and all_done(done):
             break
+        if census is not None:
+            census.begin(i)
         steps += (~done.all()).to(i32)
         tok, ns = sampler(logits, states, generator, emitted, batch.tables, batch.accepting,
                           batch.min_budget, batch.dfa_ids, row_temp, row_budget,
@@ -315,6 +321,10 @@ def spec_decode_loop(params, model_spec, cache, first_logits, valid_mask, prompt
         forbid = torch.where(done | finished, torch.full_like(forbid2, -1), forbid2).to(i32)
         logits = torch.where(done[:, None], logits, next_logits)
         done = done | finished
+        if census is not None:
+            census.end(i)
+    if census is not None:
+        census.close()
     return out[:, :max_new], steps, drafted, accepted
 
 

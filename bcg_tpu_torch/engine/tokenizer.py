@@ -259,11 +259,10 @@ def tokenizer_for_model(model_name: str, model_path: Optional[str] = None) -> To
         spec = spec_for_model(model_name)
         return ByteTokenizer(vocab_size=spec.vocab_size if spec else 512)
     if model_path is None:
-        # Checkpoint discovery lives in the weight loader, which the port
-        # has not brought over yet (ROADMAP A2); only the byte-tokenizer
-        # presets above and an explicit ``model_path`` are served.
-        raise NotImplementedError(
-            f"tokenizer for {model_name!r}: checkpoint discovery waits for "
-            "the loader port (ROADMAP A2); pass model_path explicitly"
-        )
+        # Resolve to the local checkpoint dir first: AutoTokenizer given a
+        # bare model NAME would try the network, which this environment
+        # does not have (same zero-egress rule as the weight loader).
+        from bcg_tpu_torch.models.loader import find_checkpoint_dir
+
+        model_path = find_checkpoint_dir(model_name) or model_name
     return HFTokenizer(model_path)

@@ -46,6 +46,18 @@ Serving design, as in the JAX engine:
   CUDA kernels on a CUDA device, and their plain versions on the CPU
   (tests).
 
+* Weights of a ``bcg-tpu/*`` preset are random, made on the device; any
+  other model boots from its local checkpoint (``models/loader.py``) or
+  pre-quantized artifact (``models/artifact.py``), found as the JAX engine
+  finds it.
+* The JAX engine's observability seams (``bcg_tpu_torch/obs``): the
+  ``engine.prefill`` / ``engine.decode`` spans, the host-sync seams (and
+  the loops' ``done_poll``), the ``pad_batch`` shape signature, the
+  launch census of one decode step, the device-memory ledger's
+  ``params`` / ``prefix_cache`` / ``kv_cache`` / ``spec_slots`` accounts
+  and the ``engine.spec.*`` counters.  With every flag off they do no
+  device work and add no host sync.
+
 Ported: bf16, int8 and int4 weights, a dense or paged bf16, int8 or int4
 KV cache, the plain, fast-forward and speculative loops.  Every knob
 outside that raises ``NotImplementedError`` naming the ROADMAP item that
@@ -89,7 +101,15 @@ from bcg_tpu_torch.models.transformer import (
     prefill_paged_chunk_at,
     prefill_with_prefix,
 )
-from bcg_tpu_torch.ops.guided_sampler import make_fused_sampler
+from bcg_tpu_torch.obs import (
+    compile as obs_compile,
+    counters as obs_counters,
+    hlo as obs_hlo,
+    hostsync as obs_hostsync,
+    ledger as obs_ledger,
+    tracer as obs_tracer,
+)
+from bcg_tpu_torch.ops.guided_sampler import make_fused_sampler, sample_rows
 from bcg_tpu_torch.runtime import envflags, metrics as _metrics
 
 # Bucket ladders: identical to the JAX engine's (see jax_engine.py for
@@ -194,7 +214,15 @@ class TorchEngine(InferenceEngine):
             from bcg_tpu_torch.models.quantize import kv_int4_layout
 
             kv_int4_layout(self.spec.head_dim)   # even-head-dim boot check
-        self.tokenizer: Tokenizer = tokenizer_for_model(config.model_name)
+        # A non-preset model boots from a local checkpoint: found first,
+        # so a missing one raises FileNotFoundError before anything else
+        # is built; the tokenizer and the weights both come from it.
+        self._ckpt_dir = None
+        if params is None and not config.model_name.startswith("bcg-tpu/"):
+            from bcg_tpu_torch.models.loader import require_checkpoint_dir
+
+            self._ckpt_dir = require_checkpoint_dir(config.model_name)
+        self.tokenizer: Tokenizer = tokenizer_for_model(config.model_name, self._ckpt_dir)
         self.max_model_len = config.max_model_len
         self.prefill_chunk = int(getattr(config, "prefill_chunk", 0) or 0)
         if self.prefill_chunk < 0:
@@ -267,7 +295,7 @@ class TorchEngine(InferenceEngine):
         self.last_decode_steps = 0
         self.total_decode_steps = 0
         # Draft tokens proposed / accepted by the speculative loop, over
-        # real rows (the engine.spec.* metrics wait for ROADMAP A12).
+        # real rows (also the engine.spec.* counters).
         self.spec_drafted = 0
         self.spec_accepted = 0
         # Steps the plain loop takes for the same outputs (one per token
@@ -314,6 +342,11 @@ class TorchEngine(InferenceEngine):
         if self._mem_limit:
             free = self._mem_limit - self._param_bytes
             self._prefix_budget = min(4 << 30, max(256 << 20, int(free * 0.25)))
+        # Device-memory ledger (obs/ledger.py): the card's capacity and
+        # the weights, keyed by engine identity, so weight-sharing engines
+        # each charge their share once and shutdown credits exactly it.
+        obs_ledger.set_limit(self._mem_limit)
+        obs_ledger.charge("params", id(self), self._param_bytes)
 
         # Block-paged KV cache (see the module docstring); the pool is
         # sized after the weights, from the card's memory.
@@ -333,6 +366,12 @@ class TorchEngine(InferenceEngine):
             )
         if self.paged_kv:
             self._init_paged(config)
+        # Telemetry endpoint (BCG_TPU_METRICS_PORT) + fleet metric-shard
+        # flusher (BCG_TPU_METRICS_SHARD_DIR): idempotent, off by default.
+        from bcg_tpu_torch.obs import export as obs_export, fleet as obs_fleet
+
+        obs_export.maybe_start_http_server()
+        obs_fleet.maybe_start_shard_writer()
 
     # ------------------------------------------------------------ config
 
@@ -384,8 +423,12 @@ class TorchEngine(InferenceEngine):
 
     def _load_params(self, params):
         """The served weight tree (the JAX engine's boot section, without
-        scan-over-layers and meshes).  An owned tree is made on the device
-        from seed 0, quantized leaf by leaf as it is made when
+        scan-over-layers and meshes).  An owned tree of a ``bcg-tpu/*``
+        preset is made on the device from seed 0; any other model loads
+        its local checkpoint (``self._ckpt_dir``): a pre-quantized
+        artifact (``models/artifact.py``, whose mode must be this
+        engine's), else HF safetensors (``models/loader.py``).  Made or
+        loaded, an owned tree is quantized leaf by leaf as it arrives when
         ``quantization`` is set.  A shared tree (``params=``) must be bf16
         or already in this engine's mode: a bf16 one is quantized into a
         new dict, leaving the donor's copy whole; a quantized one of
@@ -397,14 +440,24 @@ class TorchEngine(InferenceEngine):
         )
 
         mode = self.quantization
-        if params is None:
+        transform = quantize_leaf_transform(self.spec, mode) if mode else None
+        if params is None and self._ckpt_dir is None:
             from bcg_tpu_torch.models.convert import init_params
 
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
-            params = init_params(
-                self.spec, gen, self.device,
-                leaf_transform=quantize_leaf_transform(self.spec, mode) if mode else None)
+            params = init_params(self.spec, gen, self.device, leaf_transform=transform)
+        elif params is None:
+            from bcg_tpu_torch.models import artifact
+            from bcg_tpu_torch.models.loader import load_checkpoint_params
+
+            if artifact.artifact_mode(self._ckpt_dir) is not None:
+                params = artifact.load_quantized_artifact(
+                    self.spec, self._ckpt_dir, mode, self.device)
+            else:
+                params = load_checkpoint_params(
+                    self.spec, self.config.model_name, self.device,
+                    leaf_transform=transform, ckpt_dir=self._ckpt_dir)
         else:
             wq = params["layers.0.wq"]
             tree_mode = ("int4" if is_int4(wq) else "int8") if is_quantized(wq) else None
@@ -451,6 +504,22 @@ class TorchEngine(InferenceEngine):
 
     def _dev(self, arr, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=self.device, dtype=dtype)
+
+    @staticmethod
+    def _all_done(done: torch.Tensor, entry: str) -> bool:
+        """The decode loops' "all rows done" poll: the only host read
+        inside a loop, every :data:`_DONE_CHECK` steps (a seam of the
+        host-sync audit)."""
+        obs_hostsync.note("done_poll", entry=entry)
+        with obs_hostsync.expected():
+            return bool(done.all())
+
+    @staticmethod
+    def _read_back(site: str, entry: str, t: torch.Tensor, n: int = 1) -> np.ndarray:
+        """``t`` on the host, counted at ``site`` (``n`` syncs)."""
+        obs_hostsync.note(site, n=n, entry=entry)
+        with obs_hostsync.expected():
+            return t.cpu().numpy()
 
     # ------------------------------------------------------------- tokenizing
 
@@ -547,6 +616,8 @@ class TorchEngine(InferenceEngine):
         valid[0, Pb - len(toks):] = True
         cache = self._new_cache(1, Pb)
         _, kv = self._prefill_possibly_chunked(tokens, valid, Pb, cache)
+        obs_counters.inc("engine.prefill.positions_padded", Pb)
+        obs_counters.inc("engine.prefill.positions_real", len(toks))
         entry = {
             "kv": kv, "valid": valid[0], "len": len(toks), "bucket": Pb,
             "toks": np.asarray(toks, dtype=np.int32),
@@ -619,6 +690,8 @@ class TorchEngine(InferenceEngine):
             tokens, cvalid, Cb, cache,
             prefix_valid=pv, prefix_lens=np.asarray([e1["len"]], np.int32),
         )
+        obs_counters.inc("engine.prefill.positions_padded", Cb)
+        obs_counters.inc("engine.prefill.positions_real", len(core_toks))
         entry = {
             "kv": kv,
             "valid": np.concatenate([pv[0], cvalid[0]]),
@@ -636,6 +709,9 @@ class TorchEngine(InferenceEngine):
         evictable = [k for k in self._prefix_cache if k not in self._prefix_active]
         while self._prefix_bytes > self._prefix_budget and evictable:
             self._prefix_bytes -= self._prefix_cache.pop(evictable.pop(0))["bytes"]
+        # Both entry creators end here: re-charging the engine's prefix
+        # key with the post-eviction total keeps the ledger exact.
+        obs_ledger.charge("prefix_cache", id(self), self._prefix_bytes)
         if self._prefix_bytes > self._prefix_budget and not self._prefix_over_budget_warned:
             warnings.warn(
                 f"prefix-KV working set ({self._prefix_bytes / 1e9:.1f} GB) "
@@ -801,6 +877,8 @@ class TorchEngine(InferenceEngine):
             self._prefill_paged_possibly_chunked(tokens, valid, Lr_pad, cache, pv,
                                                  np.asarray([matched], np.int32))
             self._paged_dirty = False
+            obs_counters.inc("engine.prefill.positions_padded", Lr_pad)
+            obs_counters.inc("engine.prefill.positions_real", Lr)
             grafted = mgr.insert(path, toks, matched, new_ids[:n_real])
             kept = {node.block for node in grafted}
             # Everything not grafted is dead the moment insert returns (the
@@ -1018,14 +1096,17 @@ class TorchEngine(InferenceEngine):
 
     def _decode_loop(self, cache, first_logits, valid_mask, prompt_lens, L: int,
                      batch: GuidedBatch, temps, budgets, max_new: int,
-                     top_p: float):
+                     top_p: float, entry: str = "decode_loop"):
         """The guided token loop (``_decode_loop_fn``'s semantics).
-        Returns ``(out [B, max_new] int32 on the host, steps)``."""
+        Returns ``(out [B, max_new] int32, steps)`` on the device;
+        ``entry`` names the loop for the host-sync audit and the launch
+        census."""
         spec = self.spec
         eos = self.tokenizer.eos_id
         sampler = make_fused_sampler(eos, top_p)
         row_temp = self._dev(np.asarray(temps, np.float32))
         row_budget = self._dev(np.asarray(budgets, np.int32))
+        census = obs_hlo.step_census(entry, self.device)
 
         def sample(logits, states, emitted):
             return sampler(logits, states, self._gen, emitted, batch.tables,
@@ -1044,8 +1125,10 @@ class TorchEngine(InferenceEngine):
             # Position max_new-1 is the last output slot, written by step
             # max_new-2.  Steps taken after every row finished only write
             # EOS over EOS; `steps` counts the ones the JAX loop runs.
-            if i % _DONE_CHECK == 0 and bool(done.all()):
+            if i % _DONE_CHECK == 0 and self._all_done(done, entry):
                 break
+            if census is not None:
+                census.begin(i)
             steps += (~done.all()).to(torch.int32)
             valid_mask[:, L + i] = True
             logits, cache = decode_step(
@@ -1057,10 +1140,15 @@ class TorchEngine(InferenceEngine):
             out[:, i + 1] = tok
             done = done | (tok == eos)
             cur = torch.where(done, cur, tok)
-        return out.cpu().numpy(), int(steps)
+            if census is not None:
+                census.end(i)
+        if census is not None:
+            census.close()
+        return out, steps
 
     def _ff_decode_loop(self, cache, first_logits, valid_mask, prompt_lens, L: int,
-                        batch: GuidedBatch, temps, budgets, max_new: int, top_p: float):
+                        batch: GuidedBatch, temps, budgets, max_new: int, top_p: float,
+                        entry: str = "ff_decode_loop"):
         """The forced-chain fast-forward loop (the JAX engine's
         ``_build_ff_decode_loop``): every iteration samples ONE token and
         rides its DFA-forced continuation (up to FF_CHUNK-1 skeleton
@@ -1069,7 +1157,7 @@ class TorchEngine(InferenceEngine):
         chain (compacted; shorter chains leave masked gaps inside the
         window) and stays a device tensor, written with ``index_copy_``.
         Greedy output is token-identical to the plain loop.  Returns
-        ``(out [B, max_new] int32 on the host, steps)``."""
+        ``(out [B, max_new] int32, steps)`` on the device."""
         K = FF_CHUNK
         spec = self.spec
         eos = self.tokenizer.eos_id
@@ -1077,6 +1165,7 @@ class TorchEngine(InferenceEngine):
         sampler = make_fused_sampler(eos, top_p)
         row_temp = self._dev(np.asarray(temps, np.float32))
         row_budget = self._dev(np.asarray(budgets, np.int32))
+        census = obs_hlo.step_census(entry, dev)
         B = first_logits.shape[0]
         tail_slots = _ff_decode_slots(max_new)
         dfa = batch.dfa_ids.long()
@@ -1092,8 +1181,10 @@ class TorchEngine(InferenceEngine):
         steps = torch.zeros((), dtype=torch.int32, device=dev)
         logits = first_logits
         for i in range(max_new):
-            if i % _DONE_CHECK == 0 and bool(done.all()):
+            if i % _DONE_CHECK == 0 and self._all_done(done, entry):
                 break
+            if census is not None:
+                census.begin(i)
             steps += (~done.all()).to(torch.int32)
             tok, ns = sampler(logits, states, self._gen, emitted, batch.tables,
                               batch.accepting, batch.min_budget, batch.dfa_ids,
@@ -1125,32 +1216,37 @@ class TorchEngine(InferenceEngine):
             states = torch.where(done, states, next_states.to(torch.int32))
             states = torch.where(finished, torch.full_like(states, -1), states)
             done = done | finished
-        return out[:, :max_new].cpu().numpy(), int(steps)
+            if census is not None:
+                census.end(i)
+        if census is not None:
+            census.close()
+        return out[:, :max_new], steps
 
     def _spec_decode_loop(self, cache, first_logits, valid_mask, prompt_lens, L: int,
                           batch: GuidedBatch, temps, budgets, max_new: int, top_p: float,
-                          hist: np.ndarray):
+                          hist: np.ndarray, entry: str = "spec_decode_loop"):
         """The speculative loop (``engine/speculative.spec_decode_loop``)
-        over this batch.  Returns ``(out, steps, drafted [B],
-        accepted [B])`` on the host."""
+        over this batch.  Returns ``(out, steps, drafted [B], accepted
+        [B])`` on the device."""
         eos = self.tokenizer.eos_id
-        out, steps, drafted, accepted = spec_decode_loop(
+        return spec_decode_loop(
             self.params, self.spec, cache, first_logits, valid_mask, prompt_lens, L, batch,
             self._dev(np.asarray(temps, np.float32)), self._dev(np.asarray(budgets, np.int32)),
             self._dev(hist), self._gen, sampler=make_fused_sampler(eos, top_p), eos_id=eos,
             top_p=top_p, max_new=max_new, k=self.spec_k, n=self.spec_ngram,
-            done_check=_DONE_CHECK,
+            done_check=_DONE_CHECK, all_done=lambda done: self._all_done(done, entry),
+            census=obs_hlo.step_census(entry, self.device),
         )
-        return (out.cpu().numpy(), int(steps), drafted.cpu().numpy(),
-                accepted.cpu().numpy())
 
     def _decode_batch(self, parts, batch, real_B, temps, budgets, top_p,
                       free: bool = False) -> List[str]:
-        """:meth:`_decode_batch_impl`, and for a paged engine the call's
-        ``finally``: free the call's private blocks and unpin its radix
-        paths — or, after a failure while blocks were being written,
-        invalidate the pool (its contents are undefined) — then publish
-        the pool snapshot (``runtime.metrics.publish_kv_pool``)."""
+        """:meth:`_decode_batch_impl`, and the call's ``finally``: credit
+        the call's KV ledger accounts; for a paged engine, free the call's
+        private blocks and unpin its radix paths — or, after a failure
+        while blocks were being written, invalidate the pool (its contents
+        are undefined) — then charge the radix-resident blocks to the
+        prefix account and publish the pool snapshot
+        (``runtime.metrics.publish_kv_pool``)."""
         try:
             return self._decode_batch_impl(parts, batch, real_B, temps, budgets, top_p,
                                            free=free)
@@ -1164,7 +1260,16 @@ class TorchEngine(InferenceEngine):
                     self._paged.free(self._paged_call_private)
                     self._paged_call_private = []
                     self._paged.unpin_all()
-                _metrics.publish_kv_pool(self.kv_pool_stats())
+                pool = self.kv_pool_stats()
+                obs_ledger.charge("prefix_cache", id(self),
+                                  pool["blocks_resident"] * self._paged.block_bytes_dev)
+                _metrics.publish_kv_pool(pool)
+            obs_ledger.credit("kv_cache", id(self))
+            obs_ledger.credit("spec_slots", id(self))
+            if self._mem_limit is not None:
+                # Real allocator present: publish the drift gauge (ledger
+                # vs memory_allocated) each call — the leak alarm.
+                obs_ledger.reconcile()
 
     def _decode_batch_impl(self, parts, batch, real_B, temps, budgets, top_p,
                            free: bool = False) -> List[str]:
@@ -1174,7 +1279,9 @@ class TorchEngine(InferenceEngine):
         else over a dense cache with the prefix cache.  Speculative
         decoding applies to both the guided and the ``free`` path and
         supersedes fast-forward; fast-forward skips the free path, whose
-        permissive automaton has no forced chains."""
+        permissive automaton has no forced chains.  Traced as the
+        ``engine.prefill`` and ``engine.decode`` spans; the batch's KV
+        bytes are charged to the ledger until the call ends."""
         B = len(parts)
         max_new = max(budgets)
         use_spec = self.spec_decode
@@ -1187,85 +1294,127 @@ class TorchEngine(InferenceEngine):
             decode_slots = max_new + 1
         self._check_kv_budget(B, budgets, decode_slots)
         t0 = time.perf_counter()
-        prepped = None
         paged = self._paged is not None
-        if paged:
-            (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
-             S) = self._prepare_paged_batch(parts, budgets, decode_slots)
-            self._paged_dirty = True
-            first_logits, cache = self._prefill_paged_possibly_chunked(
-                tokens, valid, Ls, cache, prefix_valid, prefix_lens)
-            self._paged_dirty = False
-            L = P + Ls
-            valid_mask = np.zeros((B, S), dtype=bool)
-            valid_mask[:, :P] = prefix_valid
-            valid_mask[:, P:L] = valid
-            prompt_lens = (prefix_lens + valid.sum(axis=1)).astype(np.int32)
-            # Private blocks only: the radix-shared prefix is not this
-            # batch's to count.
-            kv_bytes = B * ((S - P) // self._paged.block_size) * self._paged.block_bytes_dev
-        elif self.prefix_caching and self._prefix_safe and all(p for p, _, _ in parts):
-            prepped = self._prepare_prefixed_batch(parts, budgets, decode_slots)
-            if prepped is None:
-                self.prefix_fallbacks += 1
-                if not self._prefix_fallback_warned:
-                    warnings.warn(
-                        "prefix caching disengaged for this batch (prefix too "
-                        "long for the prompt window or unbucketable) — falling "
-                        "back to full-prompt prefill; further fallbacks are "
-                        "counted in engine.prefix_fallbacks",
-                        stacklevel=2,
-                    )
-                    self._prefix_fallback_warned = True
-        if not paged:
-            prefix_toks = None
-        if prepped is not None:
-            (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
-             S) = prepped
-            first_logits, cache = self._prefill_possibly_chunked(
-                tokens, valid, Ls, cache,
-                prefix_valid=prefix_valid, prefix_lens=prefix_lens,
-            )
-            L = P + Ls
-            valid_mask = np.zeros((B, S), dtype=bool)
-            valid_mask[:, :P] = prefix_valid
-            valid_mask[:, P:L] = valid
-            prompt_lens = (prefix_lens + valid.sum(axis=1)).astype(np.int32)
-        elif not paged:
-            full_prompts = [p + c + t for p, c, t in parts]
-            tokens, valid, L = self._prepare_batch(full_prompts, budgets)
-            S = L + decode_slots
-            cache = self._new_cache(B, S)
-            first_logits, cache = self._prefill_possibly_chunked(tokens, valid, L, cache)
-            valid_mask = np.zeros((B, S), dtype=bool)
-            valid_mask[:, :L] = valid
-            prompt_lens = valid.sum(axis=1).astype(np.int32)
-        if not paged:
-            kv_bytes = cache.nbytes()
-        self._sync()
+        with obs_tracer.span("engine.prefill", args={"rows": B}):
+            prepped = None
+            if paged:
+                (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
+                 S) = self._prepare_paged_batch(parts, budgets, decode_slots)
+                self._paged_dirty = True
+                first_logits, cache = self._prefill_paged_possibly_chunked(
+                    tokens, valid, Ls, cache, prefix_valid, prefix_lens)
+                self._paged_dirty = False
+                L = P + Ls
+                valid_mask = np.zeros((B, S), dtype=bool)
+                valid_mask[:, :P] = prefix_valid
+                valid_mask[:, P:L] = valid
+                prompt_lens = (prefix_lens + valid.sum(axis=1)).astype(np.int32)
+                # Private blocks only: the radix-shared prefix is the
+                # prefix account's.
+                kv_bytes = B * ((S - P) // self._paged.block_size) * self._paged.block_bytes_dev
+            elif self.prefix_caching and self._prefix_safe and all(p for p, _, _ in parts):
+                prepped = self._prepare_prefixed_batch(parts, budgets, decode_slots)
+                if prepped is None:
+                    self.prefix_fallbacks += 1
+                    if not self._prefix_fallback_warned:
+                        warnings.warn(
+                            "prefix caching disengaged for this batch (prefix too "
+                            "long for the prompt window or unbucketable) — falling "
+                            "back to full-prompt prefill; further fallbacks are "
+                            "counted in engine.prefix_fallbacks",
+                            stacklevel=2,
+                        )
+                        self._prefix_fallback_warned = True
+            if not paged:
+                prefix_toks = None
+            if prepped is not None:
+                (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
+                 S) = prepped
+                first_logits, cache = self._prefill_possibly_chunked(
+                    tokens, valid, Ls, cache,
+                    prefix_valid=prefix_valid, prefix_lens=prefix_lens,
+                )
+                L = P + Ls
+                valid_mask = np.zeros((B, S), dtype=bool)
+                valid_mask[:, :P] = prefix_valid
+                valid_mask[:, P:L] = valid
+                prompt_lens = (prefix_lens + valid.sum(axis=1)).astype(np.int32)
+            elif not paged:
+                full_prompts = [p + c + t for p, c, t in parts]
+                tokens, valid, L = self._prepare_batch(full_prompts, budgets)
+                S = L + decode_slots
+                cache = self._new_cache(B, S)
+                first_logits, cache = self._prefill_possibly_chunked(tokens, valid, L, cache)
+                valid_mask = np.zeros((B, S), dtype=bool)
+                valid_mask[:, :L] = valid
+                prompt_lens = valid.sum(axis=1).astype(np.int32)
+            if not paged:
+                kv_bytes = cache.nbytes()
+            # The decode tail's over-allocation (speculative K+1 window,
+            # fast-forward chains) is its own ledger account.
+            spec_part = int(kv_bytes * max(0, decode_slots - (max_new + 1)) / S)
+            obs_ledger.charge("kv_cache", id(self), kv_bytes - spec_part)
+            obs_ledger.charge("spec_slots", id(self), spec_part)
+            obs_counters.inc("engine.prefill.positions_padded",
+                             B * (L if (prepped is None and not paged) else Ls))
+            obs_counters.inc("engine.prefill.positions_real", int(valid.sum()))
+            obs_hostsync.note("prefill_barrier", entry="prefill")
+            with obs_hostsync.expected():
+                self._sync()
         t1 = time.perf_counter()
-        # A paged loop writes decode KV into private pool blocks.
-        self._paged_dirty = paged
-        loop_args = (cache, first_logits, self._dev(valid_mask), self._dev(prompt_lens),
-                     L, batch, temps, budgets, max_new, top_p)
+        # The loop's name: the host-sync audit's attribution when tracing
+        # is off, and the launch census's entry.
+        loop_entry = ("paged_" if paged else "") + (
+            "spec_decode_loop" if use_spec else "ff_decode_loop" if use_ff else "decode_loop")
+        sampler_launches = sample_rows.launches
+        with obs_tracer.span("engine.decode", args={"rows": B, "max_new": max_new}):
+            # A paged loop writes decode KV into private pool blocks.
+            self._paged_dirty = paged
+            loop_args = (cache, first_logits, self._dev(valid_mask), self._dev(prompt_lens),
+                         L, batch, temps, budgets, max_new, top_p)
+            if use_spec:
+                # Token history for the prompt-lookup drafter: row i's
+                # prompt tokens (prefix entry tokens, then the suffix) at
+                # [0, prompt_lens[i]), -1 elsewhere.
+                hist = np.full((B, L + max_new), -1, dtype=np.int32)
+                for i in range(B):
+                    row = tokens[i][valid[i]]
+                    if prefix_toks is not None:
+                        row = np.concatenate([prefix_toks[i], row])
+                    hist[i, : len(row)] = row
+                with obs_tracer.span("engine.spec_verify",
+                                     args={"rows": B, "k": self.spec_k, "ngram": self.spec_ngram}):
+                    out, steps, drafted, accepted = self._spec_decode_loop(
+                        *loop_args, hist, entry=loop_entry)
+            elif use_ff:
+                out, steps = self._ff_decode_loop(*loop_args, entry=loop_entry)
+            else:
+                out, steps = self._decode_loop(*loop_args, entry=loop_entry)
+            self._paged_dirty = False
+            out_np = self._read_back("decode_readback", loop_entry, out)
+        steps = int(self._read_back("steps_readback", loop_entry, steps))
+        sampler_launches = sample_rows.launches - sampler_launches
+        if sampler_launches:
+            # Sampler kernel launches, counted where they happen: the loop
+            # goes on launching after every row is done, up to the next
+            # done poll, so ``steps`` would undercount them.
+            obs_counters.inc("engine.sampler.fused_calls", sampler_launches)
         if use_spec:
-            # Token history for the prompt-lookup drafter: row i's prompt
-            # tokens (prefix entry tokens, then the suffix) at
-            # [0, prompt_lens[i]), -1 elsewhere.
-            hist = np.full((B, L + max_new), -1, dtype=np.int32)
-            for i in range(B):
-                row = tokens[i][valid[i]]
-                if prefix_toks is not None:
-                    row = np.concatenate([prefix_toks[i], row])
-                hist[i, : len(row)] = row
-            out_np, steps, drafted, accepted = self._spec_decode_loop(*loop_args, hist)
-            self.spec_drafted += int(drafted[:real_B].sum())
-            self.spec_accepted += int(accepted[:real_B].sum())
-        elif use_ff:
-            out_np, steps = self._ff_decode_loop(*loop_args)
-        else:
-            out_np, steps = self._decode_loop(*loop_args)
-        self._paged_dirty = False
+            # Draft acceptance over REAL rows only (padding rows repeat
+            # row 0 and would inflate the rate).
+            obs_hostsync.note("spec_readback", n=2, entry=loop_entry)
+            with obs_hostsync.expected():
+                spec_drafted = int(drafted[:real_B].sum())
+                spec_accepted = int(accepted[:real_B].sum())
+            self.spec_drafted += spec_drafted
+            self.spec_accepted += spec_accepted
+            if spec_drafted:
+                obs_counters.inc("engine.spec.drafted", spec_drafted)
+                obs_counters.inc("engine.spec.accepted", spec_accepted)
+                obs_counters.inc("engine.spec.rejected", spec_drafted - spec_accepted)
+        # Refresh LAST_HOSTSYNC once per generation call (no-op when the
+        # auditor is off).
+        obs_hostsync.publish()
         self.max_kv_cache_bytes = max(self.max_kv_cache_bytes, kv_bytes)
         is_eos = out_np == self.tokenizer.eos_id
         row_len = np.where(is_eos.any(axis=1), is_eos.argmax(axis=1), max_new)
@@ -1291,6 +1440,16 @@ class TorchEngine(InferenceEngine):
             row = row[: end[0]] if end.size else row
             texts.append(self.tokenizer.decode(row.tolist()))
         return texts
+
+    def _decode_padded(self, parts, batch, real_B, temps, budgets, top_p,
+                       free: bool = False) -> List[str]:
+        """:meth:`_decode_batch` of a padded batch, its padded size noted as
+        a shape signature (``pad_batch``, obs/compile.py).  Nothing is
+        compiled per shape here: the one-time costs of a new size (plan
+        queries, workspace growth) are timed at their own seams in the
+        kernel wrappers."""
+        obs_compile.note_shape("pad_batch", (len(parts),), names=("batch",))
+        return self._decode_batch(parts, batch, real_B, temps, budgets, top_p, free=free)
 
     def _run_guided(self, parts: List[Tuple[str, str, str]], schemas: List[Dict],
                     temperature, max_tokens, top_p: float = 1.0) -> List[str]:
@@ -1322,7 +1481,7 @@ class TorchEngine(InferenceEngine):
             for s in schemas
         ]
         batch = GuidedBatch(guides, device=self.device)
-        return self._decode_batch(parts, batch, real_B, temps, budgets, top_p)
+        return self._decode_padded(parts, batch, real_B, temps, budgets, top_p)
 
     def _run_free(self, full_prompts, temperature, max_tokens, top_p=1.0):
         """Unguided generation: the same loop under a permissive
@@ -1346,7 +1505,7 @@ class TorchEngine(InferenceEngine):
             return out
         real_B, B, parts, temps, budgets = _pad_rows(parts, temps, budgets)
         batch = GuidedBatch.permissive(B, self.spec.vocab_size, device=self.device)
-        texts = self._decode_batch(parts, batch, real_B, temps, budgets, top_p, free=True)
+        texts = self._decode_padded(parts, batch, real_B, temps, budgets, top_p, free=True)
         return [t.strip() for t in texts]
 
     # ---------------------------------------------------------- memory budget
@@ -1577,7 +1736,10 @@ class TorchEngine(InferenceEngine):
         return stats
 
     def shutdown(self) -> None:
-        """Release the weights, the cached prefix KV and the paged pool."""
+        """Release the weights, the cached prefix KV and the paged pool,
+        and credit their ledger accounts."""
+        obs_ledger.credit("params", id(self))
+        obs_ledger.credit("prefix_cache", id(self))
         self._prefix_cache.clear()
         self._prefix_bytes = 0
         if self._paged is not None:

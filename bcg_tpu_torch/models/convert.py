@@ -84,24 +84,41 @@ def params_from_numpy(named_arrays: NamedArrays, spec: ModelSpec,
     out = {}
     for name, shape in plan.items():
         if name in quant:
-            want = _quantized_shapes(quant[name], shape)
-            leaf = {}
-            for part, arr in quant[name].items():
-                t = _to_tensor(arr)
-                if tuple(t.shape) != want[part]:
-                    raise ValueError(f"{name}.{part}: shape {tuple(t.shape)} != {want[part]}")
-                leaf[part] = t.to(device=device)
-            if "q" in leaf:
-                leaf["q"] = int8_weight_layout(leaf["q"])
-            if "q4" in leaf:
-                leaf["q4"] = int4_weight_layout(leaf["q4"])
-            out[name] = leaf
-            continue
-        t = _to_tensor(flat[name])
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != plan {shape}")
-        out[name] = t.to(device=device, dtype=dtype or t.dtype)
+            parts = {part: _to_tensor(arr) for part, arr in quant[name].items()}
+            out[name] = quantized_leaf(name, parts, shape, device)
+        else:
+            out[name] = dense_leaf(name, _to_tensor(flat[name]), shape, device, dtype)
     return out
+
+
+def dense_leaf(name: str, t: torch.Tensor, shape, device="cpu",
+               dtype=torch.bfloat16) -> torch.Tensor:
+    """One full-precision plan leaf as :func:`init_params` makes it: its
+    plan ``shape`` (else ``ValueError``), on ``device`` in ``dtype``
+    (``None`` keeps ``t``'s), contiguous."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != plan {tuple(shape)}")
+    return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+
+def quantized_leaf(name: str, parts: Mapping[str, torch.Tensor], shape,
+                   device="cpu") -> Dict[str, torch.Tensor]:
+    """One quantized plan leaf from its parts in the ``[in, out]`` layout
+    (int8 ``q``/``scale`` or int4 ``q4``/``gscale``, each in its own
+    dtype): shapes checked against the plan ``shape``, on ``device``,
+    ``q`` and ``q4`` stored output-major as the port's quantizer stores
+    them."""
+    want = _quantized_shapes(parts, shape)
+    leaf = {}
+    for part, t in parts.items():
+        if tuple(t.shape) != want[part]:
+            raise ValueError(f"{name}.{part}: shape {tuple(t.shape)} != {want[part]}")
+        leaf[part] = t.to(device=device)
+    if "q" in leaf:
+        leaf["q"] = int8_weight_layout(leaf["q"])
+    if "q4" in leaf:
+        leaf["q4"] = int4_weight_layout(leaf["q4"])
+    return leaf
 
 
 def init_params(spec: ModelSpec, generator: torch.Generator, device="cuda",

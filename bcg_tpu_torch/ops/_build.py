@@ -21,7 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List
+
+from bcg_tpu_torch.obs import compile as obs_compile
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(
@@ -64,6 +67,7 @@ def build_all(names=SOURCES) -> List[str]:
     register and shared-memory reports) of the sources it built; raises
     with the compiler's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
     procs = []
     for name in names:
         out = _lib_path(name)
@@ -75,13 +79,21 @@ def build_all(names=SOURCES) -> List[str]:
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
+    t_prev = t0
     for name, out, tmp, proc in procs:
         text, _ = proc.communicate()
+        t_done = time.perf_counter()
         logs.append(f"== {name}\n{text}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{text}")
             continue
         os.replace(tmp, out)
+        # Each build as a first compile of its own entry.  The builds run
+        # side by side, so each is charged the wall time since the one
+        # before it finished: the charges add up to the batch's wall time.
+        obs_compile.note_shape(f"nvcc_{name}", (name,), names=("library",),
+                               seconds=t_done - t_prev)
+        t_prev = t_done
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

@@ -105,9 +105,11 @@ def flash_attention_cuda(q, k, v, mask, scale):
 def flash_attention(q, k, v, mask, scale):
     """Prefill attention: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns ``[B, T, H, Dh]``."""
+    flash_attention.calls += 1
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, scale)
     return flash_attention_cuda(q, k, v, mask, scale)
 
 
 flash_attention.launches = 0
+flash_attention.calls = 0

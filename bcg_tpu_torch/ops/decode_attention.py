@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from bcg_tpu_torch.obs import compile as obs_compile
 from bcg_tpu_torch.ops import _build
 from bcg_tpu_torch.ops.attention import _NEG_INF, flash_attention_plain
 
@@ -262,8 +263,11 @@ class SplitWorkspace:
                 self.retired.append((self.part, self.count))
             n_part = max(n_part, 1 if self.part is None else self.part.numel())
             n_count = max(n_count, 1 if self.count is None else self.count.numel())
-            self.part = torch.empty(n_part, dtype=torch.float32, device=device)
-            self.count = torch.zeros(n_count, dtype=torch.int32, device=device)
+            with obs_compile.time_block("split_workspace"):
+                self.part = torch.empty(n_part, dtype=torch.float32, device=device)
+                self.count = torch.zeros(n_count, dtype=torch.int32, device=device)
+            obs_compile.note_shape("split_workspace", (n_part, n_count),
+                                   names=("partials", "counters"), timing="stash")
         return self.part, self.count
 
 
@@ -338,12 +342,14 @@ def decode_attention_cuda(q, k, v, mask, scale):
 def decode_attention(q, k, v, mask, scale):
     """Decode attention: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
+    decode_attention.calls += 1
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, mask, scale)
     return decode_attention_cuda(q, k, v, mask, scale)
 
 
 decode_attention.launches = 0
+decode_attention.calls = 0
 
 
 # ------------------------------------------------------ chunk and int8 forms
@@ -511,6 +517,7 @@ def chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale):
 def chunk_decode_attention(q, k, v, mask, scale):
     """bf16 chunk decode attention: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
+    chunk_decode_attention.calls += 1
     if q.device.type == "cpu":
         return chunk_decode_attention_plain(q, k, v, mask, scale)
     return chunk_decode_attention_cuda(q, k, v, mask, scale)
@@ -519,6 +526,7 @@ def chunk_decode_attention(q, k, v, mask, scale):
 def decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale):
     """int8-cache decode step: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
+    decode_attention_int8.calls += 1
     if q.device.type == "cpu":
         return decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale)
     return decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale)
@@ -527,11 +535,15 @@ def decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale):
 def chunk_decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale):
     """int8-cache chunk decode attention: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
+    chunk_decode_attention_int8.calls += 1
     if q.device.type == "cpu":
         return chunk_decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale)
     return chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale)
 
 
 chunk_decode_attention.launches = 0
+chunk_decode_attention.calls = 0
 decode_attention_int8.launches = 0
+decode_attention_int8.calls = 0
 chunk_decode_attention_int8.launches = 0
+chunk_decode_attention_int8.calls = 0

@@ -25,6 +25,7 @@ from typing import Callable, Optional
 
 import torch
 
+from bcg_tpu_torch.obs import compile as obs_compile
 from bcg_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
@@ -223,7 +224,12 @@ def _launch_dims(index: int, B: int, V: int, n_states: int, eos_id: int, top_p: 
     key = (index, B, V, n_states, eos_id, top_p)
     dims = _dims.get(key)
     if dims is None:
-        plan = _cuda_plan(index, B, V, top_p)
+        # A new call shape: its plan (the occupancy query, on a plan
+        # cache miss) is the first call's one-time cost.
+        with obs_compile.time_block("sampler_plan"):
+            plan = _cuda_plan(index, B, V, top_p)
+        obs_compile.note_shape("sampler_plan", (B, V, top_p),
+                               names=("batch", "vocab", "top_p"), timing="stash")
         dims = _dims[key] = (ctypes.c_int * 9)(
             B, V, vocab_rows(V)[0], n_states, eos_id, plan.c, plan.slice, plan.chunk,
             plan.smem_bytes)
@@ -254,6 +260,7 @@ def sample_rows(logits, min_budget, dfa_ids, states, meta_i, meta_f,
                 eos_id: int, top_p: float):
     """The fused sampler: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
+    sample_rows.calls += 1
     if logits.device.type == "cpu":
         return sample_rows_plain(logits, min_budget, dfa_ids, states, meta_i,
                                  meta_f, eos_id, top_p)
@@ -262,6 +269,7 @@ def sample_rows(logits, min_budget, dfa_ids, states, meta_i, meta_f,
 
 
 sample_rows.launches = 0
+sample_rows.calls = 0
 
 
 def make_fused_sampler(eos_id: int, top_p: float):

@@ -345,6 +345,7 @@ def paged_decode_attention(q, entry: Dict, mask, scale):
     Dh]``, mask ``[B, S]`` attendable logical slots; returns ``[B, 1, H,
     Dh]``.  The CUDA kernel for CUDA tensors, the gather oracle for CPU
     tensors."""
+    paged_decode_attention.calls += 1
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, entry, mask, scale)
     return paged_decode_attention_cuda(q, entry, mask, scale)
@@ -355,10 +356,13 @@ def paged_chunk_attention(q, entry: Dict, mask, scale):
     speculative-verify windows): q ``[B, K, H, Dh]``, mask ``[B, K, S]``;
     returns ``[B, K, H, Dh]``.  The CUDA kernel for CUDA tensors, the
     gather oracle for CPU tensors."""
+    paged_chunk_attention.calls += 1
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(q, entry, mask, scale)
     return paged_chunk_attention_cuda(q, entry, mask, scale)
 
 
 paged_decode_attention.launches = dict.fromkeys(LAYOUTS, 0)
+paged_decode_attention.calls = 0
 paged_chunk_attention.launches = dict.fromkeys(LAYOUTS, 0)
+paged_chunk_attention.calls = 0

@@ -90,4 +90,8 @@ def resume_simulation(path: str, config=None, engine=None,
     restore = getattr(sim.network.protocol, "restore", None)
     if proto_blob is not None and restore is not None:
         restore(proto_blob)
+    if sim._recorder is not None:
+        # The game object was just replaced — re-anchor the game-event
+        # recorder's role partition / influence reference on it.
+        sim._recorder.resync(sim)
     return sim

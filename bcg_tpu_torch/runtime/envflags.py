@@ -160,6 +160,159 @@ _register(
     "'faults' block.",
 )
 
+_register(
+    "BCG_TPU_CHECKPOINT_DIR", "str", None,
+    "Root directory searched for local safetensors checkpoints "
+    "(models/loader.find_checkpoint_dir).",
+)
+
+# BCG_TPU_TRACE* — span tracer / observability (bcg_tpu_torch/obs).
+_register(
+    "BCG_TPU_TRACE", "bool", False,
+    "Enable the span tracer (bcg_tpu_torch/obs): orchestrator and engine "
+    "spans are ring-buffered and exportable as Chrome trace-event JSON "
+    "(Perfetto).",
+)
+_register(
+    "BCG_TPU_TRACE_OUT", "str", None,
+    "Path the tracer exports its Chrome trace JSON to at process exit "
+    "(setting it implies BCG_TPU_TRACE).",
+)
+_register(
+    "BCG_TPU_TRACE_RING", "int", 65536,
+    "Span-event ring-buffer capacity; the oldest events are evicted "
+    "beyond it (the summarize() latency table is NOT subject to "
+    "eviction).",
+)
+_register(
+    "BCG_TPU_COMPILE_OBS", "str", None,
+    "Compile-cost observability (bcg_tpu_torch/obs/compile.py): per-entry "
+    "first-call and nvcc build time histograms (engine.compile_ms.*), "
+    "first-compile vs retrace split, shape-cache population gauges, and "
+    "a structured cause record per new shape of a shape-keyed seam "
+    "(engine.retrace_cause.* — which argument changed, e.g. batch "
+    "8->16).  '1' = counters only; any other value = counters plus the "
+    "cause JSONL stream appended at that path (first line = run "
+    "manifest).  Off: zero surface — nothing registered, no threads.",
+)
+_register(
+    "BCG_TPU_PROFILE", "str", None,
+    "Profiler capture window: wrap the BCG_TPU_PROFILE_ROUNDS-selected "
+    "orchestrator rounds in one bounded torch.profiler trace written "
+    "into this directory as trace.json (Perfetto-loadable; "
+    "manifest.json stamps the fleet identity).",
+)
+_register(
+    "BCG_TPU_PROFILE_ROUNDS", "str", "1-2",
+    "Inclusive 1-based 'a-b' window of rounds/dispatches the "
+    "BCG_TPU_PROFILE capture wraps (a bare 'a' captures one); the "
+    "first stream to reach 'a' owns the window.",
+)
+_register(
+    "BCG_TPU_HOSTSYNC", "bool", False,
+    "Runtime host-sync auditor (bcg_tpu_torch/obs/hostsync.py): count "
+    "every device->host synchronization at the instrumented decode-path "
+    "seams (prefill barrier, decode/steps/spec readbacks, the done "
+    "poll), plus, on a CUDA card, every other synchronizing operation "
+    "(torch.cuda.set_sync_debug_mode), attributed to the active tracer "
+    "span or loop entry — engine.hostsync.* counters and the "
+    "game.host_syncs per-round histogram.  Off: zero surface — nothing "
+    "registered, nothing intercepted.",
+)
+_register(
+    "BCG_TPU_HLO_CENSUS", "bool", False,
+    "Record a per-decode-step launch census at each decode loop's first "
+    "call (bcg_tpu_torch/obs/hlo.py): the kernel-wrapper calls and "
+    "launches of one step by kind and, on CUDA, the card's kernels of "
+    "that step by kind from torch.profiler, published as engine.hlo.* "
+    "gauges (one profiled step per loop entry — keep off on serving hot "
+    "paths).",
+)
+_register(
+    "BCG_TPU_METRICS_PORT", "int", 0,
+    "Serve the counter/gauge registry as a Prometheus text exposition "
+    "on http://127.0.0.1:<port>/metrics (stdlib HTTP server, daemon "
+    "thread; 0 = disabled).",
+)
+_register(
+    "BCG_TPU_SERVE_EVENTS", "str", None,
+    "Append serve-path request lifecycle events (admitted/dispatched/"
+    "completed/rejected, with request id and latency breakdown) as "
+    "JSONL to this path (first line = run manifest).",
+)
+_register(
+    "BCG_TPU_GAME_EVENTS", "str", None,
+    "Append per-round consensus-game events (round start/end, agent "
+    "decisions, topology-masked deliveries, votes, convergence "
+    "metrics) as JSONL to this path (first line = run manifest).",
+)
+# BCG_TPU_FLEET* / RUN_ID / METRICS_SHARD* — distributed observability
+# plane (bcg_tpu_torch/obs/fleet.py).
+_register(
+    "BCG_TPU_FLEET", "bool", False,
+    "Force fleet identity stamping on (Prometheus process=/host= "
+    "labels, fleet.* gauges) even in a single-process run; stamping "
+    "also engages automatically under a shard dir.  Off (the default, "
+    "single-process): the exposition is byte-identical to the "
+    "unstamped form.",
+)
+_register(
+    "BCG_TPU_RUN_ID", "str", None,
+    "Run id shared by every rank of one fleet run (shard file names, "
+    "JSONL run manifests, fleet report merge key); unset = a stable "
+    "per-process 12-hex id.",
+)
+_register(
+    "BCG_TPU_METRICS_SHARD_DIR", "str", None,
+    "Directory the per-process metric-shard flusher appends "
+    "shard-<run_id>-<process>.jsonl typed counter/gauge/histogram "
+    "snapshots into (counters sum, histograms bucket-wise, gauges "
+    "per-rank when merged).",
+)
+_register(
+    "BCG_TPU_METRICS_SHARD_MS", "int", 1000,
+    "Metric-shard flush (and heartbeat) period in milliseconds.",
+)
+_register(
+    "BCG_TPU_FLEET_STRAGGLER_FACTOR", "int", 3,
+    "Straggler lag factor: a rank is flagged when its watermark is "
+    "under median/factor or its heartbeat is older than factor x the "
+    "flush period (fleet.stragglers gauge); 0 disables detection.",
+)
+# BCG_TPU_ALERT* — health & alerting plane (bcg_tpu_torch/obs/alerts.py).
+_register(
+    "BCG_TPU_ALERTS", "bool", False,
+    "Rule-driven alert engine (bcg_tpu_torch/obs/alerts.py): a periodic "
+    "evaluator thread checks the default ruleset (SLO burn-rate, "
+    "engine-error/retrace storms, pool-headroom floor, heartbeat "
+    "staleness, ...) against ONE registry snapshot per cycle, counts "
+    "firing/resolved transitions under alert.*, exports "
+    "alert_firing{rule=...} on the Prometheus exposition, and feeds "
+    "the /healthz page-severity verdict.  Off: zero surface — nothing "
+    "registered, no threads.",
+)
+_register(
+    "BCG_TPU_ALERT_MS", "int", 1000,
+    "Alert-rule evaluation period in milliseconds (delta-rate and "
+    "burn-rate rules measure per-window deltas at this cadence).",
+)
+_register(
+    "BCG_TPU_ALERT_EVENTS", "str", None,
+    "Append alert firing/resolved transition events as JSONL to this "
+    "path (first line = run manifest).",
+)
+# BCG_TPU_CHAOS — chaos injection (runtime/resilience.py); the engine
+# and scheduler seams that consult it come with the serving tier.
+_register(
+    "BCG_TPU_CHAOS", "str", None,
+    "Seeded chaos plan over the instrumented fault seams "
+    "(runtime/resilience.py): ';'-separated "
+    "'<kind>@<site>:<when>[:<arg>]' directives (kinds crash/hang/"
+    "exhaust/diskfail/freeze; sites serve.dispatch, engine.generate, "
+    "kvpool.alloc, sink.write, sweep.job, fleet.heartbeat; when = "
+    "occurrence list, 'n+', or 'p<rate>') plus an optional 'seed=<n>'. "
+    "Unset = zero surface.",
+)
 
 # -------------------------------------------------------------- accessors
 def _lookup(name: str) -> EnvFlag:

@@ -21,10 +21,12 @@ Differences from the reference (documented improvements):
 * Optional per-round checkpointing and phase profiling.
 
 The port's copy of ``bcg_tpu/runtime/orchestrator.py``, trimmed to the
-lockstep host-exchange path: the observability hooks (ROADMAP A12), the
-SPMD exchange (A13) and the fused mega-round (A10) are not ported yet,
-and configuring either of the latter two raises ``NotImplementedError``
-instead of being ignored.  Game results do not depend on the hooks.
+lockstep host-exchange path with its observability hooks (the round
+span, the per-round host-sync window, the profiler capture window, the
+game-event stream, the fleet round watermark): the SPMD exchange
+(ROADMAP A13) and the fused mega-round (A10) are not ported yet, and
+configuring either raises ``NotImplementedError`` instead of being
+ignored.  Game results do not depend on the hooks.
 """
 
 from __future__ import annotations
@@ -46,6 +48,11 @@ from bcg_tpu_torch.comm import (
 from bcg_tpu_torch.config import BCGConfig
 from bcg_tpu_torch.engine.interface import InferenceEngine, create_engine
 from bcg_tpu_torch.game import ByzantineConsensusGame
+from bcg_tpu_torch.obs import compile as obs_compile
+from bcg_tpu_torch.obs import fleet as obs_fleet
+from bcg_tpu_torch.obs import game_events as obs_game_events
+from bcg_tpu_torch.obs import hostsync as obs_hostsync
+from bcg_tpu_torch.obs import tracer as obs_tracer
 from bcg_tpu_torch.runtime import envflags
 from bcg_tpu_torch.runtime.logging import RunLogger
 from bcg_tpu_torch.scenarios.strategies import equivocation_value
@@ -199,6 +206,11 @@ class BCGSimulation:
         self.agents: Dict = {}
         self._plotted = False
         self._create_agents()
+        # Game-event telemetry (BCG_TPU_GAME_EVENTS): None on the
+        # default path — every emission site below is one `is not None`
+        # check, so the disabled round loop carries no recorder cost,
+        # no sink thread, and no game.* registry entries.
+        self._recorder = obs_game_events.maybe_recorder(self)
 
     @staticmethod
     def _next_run_number(json_dir: str) -> str:
@@ -375,17 +387,31 @@ class BCGSimulation:
             if result is None:
                 agent.last_reasoning = f"All {MAX_RETRIES} attempts failed - abstaining"
                 self.logger.log(f"  {aid}: ABSTAINING (all attempts failed)")
+                if self._recorder:
+                    self._recorder.decision(
+                        round_num, aid, agent.is_byzantine, None, "invalid"
+                    )
                 continue
             if result.get("_sequential_success"):
                 new_value = result.get("value")
+                outcome = "fallback"
             else:
                 new_value = agent.parse_decision_response(result, game_state)
+                outcome = "valid"
             if new_value is None:
                 self.logger.log(f"  {aid}: ABSTAINING")
                 self.logger.log(f"    Reasoning: {agent.last_reasoning}")
+                if self._recorder:
+                    self._recorder.decision(
+                        round_num, aid, agent.is_byzantine, None, outcome
+                    )
                 continue
             new_value = int(round(new_value))
             self.game.update_agent_proposal(aid, new_value)
+            if self._recorder:
+                self._recorder.decision(
+                    round_num, aid, agent.is_byzantine, new_value, outcome
+                )
             old = f"{int(agent.my_value)}" if agent.my_value is not None else "(no value yet)"
             self.logger.log(f"  {aid}: {old} -> {new_value}")
             self.logger.log(f"    Reasoning: {agent.last_reasoning}")
@@ -498,14 +524,52 @@ class BCGSimulation:
     # ------------------------------------------------------------- round loop
 
     def run_round(self) -> None:
-        """One full consensus round (reference main.py:517-658)."""
-        self._run_round()
+        """One full consensus round (reference main.py:517-658).
+
+        Traced as a ``round`` span (BCG_TPU_TRACE=1); the profiler's
+        phase blocks below open ``decide``/``broadcast``/``receive``/
+        ``vote`` child spans, so one game round reads as one nested
+        slice group in a Perfetto trace.
+
+        When the host-sync auditor is on (BCG_TPU_HOSTSYNC), the
+        device->host syncs observed inside the round span land in the
+        ``game.host_syncs`` per-round histogram.  Rounds of concurrent
+        games overlapping in one process are counted
+        (engine.hostsync.rounds_overlapped) instead of observed — the
+        process-wide total cannot split a shared batch's syncs between
+        games.
+        """
+        audit = obs_hostsync.auditor()
+        window = audit.begin_round() if audit is not None else None
+        try:
+            # Profiler capture window (BCG_TPU_PROFILE +
+            # BCG_TPU_PROFILE_ROUNDS=a-b, obs/compile.py): rounds a..b
+            # run inside one bounded torch.profiler capture.  Shared
+            # no-op when off.
+            with obs_compile.profile_span("round", self.game.current_round):
+                with obs_tracer.span(
+                    "round",
+                    args={"round": self.game.current_round,
+                          "sim": self._sim_uid},
+                ):
+                    self._run_round()
+        except BaseException:
+            # Discard without observing: a partial round's sync count
+            # is not a round observation, but the window MUST come off
+            # the open list or every later round reads overlapped.
+            if audit is not None:
+                audit.end_round(window, observe=False)
+            raise
+        if audit is not None:
+            audit.end_round(window)
 
     def _run_round(self) -> None:
         round_num = self.game.current_round
         self.logger.log("=" * 60)
         self.logger.log(f"Round {round_num}")
         self.logger.log("=" * 60)
+        if self._recorder:
+            self._recorder.round_start(round_num)
 
         phase = Phase.PROPOSE
         game_state = self.game.get_game_state()
@@ -523,6 +587,20 @@ class BCGSimulation:
             else:
                 for aid, agent in self.agents.items():
                     new_value = agent.decide_next_value(game_state)
+                    if self._recorder:
+                        # The sequential path retries internally; a None
+                        # with last_decision_failed is retry exhaustion,
+                        # a None without it is a legitimate abstain.
+                        outcome = (
+                            "invalid"
+                            if new_value is None and agent.last_decision_failed
+                            else "valid"
+                        )
+                        self._recorder.decision(
+                            round_num, aid, agent.is_byzantine,
+                            int(round(new_value)) if new_value is not None else None,
+                            outcome,
+                        )
                     if new_value is None:
                         self.logger.log(f"  {aid}: ABSTAINING")
                         continue
@@ -594,6 +672,11 @@ class BCGSimulation:
                 ]
                 agent.receive_proposals(proposals)
                 agent.my_value = self.game.agents[aid].proposed_value
+                if self._recorder:
+                    self._recorder.deliveries(
+                        round_num, aid, [p[0] for p in proposals],
+                        values=[int(p[1]) for p in proposals],
+                    )
                 self.logger.log(f"  {aid}: received {len(proposals)} proposals, updated state")
 
         # 3.5 Round summaries + Q3 reasoning capture
@@ -625,6 +708,12 @@ class BCGSimulation:
         """Round tail shared by the lockstep and mega-round paths: vote
         events, game/network advance, per-round bookkeeping, checkpoints.
         """
+        if self._recorder:
+            for aid, vote in agent_votes.items():
+                self._recorder.vote(
+                    round_num, aid, self.agents[aid].is_byzantine, vote
+                )
+
         vote_info = self.game.get_all_termination_votes(agent_votes)
         self.logger.log(
             f"  All agents voting to stop: {vote_info['total_stop_votes']}/{vote_info['total_agents']}"
@@ -635,6 +724,16 @@ class BCGSimulation:
         self.network.advance_round()
         self.network.end_round_gc(round_num)
         self.profiler.count_round(num_decisions=2 * len(self.agents))
+        # Fleet liveness: each completed round advances this rank's
+        # progress watermark (no-op when fleet stamping is off).
+        obs_fleet.note_round()
+        if self._recorder:
+            # round_end reads the round advance_round just recorded;
+            # game_end here (not only in run()) covers external callers
+            # (resume) that call run_round directly — it is idempotent.
+            self._recorder.round_end(round_num, self.game)
+            if self.game.game_over:
+                self._recorder.game_end(self.game)
 
         # Per-round checkpoints (--checkpoint-every-round) ride the
         # save_results sinks; BCG_TPU_SERVE_CHECKPOINT_EVERY=N

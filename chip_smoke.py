@@ -111,7 +111,27 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    time stands the dense kernel's (B3a / B3b) over the gathered dense
    view of the same inputs.  Flash prefill (B1) is also held to its
    plain version at P5's captured right-padded prefill input.
-8. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+8. P10 (after the nine paths, before the kernel phase): checkpoint
+   loading and the observability plane at full width and depth.  The
+   shared weights are written as an HF-layout checkpoint with the port's
+   safetensors writer (HF names, ``[out, in]`` projections, BF16, shards
+   of at most 5 GB and their index) under ``build/p10`` (the free disk is
+   checked first; a disk too small cuts the depth, printed, and the game
+   is then held to the same game over the shared weights cut alike),
+   found through ``BCG_TPU_CHECKPOINT_DIR`` and loaded onto the card by
+   ``models/loader.load_checkpoint_params`` (``load P10:`` shards, bytes,
+   seconds, GB/s; every leaf ``torch.equal`` to the shared one).  Then
+   P1's game over the loaded weights with ``BCG_TPU_TRACE``,
+   ``BCG_TPU_HOSTSYNC``, ``BCG_TPU_COMPILE_OBS``, ``BCG_TPU_HLO_CENSUS`` and
+   ``BCG_TPU_GAME_EVENTS`` on: its decisions, votes and statistics must
+   equal P1's (``game P10:``), and ``obs P10:`` prints the host syncs a
+   round by seam (with the source lines of the synchronizing operations
+   outside the seams), the census of one decode step (the card's kernels
+   by kind beside the wrappers' launches and calls: B3a 36 and B2 1, both
+   ways), the ledger's ``params`` charge beside ``param_bytes`` and
+   ``torch.cuda.memory_allocated``, the spans and the five largest, and
+   the number of game-event lines.  The checkpoint is deleted.
+9. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
 
@@ -672,28 +692,6 @@ PAGED_DERIVED = {"paged_chunk_attention_bf16": ("P5", "paged_decode_attention_bf
                  "paged_decode_attention_int8": ("P7", "paged_chunk_attention_int8"),
                  "paged_decode_attention_int4": ("P6", "paged_chunk_attention_int4")}
 
-# Kernel name fragments -> kind, for the profile's breakdown, first match
-# wins (cuBLAS's matrix products show up as nvjet / gemm / gemv kernels,
-# its int8 products with s8 / i8 / imma in the name).  "dequant" is the
-# int4 unpack's shift kernels (the prefill route's dequantize_int4 and
-# nothing else on P9); the unpack's scale product and bf16 conversion
-# fall under "other".
-KINDS = (
-    ("flash_prefill_kernel", "flash_prefill"), ("mask_pack_kernel", "flash_prefill"),
-    ("decode_attention_kernel", "decode_attention"),
-    ("chunk_decode_bf16_kernel", "chunk_decode_attention"),
-    ("decode_int8_kernel", "decode_attention_int8"),
-    ("guided_sampler_kernel", "guided_sampler"),
-    ("paged_kernel", "paged_attention"),
-    ("w4a16_kernel", "w4a16_matmul"),
-    ("s8s8", "int8_gemm"), ("i8i8", "int8_gemm"), ("i8i32", "int8_gemm"), ("imma", "int8_gemm"),
-    ("int8gemm", "int8_gemm"), ("_s8_", "int8_gemm"), ("igemm", "int8_gemm"),
-    ("shift", "dequant"),
-    ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"), ("xmma", "matmul"),
-    ("cutlass", "matmul"),
-)
-
-
 def play_on(engine, cfg):
     """One game under ``cfg`` on ``engine``: (wall ms, decode steps)."""
     import torch
@@ -723,6 +721,8 @@ def phase_profile(path, engine, capture_forms=()):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from bcg_tpu_torch.obs.hlo import kernel_kind
+
     cfg = game_config(1, greedy=True, **PATHS[path]["engine"])
 
     def play():
@@ -751,7 +751,7 @@ def phase_profile(path, engine, capture_forms=()):
     busy = sum(ms for ms, _, _ in rows)
     kinds = {}
     for ms, _, key in rows:
-        kind = next((k for frag, k in KINDS if frag in key.lower()), "other")
+        kind = kernel_kind(key)
         kinds[kind] = kinds.get(kind, 0.0) + ms
     print(f"profile {path}: " + json.dumps({
         "round_wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
@@ -766,6 +766,23 @@ def phase_profile(path, engine, capture_forms=()):
 
 
 DENSE_KV_BYTES = {}
+# Each path's counted game: (decisions by round, votes by round, statistics).
+GAMES = {}
+
+
+def play_recorded(sim):
+    """``sim.run()``, keeping each round's votes as the round closes:
+    (statistics, decisions by round, votes by round)."""
+    votes = []
+    close = sim._advance_and_record
+
+    def record(round_num, agent_votes):
+        votes.append((round_num, dict(agent_votes)))
+        return close(round_num, agent_votes)
+
+    sim._advance_and_record = record
+    stats = sim.run()
+    return stats, [(r.round_num, dict(r.agent_values)) for r in sim.game.rounds], votes
 
 
 def phase_path(path, params):
@@ -790,7 +807,7 @@ def phase_path(path, params):
         zero_counts()
         t0 = time.perf_counter()
         sim = BCGSimulation(cfg, engine=engine)
-        stats = sim.run()
+        stats, decisions_by_round, votes = play_recorded(sim)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
@@ -799,6 +816,7 @@ def phase_path(path, params):
         if cap is not None:
             cap.restore()
     peak = torch.cuda.max_memory_allocated()
+    GAMES[path] = (decisions_by_round, votes, stats)
     decisions = sim.profiler.decisions
     line = {
         "rounds": stats["total_rounds"],
@@ -872,6 +890,240 @@ def phase_path(path, params):
     del engine, sim
     torch.cuda.empty_cache()
     return counts, cap.inputs() if cap is not None else {}
+
+
+# P10: the observability flags it turns on, the hub's shard limit, and the
+# free disk it leaves beside the checkpoint.
+P10_FLAGS = {"BCG_TPU_TRACE": "1", "BCG_TPU_HOSTSYNC": "1", "BCG_TPU_COMPILE_OBS": "1",
+             "BCG_TPU_HLO_CENSUS": "1"}
+MAX_SHARD_BYTES = 5 * 10**9
+DISK_MARGIN_BYTES = 2 << 30
+
+
+def obs_reset():
+    """Make the observability modules read the environment again (each
+    reads its flags once)."""
+    from bcg_tpu_torch.obs import compile as obs_compile, game_events, hlo, hostsync, tracer
+
+    for fn in (tracer.reset, hostsync.reset, obs_compile.reset, hlo.reset,
+               game_events.reset_sink):
+        fn()
+
+
+def hf_order(params):
+    """The leaves in the order a hub checkpoint lists them (the JAX
+    fixture's order: top leaves, then each layer's in the loader's map)."""
+    from bcg_tpu_torch.models import loader
+
+    names = [n for n in loader._TOP_MAP if n in params]
+    n_layers = 1 + max(int(n.split(".")[1]) for n in params if n.startswith("layers."))
+    for i in range(n_layers):
+        names += [f"layers.{i}.{leaf}" for leaf in loader._LAYER_MAP
+                  if f"layers.{i}.{leaf}" in params]
+    return names
+
+
+def write_hf_checkpoint(params, out_dir, max_shard_bytes=MAX_SHARD_BYTES):
+    """``params`` (bf16 leaves on the card) as an HF-layout checkpoint with
+    the port's safetensors writer: HF names, ``[out, in]`` projections,
+    BF16 storage, shards of at most ``max_shard_bytes`` named and indexed
+    as ``bcg_tpu/models/hf_fixture.py:280-300`` lays them out.  Returns
+    (shards, bytes)."""
+    from bcg_tpu_torch.models import loader, safetensors_np
+
+    os.makedirs(out_dir, exist_ok=True)
+    shards, size = [[]], 0
+    for name in hf_order(params):
+        nbytes = params[name].numel() * params[name].element_size()
+        if size and size + nbytes > max_shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += nbytes
+    index = {"metadata": {"total_size": 0}, "weight_map": {}}
+    for si, shard in enumerate(shards, start=1):
+        fname = ("model.safetensors" if len(shards) == 1
+                 else f"model-{si:05d}-of-{len(shards):05d}.safetensors")
+        items = []
+        for name in shard:
+            t = params[name]
+            items.append((loader.hf_name(name),
+                          t.t() if name.split(".")[-1] in loader._TRANSPOSED else t))
+            index["weight_map"][items[-1][0]] = fname
+        index["metadata"]["total_size"] += safetensors_np.save_file(
+            items, os.path.join(out_dir, fname))
+    if len(shards) > 1:
+        with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+            json.dump(index, f, indent=2)
+    return len(shards), index["metadata"]["total_size"]
+
+
+def phase_p10(params):
+    """P10: checkpoint loading and the observability plane at bench-8b.
+    The shared weights are written as an HF-layout checkpoint under
+    ``build/``, found through ``BCG_TPU_CHECKPOINT_DIR`` and loaded onto the
+    card (every leaf held bit-equal to the shared one), then P1's game is
+    played over the loaded weights with the tracer, the host-sync auditor,
+    compile accounting, the launch census and the game-event stream on: its
+    decisions, votes and statistics must be P1's.  Prints the ``load P10``,
+    ``game P10`` and ``obs P10`` lines; deletes the checkpoint."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.loader import find_checkpoint_dir, load_checkpoint_params
+    from bcg_tpu_torch.obs import (compile as obs_compile, game_events, hlo, hostsync,
+                                   ledger, tracer)
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    spec = spec_for_model(MODEL)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "p10")
+    out_dir = os.path.join(root, MODEL.replace("/", "--"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # The depth the disk holds: the whole model, else as many layers as fit.
+    layer_bytes = sum(t.numel() * t.element_size() for n, t in params.items()
+                      if n.startswith("layers.0."))
+    top_bytes = sum(t.numel() * t.element_size() for n, t in params.items()
+                    if not n.startswith("layers."))
+    free = shutil.disk_usage(root).free - DISK_MARGIN_BYTES
+    depth = min(spec.num_layers, max(0, (free - top_bytes) // layer_bytes))
+    if depth < 1:
+        fail(f"P10: {free + DISK_MARGIN_BYTES} bytes free on disk, not one layer's room")
+    if depth < spec.num_layers:
+        spec = dataclasses.replace(spec, num_layers=depth)
+        params = {n: t for n, t in params.items()
+                  if not n.startswith("layers.") or int(n.split(".")[1]) < depth}
+    print(f"P10: {shutil.disk_usage(root).free} bytes free on disk; depth {depth} of "
+          f"{spec_for_model(MODEL).num_layers} layers", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_shards, nbytes = write_hf_checkpoint(params, out_dir)
+    write_s = time.perf_counter() - t0
+    os.environ["BCG_TPU_CHECKPOINT_DIR"] = root
+    try:
+        found = find_checkpoint_dir(MODEL)
+        if found != out_dir:
+            fail(f"P10: find_checkpoint_dir gave {found!r}, not {out_dir!r}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_checkpoint_params(spec, MODEL, DEVICE, ckpt_dir=found)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mismatched = [n for n in params if n not in loaded or not torch.equal(loaded[n], params[n])]
+        extra = sorted(set(loaded) - set(params))
+        print("load P10: " + json.dumps({
+            "shards": n_shards, "bytes": nbytes, "write_seconds": write_s,
+            "load_seconds": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+            "leaves": len(loaded), "mismatched": mismatched[:5], "extra": extra[:5],
+            "device": str(next(iter(loaded.values())).device),
+            "files": sorted(os.listdir(found)),
+        }), flush=True)
+        if mismatched or extra:
+            fail(f"P10: loaded leaves differ from the shared weights: {mismatched[:5]} {extra[:5]}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        del os.environ["BCG_TPU_CHECKPOINT_DIR"]
+
+    events = os.path.join(root, "events.jsonl")
+    os.environ.update(P10_FLAGS, BCG_TPU_GAME_EVENTS=events)
+    obs_reset()
+    try:
+        cfg = game_config(PATHS["P1"]["rounds"], **PATHS["P1"]["engine"])
+        engine = TorchEngine(cfg.engine, device=DEVICE, params=loaded, spec=spec)
+        zero_counts()
+        t0 = time.perf_counter()
+        stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        plain_calls = plain_paged_calls()
+        if depth == spec_for_model(MODEL).num_layers:
+            want = GAMES["P1"]
+        else:
+            # A cut model: the reference is the same game over the shared
+            # weights cut the same way, without the observability flags.
+            for name in P10_FLAGS:
+                del os.environ[name]
+            obs_reset()
+            ref_engine = TorchEngine(cfg.engine, device=DEVICE, params=params, spec=spec)
+            ref_stats, ref_dec, ref_votes = play_recorded(BCGSimulation(cfg, engine=ref_engine))
+            ref_engine.shutdown()
+            want = (ref_dec, ref_votes, ref_stats)
+        same = (decisions, votes, stats) == want
+        print("game P10: " + json.dumps({
+            "rounds": stats["total_rounds"], "game_seconds": wall,
+            "failed_rows": engine.failed_rows, "total_rows": engine.total_rows,
+            "decode_steps": engine.total_decode_steps,
+            "launches": {k: counts[k] for k in PATHS["P1"]["kernels"]},
+            "plain_paged_calls": plain_calls,
+            "same_as": "P1" if depth == spec_for_model(MODEL).num_layers else "cut reference",
+            "decisions_votes_statistics_equal": same,
+        }), flush=True)
+        if not same:
+            fail("P10: the game over the loaded checkpoint differs from "
+                 f"{'P1' if depth == spec_for_model(MODEL).num_layers else 'its reference'}: "
+                 f"decisions {decisions} votes {votes} against {want[0]} {want[1]}")
+
+        hs = hostsync.summary()
+        rounds = hs["rounds"]["count"]
+        census = hlo.snapshot().get("decode_loop")
+        if census is None:
+            fail("P10: the launch census recorded no decode step")
+        led = ledger.snapshot()
+        spans = tracer.summarize()
+        game_events.reset_sink()   # drains the stream to its file
+        with open(events) as f:
+            event_lines = sum(1 for _ in f)
+        obs = {
+            "host_syncs_per_round": {site: n / rounds for site, n in hs["by_site"].items()},
+            "host_syncs_total": hs["total"], "rounds": rounds,
+            "unexpected_sync_lines": dict(list(hs.get("device_sync_lines", {}).items())[:6]),
+            "census_backend": census["backend"],
+            "kernels_per_step": census.get("kernels"),
+            "wrapper_launches_per_step": census["launches"],
+            "wrapper_calls_per_step": census["calls"],
+            "census_error": census.get("error"),
+            "ledger_params_bytes": led["params_bytes"], "param_bytes": engine._param_bytes,
+            "ledger_prefix_cache_bytes": led["prefix_cache_bytes"],
+            "ledger_kv_cache_bytes": led["kv_cache_bytes"],
+            "ledger_limit_bytes": led["limit_bytes"],
+            "memory_allocated": torch.cuda.memory_allocated(),
+            "spans": sum(r["count"] for r in spans.values()), "span_names": len(spans),
+            "top_spans_ms": {k: r["total_ms"] for k, r in list(spans.items())[:5]},
+            "game_event_lines": event_lines,
+            "compile": obs_compile.brief(),
+        }
+        print("obs P10: " + json.dumps(obs), flush=True)
+    finally:
+        for name in list(P10_FLAGS) + ["BCG_TPU_GAME_EVENTS"]:
+            os.environ.pop(name, None)
+        obs_reset()
+        shutil.rmtree(root, ignore_errors=True)
+    layers = spec.num_layers
+    kern = census.get("kernels") or {}
+    checks = {
+        "census on the card": census["backend"] == "cuda" and kern,
+        f"B3a {layers} a step": (kern.get("decode_attention") == layers
+                                 == census["launches"].get("decode_attention")),
+        "B2 one a step": kern.get("guided_sampler") == 1 == census["launches"].get("guided_sampler"),
+        "every P1 kernel launched": all(counts[k] > 0 for k in PATHS["P1"]["kernels"]),
+        "no plain paged calls": plain_calls == 0,
+        "no failed rows": engine.failed_rows == 0,
+        "ledger params = param_bytes": led["params_bytes"] == engine._param_bytes,
+        "host syncs seen": hs["by_site"].get("decode_readback", 0) > 0,
+        "spans recorded": "engine.decode" in spans and "round" in spans,
+        "game events written": event_lines > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    engine.shutdown()
+    del engine, loaded
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"P10: {bad}")
 
 
 def per_row(fn, *args):
@@ -1514,6 +1766,9 @@ def main() -> int:
         t0 = time.perf_counter()
         counts[path], inputs[path] = phase_path(path, params)
         print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_p10(params)
+    print(f"phase P10: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.save_sampler_inputs:
         save_sampler_inputs(inputs["P1"]["guided_sampler"], args.save_sampler_inputs)
     t0 = time.perf_counter()

@@ -30,6 +30,7 @@ from bcg_tpu.ops.ring_attention import sp_decode_attention
 from bcg_tpu.parallel import build_mesh
 from bcg_tpu_torch.ops.decode_attention import (
     SPLIT_ITER, decode_attention_plain, decode_attention_split_plain, decode_split_plan)
+import _torch_jax_obs_state
 
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 GROUPS = [(4, 4), (4, 2), (8, 2), (10, 2), (16, 2)]
@@ -44,6 +45,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 def _inputs(seed, B, S, H, Hkv, Dh=128):

@@ -27,6 +27,7 @@ from bcg_tpu_torch.config import EngineConfig
 from bcg_tpu_torch.engine.torch_engine import BudgetError, TorchEngine
 from bcg_tpu_torch.models.configs import spec_for_model
 from bcg_tpu_torch.models.convert import params_from_numpy
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -38,6 +39,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 MODEL = "bcg-tpu/tiny-test"

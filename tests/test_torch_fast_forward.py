@@ -45,6 +45,7 @@ from bcg_tpu_torch.models import transformer as tt
 from bcg_tpu_torch.models.configs import spec_for_model
 from bcg_tpu_torch.models.convert import params_from_numpy
 from bcg_tpu_torch.ops import decode_attention as tda
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,6 +57,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 TOL = {False: 1e-5, True: 2e-2}

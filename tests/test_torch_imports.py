@@ -46,6 +46,48 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# The modules of the loader and observability slice: each imported in a
+# fresh interpreter that then holds neither JAX nor the JAX package.
+SLICE_MODULES = [
+    "bcg_tpu_torch.models.safetensors_np", "bcg_tpu_torch.models.loader",
+    "bcg_tpu_torch.models.artifact", "bcg_tpu_torch.obs", "bcg_tpu_torch.obs.counters",
+    "bcg_tpu_torch.obs.tracer", "bcg_tpu_torch.obs.ledger", "bcg_tpu_torch.obs.fleet",
+    "bcg_tpu_torch.obs.export", "bcg_tpu_torch.obs.game_events", "bcg_tpu_torch.obs.alerts",
+    "bcg_tpu_torch.obs.hostsync", "bcg_tpu_torch.obs.compile", "bcg_tpu_torch.obs.hlo",
+    "bcg_tpu_torch.runtime.resilience", "bcg_tpu_torch.runtime.profiler",
+]
+
+
+@pytest.fixture(scope="module")
+def slice_imports():
+    code = (
+        "import importlib, json, subprocess, sys\n"
+        f"mods = {SLICE_MODULES!r}\n"
+        "out = {}\n"
+        "for m in mods:\n"
+        "    r = subprocess.run([sys.executable, '-c', 'import importlib, sys; '\n"
+        "        f'importlib.import_module({m!r}); '\n"
+        "        'print(sorted(k for k in sys.modules if k.split(\".\")[0] in (\"jax\", \"bcg_tpu\")))'],\n"
+        "        capture_output=True, text=True)\n"
+        "    out[m] = [r.returncode, r.stdout.strip(), r.stderr[-500:]]\n"
+        "print(json.dumps(out))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    import json
+
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mod", SLICE_MODULES)
+def test_slice_module_imports_without_jax_or_the_jax_package(slice_imports, mod):
+    rc, loaded, err = slice_imports[mod]
+    assert rc == 0, err
+    assert loaded == "[]"
+
+
 def test_source_names_neither_jax_nor_the_jax_package():
     pat = re.compile(r"^\s*(import jax|from jax\b)|\bbcg_tpu\.(?!_)", re.M)
     hits = []

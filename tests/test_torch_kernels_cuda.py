@@ -961,3 +961,120 @@ def test_int4_engine_kill_switch_raises_on_cuda(dev, monkeypatch):
     with pytest.raises(ValueError, match="BCG_TPU_DISABLE_W4_KERNEL"):
         TorchEngine(EngineConfig(backend="torch", model_name="bcg-tpu/tiny-dh128",
                                  max_model_len=512, quantization="int4"), device=dev)
+
+
+def test_safetensors_file_loads_onto_cuda_bit_exact(dev, tmp_path):
+    """A file written by the port's safetensors writer (from tensors on
+    the card) loads back onto the card bit for bit, in every dtype the
+    loader reads, and a checkpoint of tiny-dh128 written in the HF layout
+    loads to the same leaves."""
+    from bcg_tpu_torch.models import loader, safetensors_np
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tensors = {
+        "bf16": torch.randn((33, 17), generator=gen, device=dev).to(torch.bfloat16),
+        "f16": torch.randn((5,), generator=gen, device=dev).to(torch.float16),
+        "f32": torch.randn((4, 3), generator=gen, device=dev),
+        "i8": torch.randint(-128, 128, (9,), generator=gen, device=dev, dtype=torch.int8),
+        "u8": torch.randint(0, 256, (9,), generator=gen, device=dev, dtype=torch.uint8),
+        "i32": torch.randint(-9, 9, (2, 2), generator=gen, device=dev, dtype=torch.int32),
+        "i64": torch.randint(-9, 9, (3,), generator=gen, device=dev, dtype=torch.int64),
+    }
+    path = str(tmp_path / "t.safetensors")
+    safetensors_np.save_file(tensors, path)
+    back = safetensors_np.load_file(path, dev)
+    for name, t in tensors.items():
+        assert back[name].device == t.device and back[name].dtype == t.dtype
+        assert torch.equal(back[name], t), name
+
+    spec = spec_for_model("bcg-tpu/tiny-dh128")
+    params = init_params(spec, gen, dev)
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    safetensors_np.save_file(
+        [(loader.hf_name(n), t.t() if n.split(".")[-1] in loader._TRANSPOSED else t)
+         for n, t in params.items()], str(ckpt / "model.safetensors"))
+    loaded = loader.load_checkpoint_params(spec, "bcg-tpu/tiny-dh128", dev, ckpt_dir=str(ckpt))
+    assert list(loaded) == list(params)
+    for name, t in params.items():
+        assert loaded[name].device == t.device and loaded[name].is_contiguous()
+        assert torch.equal(loaded[name], t), name
+
+
+def test_launch_census_counts_one_decode_step_on_the_card(dev, monkeypatch):
+    """The census of a decode step on the card: the profiled kernels
+    between its two marks agree with the wrappers' launches (one B3a a
+    layer, one B2), and two calls of the same shape count the same."""
+    from bcg_tpu_torch.config import EngineConfig
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.obs import hlo
+
+    schema = {"type": "object",
+              "properties": {"decision": {"type": "string", "enum": ["stop", "continue"]}},
+              "required": ["decision"], "additionalProperties": False}
+    monkeypatch.setenv("BCG_TPU_HLO_CENSUS", "1")
+    eng = TorchEngine(EngineConfig(backend="torch", model_name="bcg-tpu/tiny-dh128",
+                                   max_model_len=1024), device=dev)
+    records = []
+    try:
+        for _ in range(2):
+            hlo.reset()
+            eng.batch_generate_json([("sys", "vote now " * 20, schema)] * 10,
+                                    temperature=0.0, max_tokens=24)
+            records.append(hlo.snapshot()["decode_loop"])
+    finally:
+        monkeypatch.undo()
+        hlo.reset()
+    layers = spec_for_model("bcg-tpu/tiny-dh128").num_layers
+    census = records[0]
+    assert "error" not in census and census["backend"] == "cuda"
+    assert census["kernels"]["decode_attention"] == census["launches"]["decode_attention"] == layers
+    assert census["kernels"]["guided_sampler"] == census["launches"]["guided_sampler"] == 1
+    assert census["kernels"]["matmul"] >= 7 * layers
+    assert records[1] == census
+
+
+def test_host_sync_audit_keeps_seams_per_thread(dev, monkeypatch):
+    """On the card the audit counts a synchronizing read outside a seam
+    once, at its source line; the same read inside a seam goes uncounted
+    there, but another thread's read while the seam is open is counted;
+    and ``reset`` puts back the sync debug mode it found."""
+    import threading
+
+    from bcg_tpu_torch.obs import counters, hostsync
+
+    x = torch.ones(4, device=dev)
+    torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setenv("BCG_TPU_HOSTSYNC", "1")
+    hostsync.reset()
+    try:
+        audit = hostsync.auditor()
+        assert audit.intercepting() and torch.cuda.get_sync_debug_mode() == 1
+
+        def unexpected():
+            return counters.value("engine.hostsync.site.device_sync")
+
+        before = unexpected()
+        x.sum().item()
+        assert unexpected() == before + 1
+        opened, done = threading.Event(), threading.Event()
+
+        def seam():
+            with hostsync.expected():
+                x.sum().item()
+                opened.set()
+                done.wait(30)
+
+        t = threading.Thread(target=seam)
+        t.start()
+        assert opened.wait(30)
+        assert unexpected() == before + 1   # the seam's own read
+        x.sum().item()                      # another thread, the seam still open
+        done.set()
+        t.join()
+        assert unexpected() == before + 2
+    finally:
+        monkeypatch.undo()
+        hostsync.reset()
+    assert torch.cuda.get_sync_debug_mode() == 0

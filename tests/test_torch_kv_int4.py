@@ -45,6 +45,7 @@ from bcg_tpu_torch.models.convert import params_from_numpy
 from bcg_tpu_torch.ops import decode_attention as tda
 from bcg_tpu_torch.ops import paged_attention as tpa
 from bcg_tpu_torch.runtime.orchestrator import BCGSimulation as TSimulation
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,6 +56,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 MODEL = "bcg-tpu/tiny-test"

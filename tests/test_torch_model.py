@@ -35,6 +35,7 @@ from bcg_tpu.models.configs import spec_for_model as j_spec
 from bcg_tpu_torch.models import transformer as tt
 from bcg_tpu_torch.models.configs import RopeScaling, spec_for_model
 from bcg_tpu_torch.models.convert import init_params, params_from_numpy
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,6 +47,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 def named_arrays(tree):

@@ -24,6 +24,7 @@ from bcg_tpu_torch.models import transformer as tt
 from bcg_tpu_torch.models.configs import RopeScaling
 from bcg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 from bcg_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -35,6 +36,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 TOL = {np.float32: 1e-5, "bf16": 2e-2}

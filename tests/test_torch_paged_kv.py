@@ -57,6 +57,7 @@ from bcg_tpu_torch.models import transformer as tt
 from bcg_tpu_torch.models.configs import spec_for_model
 from bcg_tpu_torch.models.convert import params_from_numpy
 from bcg_tpu_torch.ops import paged_attention as tpa
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,6 +68,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 MODEL = "bcg-tpu/tiny-test"

@@ -59,6 +59,7 @@ from bcg_tpu_torch.models.configs import DenseRoute, spec_for_model
 from bcg_tpu_torch.models.convert import _to_tensor, init_params, params_from_numpy
 from bcg_tpu_torch.ops import w4_matmul as tw4
 from bcg_tpu_torch.runtime.orchestrator import BCGSimulation as TSimulation
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -70,6 +71,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 MODEL = "bcg-tpu/tiny-test"

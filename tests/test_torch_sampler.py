@@ -23,6 +23,7 @@ from bcg_tpu.ops import guided_sampler as jgs
 from bcg_tpu_torch.engine.speculative import make_masked_sampler as t_masked_sampler
 from bcg_tpu_torch.guided.processor import GuidedBatch as TGuidedBatch, compile_schema as t_compile
 from bcg_tpu_torch.ops import guided_sampler as tgs
+import _torch_jax_obs_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -34,6 +35,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 EOS = 3

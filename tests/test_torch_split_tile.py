@@ -59,6 +59,7 @@ from bcg_tpu_torch.ops.decode_attention import (
     decode_split_plan,
     quantize_kv,
 )
+import _torch_jax_obs_state
 
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 GROUPS = [(4, 4), (8, 2), (10, 2)]
@@ -76,6 +77,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_state():
+    with _torch_jax_obs_state.restored():
+        yield
 
 
 def _t(x, dt):
