@@ -67,8 +67,23 @@ def run_simulation(
     run_engine = engine
     if created:
         from bcg_tpu_torch.engine.interface import create_engine
+        from bcg_tpu_torch.runtime import envflags
 
-        run_engine = create_engine(engine_cfg, device=device)
+        if envflags.get_bool("BCG_TPU_SERVE"):
+            # Serving-stack path: the internally created engine is
+            # fronted by the continuous-batching scheduler proxy
+            # (bcg_tpu_torch/serve) — same results, arrival-driven dispatch.
+            from bcg_tpu_torch.serve import ServingEngine
+
+            run_engine = ServingEngine(
+                create_engine(engine_cfg, device=device), owns_inner=True,
+                # Supervisor rebuild hook (BCG_TPU_SERVE_WATCHDOG_S):
+                # the wrap site owns the config, so a hung engine can
+                # be rebooted from it, on the same device.
+                engine_factory=lambda: create_engine(engine_cfg, device=device),
+            )
+        else:
+            run_engine = create_engine(engine_cfg, device=device)
 
     try:
         sim = BCGSimulation(
@@ -77,8 +92,9 @@ def run_simulation(
         )
     except BaseException:
         if created and run_engine is not None:
-            # The engine exists before the sim does — a constructor
-            # failure must not leak device memory.
+            # The engine (and, on the serving path, its wrapper) exists
+            # before the sim does — a constructor failure must not leak
+            # device memory or the scheduler thread.
             run_engine.shutdown()
         raise
     try:
@@ -90,6 +106,6 @@ def run_simulation(
     finally:
         if created:
             # We created the engine internally; release its device
-            # memory.
+            # memory (and, on the serving path, the scheduler thread).
             sim.engine.shutdown()
         sim.close()

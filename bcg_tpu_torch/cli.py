@@ -4,17 +4,19 @@ The flags of ``bcg_tpu/cli.py`` that this port serves: the game's shape,
 model, seed, network and channel, prefix caching and length buckets,
 guided grammar, weight quantization (int8 or int4), the KV-cache dtype
 (bfloat16 or int8), fast-forward and speculative decoding, results and
-checkpoints, plus ``--device``: the game runs on the CUDA card unless
-``--device cpu`` is given, and ``--profile-dir`` (a ``torch.profiler``
-trace of the run).  The other flags come back with the ROADMAP
-item that ports what they switch on (parallelism A13, the fake backend
-and fault injection A11).  As in the JAX package, the block-paged KV
+checkpoints, the backend (``torch`` or the deterministic ``fake``), the
+serving scheduler (``--serve``), fake policies and fault injection, plus
+``--device``: the game runs on the CUDA card unless ``--device cpu`` is
+given, and ``--profile-dir`` (a ``torch.profiler`` trace of the run).
+The parallelism flags come back with ROADMAP A13, which ports what they
+switch on.  As in the JAX package, the block-paged KV
 cache and the packed-int4 KV cache have no flag: they are
 ``BCG_TPU_PAGED_KV=1`` and ``BCG_TPU_KV_DTYPE=int4`` (or
 ``EngineConfig.paged_kv`` / ``kv_cache_dtype``).
 
     python -m bcg_tpu_torch.cli --honest 8 --byzantine 2 --model bcg-tpu/bench-8b
     python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu
+    python -m bcg_tpu_torch.cli --honest 4 --byzantine 0 --backend fake --seed 0 --serve --verbose
     python -m bcg_tpu_torch.cli --honest 2 --byzantine 1 --model tiny-test --device cpu \
         --fast-forward --kv-cache-dtype int8
     python -m bcg_tpu_torch.cli --honest 8 --byzantine 2 --model bcg-tpu/bench-8b \
@@ -48,11 +50,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="Whether honest agents are told Byzantine agents may exist",
     )
     p.add_argument("--verbose", action="store_true", help="Print detailed output to terminal")
+    p.add_argument("--backend", type=str, default=None, choices=["torch", "fake"],
+                   help="Inference backend (default: torch)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="Torch device the engine runs on (default: cuda)")
     p.add_argument("--model", type=str, default=None, help="Model preset key or full path")
     p.add_argument("--seed", type=int, default=None, help="Game RNG seed (reproducible runs)")
     p.add_argument("--topology", type=str, default=None, choices=["fully_connected", "ring", "grid"], help="Network topology")
+    p.add_argument("--serve", action="store_true",
+                   help="Route LLM calls through the continuous-batching "
+                        "serving scheduler (bcg_tpu_torch/serve; also enabled by "
+                        "BCG_TPU_SERVE=1) — prints scheduler stats on exit "
+                        "with --verbose")
     p.add_argument("--results-dir", type=str, default=None, help="Results directory")
     p.add_argument("--no-save", action="store_true", help="Disable result files")
     p.add_argument("--plots", action="store_true", help="Save per-run plots (value trajectories, agreement)")
@@ -91,6 +100,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="lossy_sim: probability a message arrives 1..max-delay rounds late")
     p.add_argument("--max-delay", type=int, default=None,
                    help="lossy_sim: maximum delivery delay in rounds")
+    p.add_argument("--fake-policy", type=str, default=None,
+                   help="Fake-backend scripted policy: consensus|schema_min|"
+                        "stubborn|median|disrupt|oscillate|mimic|silent, or "
+                        "mixed:<honest>:<byzantine> for a role-aware mix")
+    p.add_argument("--fault-rate", type=float, default=None,
+                   help="Corrupt this fraction of LLM responses (resilience experiments)")
+    p.add_argument("--fault-seed", type=int, default=None,
+                   help="Seed for fault injection")
     return p
 
 
@@ -118,7 +135,9 @@ def config_from_args(args) -> BCGConfig:
         byzantine_awareness=args.byzantine_awareness,
         seed=args.seed,
     )
-    engine = dataclasses.replace(base.engine, backend="torch")
+    engine = base.engine
+    if args.backend:
+        engine = dataclasses.replace(engine, backend=args.backend)
     if args.model:
         engine = dataclasses.replace(engine, model_name=resolve_model_name(args.model))
     if args.quantization:
@@ -135,6 +154,12 @@ def config_from_args(args) -> BCGConfig:
         engine = dataclasses.replace(engine, spec_decode=True)
     if args.compact_json:
         engine = dataclasses.replace(engine, guided_compact_json=True)
+    if args.fault_rate is not None:
+        engine = dataclasses.replace(engine, fault_rate=args.fault_rate)
+    if args.fake_policy is not None:
+        engine = dataclasses.replace(engine, fake_policy=args.fake_policy)
+    if args.fault_seed is not None:
+        engine = dataclasses.replace(engine, fault_seed=args.fault_seed)
     network = base.network
     if args.topology:
         network = dataclasses.replace(network, topology_type=args.topology)
@@ -211,11 +236,31 @@ def main(argv: Optional[list] = None) -> int:
     except (ValueError, FileNotFoundError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    serving = None
+    from bcg_tpu_torch.runtime import envflags
+
+    if args.serve or envflags.get_bool("BCG_TPU_SERVE"):
+        from bcg_tpu_torch.serve import ServingEngine
+
+        # Front the engine with the continuous-batching scheduler; it
+        # owns the inner engine so one shutdown() releases both.  The
+        # factory lets the supervisor reboot a hung engine from the
+        # same config, on the same device (BCG_TPU_SERVE_WATCHDOG_S).
+        serving = ServingEngine(
+            sim.engine, owns_inner=True,
+            engine_factory=lambda: create_engine(config.engine, device=args.device),
+        )
+        sim.set_engine(serving)
     try:
         from bcg_tpu_torch.runtime.profiler import torch_trace
 
         with torch_trace(args.profile_dir):
             sim.run()
+        if serving is not None and config.verbose:
+            import json as _json
+
+            print("[Serving Scheduler]")
+            print(_json.dumps(serving.stats(), indent=2))
     finally:
         sim.engine.shutdown()
         sim.close()

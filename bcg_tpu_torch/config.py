@@ -89,7 +89,7 @@ class EngineConfig:
     """
 
     model_name: str = MODEL_PRESETS["qwen3-14b"]
-    backend: str = "jax"  # jax | fake
+    backend: str = "torch"  # torch | fake
     max_model_len: int = 8192
     hbm_utilization: float = 0.9
     tensor_parallel_size: int = 1

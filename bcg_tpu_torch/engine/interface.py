@@ -136,14 +136,17 @@ class InferenceEngine(ABC):
 
 
 def create_engine(engine_config, llm_config=None, device=None) -> InferenceEngine:
-    """Build an engine from :class:`bcg_tpu_torch.config.EngineConfig`.
-
-    The port serves ``backend="torch"`` only: the fake engine, fault
-    injection (ROADMAP A11) and meshes (A13) are not ported yet, and
-    asking for them raises instead of being ignored.  ``device`` is the
-    torch device; ``None`` means CUDA (see :class:`TorchEngine`)."""
+    """Build an engine from :class:`bcg_tpu_torch.config.EngineConfig`:
+    ``backend="torch"`` is :class:`TorchEngine` on ``device`` (the torch
+    device; ``None`` means CUDA), ``"fake"`` the deterministic
+    :class:`FakeEngine`; a fault rate wraps either in
+    :class:`FaultInjectingEngine`.  Meshes are not ported yet (ROADMAP
+    A13): :class:`TorchEngine` refuses them."""
     from bcg_tpu_torch.runtime import envflags
 
+    # Env overrides (BCG_TPU_FAULT_RATE / BCG_TPU_FAULT_SEED) win over
+    # the config fields — the bench/sweep convention every other
+    # experimental axis follows (BCG_TPU_SPEC, BCG_TPU_PAGED_KV, ...).
     fault_rate = engine_config.fault_rate
     raw_rate = envflags.get_str("BCG_TPU_FAULT_RATE")
     if raw_rate:
@@ -153,15 +156,36 @@ def create_engine(engine_config, llm_config=None, device=None) -> InferenceEngin
             raise ValueError(
                 f"BCG_TPU_FAULT_RATE={raw_rate!r} is not a float"
             ) from None
-    if fault_rate > 0.0:
-        raise NotImplementedError(
-            "fault_rate: fault injection is not ported yet (ROADMAP A11)"
+    fault_seed = (
+        envflags.get_int("BCG_TPU_FAULT_SEED")
+        if envflags.is_set("BCG_TPU_FAULT_SEED")
+        else engine_config.fault_seed
+    )
+    if not 0.0 <= fault_rate <= 1.0:
+        # Fail BEFORE any engine boot: a config typo must not cost a
+        # multi-GB weight load first.
+        raise ValueError(
+            f"fault_rate={fault_rate} outside [0, 1]"
         )
-    if engine_config.backend != "torch":
+    engine: InferenceEngine
+    if engine_config.backend == "fake":
+        from bcg_tpu_torch.engine.fake import FakeEngine
+
+        engine = FakeEngine(
+            seed=engine_config.fake_seed,
+            policy=getattr(engine_config, "fake_policy", "consensus"),
+        )
+    elif engine_config.backend == "torch":
+        from bcg_tpu_torch.engine.torch_engine import TorchEngine
+
+        engine = TorchEngine(engine_config, device=device)
+    else:
         raise ValueError(
             f"Unknown engine backend for the PyTorch port: "
-            f"{engine_config.backend!r} (expected 'torch')"
+            f"{engine_config.backend!r} (expected 'torch' or 'fake')"
         )
-    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    if fault_rate > 0.0:
+        from bcg_tpu_torch.engine.fault import FaultInjectingEngine
 
-    return TorchEngine(engine_config, device=device)
+        engine = FaultInjectingEngine(engine, fault_rate, fault_seed)
+    return engine

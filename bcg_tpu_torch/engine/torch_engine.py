@@ -110,7 +110,7 @@ from bcg_tpu_torch.obs import (
     tracer as obs_tracer,
 )
 from bcg_tpu_torch.ops.guided_sampler import make_fused_sampler, sample_rows
-from bcg_tpu_torch.runtime import envflags, metrics as _metrics
+from bcg_tpu_torch.runtime import envflags, metrics as _metrics, resilience
 
 # Bucket ladders: identical to the JAX engine's (see jax_engine.py for
 # the reasoning behind each rung).
@@ -1660,9 +1660,24 @@ class TorchEngine(InferenceEngine):
     def batch_generate_json(self, prompts, temperature=0.8, max_tokens=512):
         """Rows are (system, user, schema); ``user`` may be a plain string
         or a ``(shared_core, tail)`` pair served from a two-level cached
-        prefix."""
+        prefix.
+
+        Any thread may call it (the serving scheduler's dispatch thread,
+        its watchdog's worker), one call at a time per engine.  A thread
+        that sets no stream launches on the device's default stream, and
+        this engine never sets one: so after a watchdog rebuild, the
+        abandoned call on the old engine and the fresh engine's call put
+        their kernels on one stream, where they run in launch order and
+        the per-device split workspaces (``ops/decode_attention.py``,
+        ``ops/w4_matmul.py``) are never used by two kernels at once."""
         if not prompts:
             return []
+        # Chaos seam (BCG_TPU_CHAOS `crash|hang|exhaust@engine.generate`):
+        # an injected engine failure surfaces exactly where a kernel or
+        # runtime crash would — BEFORE the guided run, so no partial
+        # cache state is left behind — and reaches the caller's retry
+        # ladder (serve dispatch recovery, orchestrator fallback).
+        resilience.inject("engine.generate")
         parts = []
         for system_prompt, user_prompt, _ in prompts:
             if isinstance(user_prompt, tuple):

@@ -34,7 +34,8 @@ feed the same records as the JAX package's trace-cache misses:
 
 Profiler capture windows: ``BCG_TPU_PROFILE=<dir>`` +
 ``BCG_TPU_PROFILE_ROUNDS=a-b`` wrap a ``torch.profiler`` capture (CPU,
-plus CUDA on a card) around orchestrator rounds ``a..b`` — ONE bounded
+plus CUDA on a card) around orchestrator rounds ``a..b`` (or serve
+dispatches, :func:`profile_dispatch`) — ONE bounded
 window per process, exported as ``<dir>/trace.json`` (Chrome trace
 format, Perfetto-loadable) with a ``manifest.json`` stamped with the
 fleet identity (:func:`bcg_tpu_torch.obs.export.run_manifest`).  The
@@ -551,6 +552,7 @@ def reset() -> None:
     the registry (live consumers hold baselines); tests needing a
     pristine registry use a subprocess (the zero-surface pin)."""
     global _observer, _configured, _profile, _profile_configured
+    global _dispatch_seq
     with _config_lock:
         if _observer is not None:
             _observer.close()
@@ -561,12 +563,14 @@ def reset() -> None:
             _stop_profiler(_profile)
         _profile = None
         _profile_configured = False
+        _dispatch_seq = 0
 
 
 # ------------------------------------------------------- profiler windows
 _profile_lock = threading.Lock()
 _profile: Optional[Dict[str, Any]] = None
 _profile_configured = False
+_dispatch_seq = 0
 
 _ROUNDS_RE = re.compile(r"^\s*(\d+)\s*(?:-\s*(\d+)\s*)?$")
 
@@ -721,3 +725,18 @@ def profile_span(kind: str, index: int):
     if state is None or state["done"]:
         return _NULL_CM
     return _ProfileCm(kind, index)
+
+
+def profile_dispatch():
+    """The serve-dispatch form of :func:`profile_span`: dispatches are
+    numbered process-wide in dispatch order (the scheduler has no round
+    numbers), so ``BCG_TPU_PROFILE_ROUNDS=a-b`` captures dispatches
+    ``a..b``."""
+    global _dispatch_seq
+    state = _profile_cfg()
+    if state is None or state["done"]:
+        return _NULL_CM
+    with _profile_lock:
+        _dispatch_seq += 1
+        index = _dispatch_seq
+    return _ProfileCm("dispatch", index)

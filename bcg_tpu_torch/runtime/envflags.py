@@ -301,8 +301,8 @@ _register(
     "Append alert firing/resolved transition events as JSONL to this "
     "path (first line = run manifest).",
 )
-# BCG_TPU_CHAOS — chaos injection (runtime/resilience.py); the engine
-# and scheduler seams that consult it come with the serving tier.
+# BCG_TPU_CHAOS — chaos injection (runtime/resilience.py) at the
+# scheduler's and the engine's seams.
 _register(
     "BCG_TPU_CHAOS", "str", None,
     "Seeded chaos plan over the instrumented fault seams "
@@ -312,6 +312,110 @@ _register(
     "kvpool.alloc, sink.write, sweep.job, fleet.heartbeat; when = "
     "occurrence list, 'n+', or 'p<rate>') plus an optional 'seed=<n>'. "
     "Unset = zero surface.",
+)
+# BCG_TPU_SERVE* / SWEEP* / FAULT_SEED / COLLECTIVE_WATCHDOG_S — the
+# serving, sweep and fault-injection tiers (serve/, sweep/,
+# engine/{fault,collective}.py), as the JAX package registers them.
+_register(
+    "BCG_TPU_SERVE", "bool", False,
+    "Route concurrent games through the arrival-driven ServingEngine "
+    "scheduler (bcg_tpu_torch/serve) instead of the CollectiveEngine lockstep "
+    "barrier.",
+)
+_register(
+    "BCG_TPU_SERVE_LINGER_MS", "int", 10,
+    "Max milliseconds a partial device batch lingers for merge partners "
+    "before the scheduler dispatches it anyway (0 = dispatch "
+    "immediately).",
+)
+_register(
+    "BCG_TPU_SERVE_BUCKET_ROWS", "int", 0,
+    "Explicit device-batch row bucket for the serving scheduler; also "
+    "enables strict admission (oversize requests rejected).  0 derives "
+    "the merge cap from the engine's KV budget (cap_for) instead.",
+)
+_register(
+    "BCG_TPU_SERVE_MAX_QUEUE_ROWS", "int", 4096,
+    "Backpressure watermark: submissions block while the scheduler "
+    "queue holds at least this many rows.",
+)
+_register(
+    "BCG_TPU_SERVE_DEADLINE_MS", "int", 0,
+    "Per-request deadline for serving-scheduler calls; a request still "
+    "queued past it fails with RequestCancelled (0 = no deadline).",
+)
+_register(
+    "BCG_TPU_SERVE_SLO_MS", "int", 0,
+    "Serving latency objective in milliseconds: each completed "
+    "request's submit-to-complete latency is compared against it, "
+    "feeding the serve.slo.violations counter and the "
+    "serve.slo.headroom_ms histogram (0 = no SLO tracking).",
+)
+_register(
+    "BCG_TPU_SERVE_MAX_DISPATCH_RETRIES", "int", 0,
+    "Serving-scheduler dispatch retry budget: a failed device batch is "
+    "retried up to N times with capped exponential backoff + jitter, "
+    "then bisected to isolate poison requests before per-request "
+    "failure (serve.dispatch_retries / serve.batch_splits / "
+    "serve.recoveries counters; 0 = fail the batch on first error, the "
+    "pre-recovery behaviour).",
+)
+_register(
+    "BCG_TPU_SERVE_WATCHDOG_S", "int", 0,
+    "Device-call hang watchdog for the serving scheduler, in seconds: "
+    "a dispatch exceeding it is declared hung and the engine supervisor "
+    "rebuilds the engine ONCE (when the scheduler was given an "
+    "engine_factory) before declaring the scheduler dead; 0 = off "
+    "(dispatches run inline with no timeout).",
+)
+_register(
+    "BCG_TPU_SERVE_DEFER_WAIT_S", "int", 600,
+    "Total-wait ceiling for a tenant's quota-deferral backoff loop "
+    "(serve/engine.py): cumulative jittered retry-after sleeps past it "
+    "surface SchedulerClosed instead of spinning on a wedged scheduler "
+    "forever; 0 = no ceiling.",
+)
+_register(
+    "BCG_TPU_SWEEP_DIR", "str", None,
+    "Default output directory for `python -m bcg_tpu_torch.sweep run` (the "
+    "sweep manifest, per-rank game-event files, and per-job round "
+    "checkpoints land here; --out overrides).  Unset = "
+    "./sweeps/<spec name>.",
+)
+_register(
+    "BCG_TPU_SWEEP_MAX_CONCURRENT", "int", 4,
+    "Games in flight at once per rank in a sweep (worker threads over "
+    "the rank's job partition); each game is a tenant of the shared "
+    "serving scheduler, so this bounds tenant concurrency, not batch "
+    "size.",
+)
+_register(
+    "BCG_TPU_SWEEP_TENANT_QUOTA_ROWS", "int", 0,
+    "Per-tenant queued-row quota on the sweep's shared scheduler: a "
+    "tenant submitting past it is deferred with an SLO-headroom-"
+    "derived retry-after (AdmissionDeferred) instead of hard-rejected; "
+    "0 = unlimited.",
+)
+_register(
+    "BCG_TPU_SWEEP_MAX_JOB_RETRIES", "int", 0,
+    "Sweep job retry budget: a job whose failure classifies as "
+    "TRANSIENT (runtime/resilience.classify_failure — injected chaos, "
+    "pool exhaustion, timeouts, I/O flakes) is requeued up to N times "
+    "with backoff, resuming from its newest round checkpoint "
+    "(sweep.jobs.retried counter; permanent failures never retry; "
+    "0 = every failure is terminal, the pre-recovery behaviour).",
+)
+_register(
+    "BCG_TPU_FAULT_SEED", "int", 0,
+    "Seed for FaultInjectingEngine's corruption RNG, overriding "
+    "EngineConfig.fault_seed / --fault-seed (only read when a fault "
+    "rate is in effect).",
+)
+_register(
+    "BCG_TPU_COLLECTIVE_WATCHDOG_S", "int", 0,
+    "Collective-barrier watchdog period in seconds: force-retire "
+    "participants whose worker thread died without retire() so the "
+    "barrier cannot hang (0 = off).",
 )
 
 # -------------------------------------------------------------- accessors

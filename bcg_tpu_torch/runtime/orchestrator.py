@@ -511,8 +511,8 @@ class BCGSimulation:
     def set_engine(self, engine) -> None:
         """Swap the inference engine for this simulation AND its agents.
 
-        Lets a caller route a simulation through a
-        collective proxy engine (not ported yet, ROADMAP A11) for the
+        Lets a driver route a simulation through a
+        :class:`~bcg_tpu_torch.engine.collective.CollectiveEngine` proxy for the
         duration of a lockstep wave (cross-game batching) and back —
         agents hold their own engine reference for the sequential-retry
         path, so both must move together.

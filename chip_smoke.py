@@ -28,9 +28,9 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    and no row may fail its schema.
 
    * P1: the default engine (bf16 cache, plain loop), 1 round, timed
-     with nothing wrapped, then profiled and captured (5, 6).
-   * P2: int8 cache, fast-forward loop, compact JSON, 2 rounds, timed,
-     then profiled and captured; its line adds the decode steps per
+     and captured, then profiled (5, 6).
+   * P2: int8 cache, fast-forward loop, compact JSON, 2 rounds, timed
+     and captured, then profiled; its line adds the decode steps per
      decision, their ratio to the steps the plain loop takes for the same
      outputs, and the KV-cache bytes.
    * P3: bf16 cache, speculative loop, 1 round, untimed and captured;
@@ -59,12 +59,13 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    prefixes cached), timed once and once under ``torch.profiler``:
    device time by kernel and by kind, and the device's busy share of the
    round's wall.
-6. Capture: the path's game again, untimed (P3, P4, P6, P7: the counted
-   run itself; P9: the profiled round, whose wall time the busy share
-   does not use, the copies' bytes printed in its profile line), with
-   each kernel launcher wrapped to keep a device copy of the inputs of
-   its largest call, with their strides (k/v are views into the KV
-   cache).
+6. Capture: during the path's counted game (P1-P7; a copy is made only
+   when a call is larger than every earlier one, a few a game, so the
+   timed games pay milliseconds for it; P9: the profiled round, whose
+   wall time the busy share does not use, the copies' bytes printed in
+   its profile line), with each kernel launcher wrapped to keep a device
+   copy of the inputs of its largest call, with their strides (k/v are
+   views into the KV cache).
 7. Kernel phase: each of the thirteen kernel forms against its plain
    PyTorch version on its captured inputs (the sampler, B2, on mixed
    greedy / sampled rows at top_p 1.0 and 0.9, at P1's 10 rows and at
@@ -131,7 +132,27 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    ways), the ledger's ``params`` charge beside ``param_bytes`` and
    ``torch.cuda.memory_allocated``, the spans and the five largest, and
    the number of game-event lines.  The checkpoint is deleted.
-9. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+9. P11 (after P10, before the kernel phase): the serving tier at full
+   width and depth.  Four of P1's games (seeds 0-3, 1 round, P1's engine
+   config) played at once through ``serve.run_serving_simulations`` and
+   ``api.run_simulation`` over one ``TorchEngine`` on the shared weights
+   behind ``ServingEngine`` (the continuous-batching scheduler, default
+   linger; its supervisor's factory builds over the same weights).  The
+   counts are set to 0 just before and read just after; B1, B3a and B2
+   must launch, the plain paged versions not, no row may fail, and at
+   least one dispatch must merge games.  The kernels' inputs are captured
+   at their largest (merged) calls and held in the kernel phase as
+   ``flash_prefill@P11``, ``decode_attention@P11`` (one split when B * Hkv
+   reaches two blocks an SM) and ``guided_sampler@P11``.  ``game P11:``
+   prints the games, decisions, wall and decisions/s, the dispatches and
+   rows per dispatch, the derived row cap, the scheduler's queue-wait,
+   device and end-to-end quantiles, failed rows, peak memory and
+   launches.  Then a chaos run of two games (``BCG_TPU_CHAOS``: a crash on
+   the first dispatch, a hang past ``BCG_TPU_SERVE_WATCHDOG_S`` on the
+   third): both complete, the scheduler reads one engine rebuild and two
+   retried dispatches, and the condemned call's thread is joined before
+   the phase ends (``chaos P11:``).
+10. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
 
@@ -337,30 +358,41 @@ def keep_entry(entry):
     return out
 
 
-def keep(a):
-    """A device copy of ``a`` with its strides (a KV-cache view keeps the
-    full cache's batch stride, as the kernels read it in the game); a
-    paged entry through :func:`keep_entry`."""
+def keep(a, device=None):
+    """A copy of ``a`` with its strides (a KV-cache view keeps the full
+    cache's batch stride, as the kernels read it in the game), on
+    ``device`` (default: ``a``'s); a paged entry through
+    :func:`keep_entry`."""
     import torch
 
-    if isinstance(a, dict) and "tbl" in a:
-        return keep_entry(a)
+    if isinstance(a, dict):
+        a = keep_entry(a) if "tbl" in a and device is None else a
+        return a if device is None else {k: keep(v, device) for k, v in a.items()}
     if not torch.is_tensor(a):
         return a
-    out = torch.empty_strided(a.size(), a.stride(), dtype=a.dtype, device=a.device)
+    out = torch.empty_strided(a.size(), a.stride(), dtype=a.dtype, device=device or a.device)
     return out.copy_(a)
 
 
-class Capture:
-    """Wraps the launchers of the kernel forms ``names`` to keep a device
-    copy (``keep``) of the inputs of each one's largest call: the shapes
-    and data the served path gives it.  Only a call strictly larger than
-    the kept one is copied (``copied_bytes`` sums the copies).  B5 keeps
-    one call per weight shape (its largest), under ``("w4a16_matmul", q4
-    shape)``; its largest call of all is kept under ``"w4a16_matmul"``."""
+def move_inputs(inputs, device):
+    """Every path's captured inputs (``Capture.inputs()`` by path) copied
+    to ``device``, strides kept; the originals are dropped."""
+    return {path: {name: tuple(keep(a, device) for a in args) for name, args in got.items()}
+            for path, got in inputs.items()}
 
-    def __init__(self, names):
+
+class Capture:
+    """Wraps the launchers of the kernel forms ``names`` to keep a copy
+    (``keep``; on the card, or on ``device``) of the inputs of each one's
+    largest call: the shapes and data the served path gives it.  Only a
+    call strictly larger than the kept one is copied (``copied_bytes`` sums
+    the copies).  B5 keeps one call per weight shape (its largest), under
+    ``("w4a16_matmul", q4 shape)``; its largest call of all is kept under
+    ``"w4a16_matmul"``."""
+
+    def __init__(self, names, device=None):
         self.names = tuple(names)
+        self.device = device
         self.best = {}
         self.copied_bytes = 0
         self.orig = {}
@@ -380,7 +412,7 @@ class Capture:
             for key in keys:
                 if size > self.best.get(key, (0, None))[0]:
                     if kept is None:
-                        kept = tuple(keep(a) for a in args)
+                        kept = tuple(keep(a, self.device) for a in args)
                         self.copied_bytes += sum(a.numel() * a.element_size()
                                                  for a in args if hasattr(a, "numel"))
                     self.best[key] = (size, kept)
@@ -642,11 +674,11 @@ def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
 
 
 # The game paths: engine knobs, rounds, whether the run is timed (then
-# profiled, and the kernels' inputs captured in an untimed replay of the
-# game, or with ``capture_in_profile`` in the profiled round), and the
-# kernel forms it runs (``capture_forms``: the ones captured, if not all;
-# ``capture=False``: none).  P1 plays one round and P2 two: the script's
-# time limit is shared by all nine paths.
+# profiled), and the kernel forms it runs, whose inputs are captured in
+# the counted game (or with ``capture_in_profile`` in the profiled round;
+# ``capture_forms``: the ones captured, if not all; ``capture=False``:
+# none).  P1 plays one round and P2 two: the script's time limit is
+# shared by all eleven paths.
 PATHS = {
     "P1": dict(engine={}, rounds=1, timed=True,
                kernels=("flash_prefill", "decode_attention", "guided_sampler")),
@@ -802,7 +834,8 @@ def phase_path(path, params):
     torch.cuda.reset_peak_memory_stats()
     capture = conf.get("capture", True)
     forms = conf.get("capture_forms", conf["kernels"])
-    cap = Capture(forms) if capture and not conf["timed"] else None
+    in_profile = capture and conf.get("capture_in_profile", False)
+    cap = Capture(forms) if capture and not in_profile else None
     try:
         zero_counts()
         t0 = time.perf_counter()
@@ -875,16 +908,8 @@ def phase_path(path, params):
     if plain_calls:
         fail(f"{path}: the plain paged attention ran {plain_calls} times on the card")
     if conf["timed"]:
-        in_profile = capture and conf.get("capture_in_profile", False)
-        cap = phase_profile(path, engine, forms if in_profile else ())
-        if capture and not in_profile:
-            # The kernels' inputs at the sampled game's shapes: the game
-            # again, untimed, with the launchers wrapped.
-            cap = Capture(forms)
-            try:
-                BCGSimulation(cfg, engine=engine).run()
-            finally:
-                cap.restore()
+        profiled = phase_profile(path, engine, forms if in_profile else ())
+        cap = profiled if in_profile else cap
     torch.cuda.synchronize()
     engine.shutdown()
     del engine, sim
@@ -1126,6 +1151,229 @@ def phase_p10(params):
         fail(f"P10: {bad}")
 
 
+# P11: four of P1's games served at once by one engine behind the
+# continuous-batching scheduler (default linger), then a chaos run of two
+# games.  The chaos run lingers long enough for both games' calls to merge
+# (dispatch 1 their decisions, 2 the retry of that, 3 their votes); its
+# watchdog sits above any of its merged calls, and the hang above the
+# watchdog, so the engine is rebuilt once, on the third dispatch.
+P11_SEEDS = (0, 1, 2, 3)
+P11_CHAOS_SEEDS = (0, 1)
+P11_CHAOS_LINGER_MS = 500
+P11_WATCHDOG_S = 30
+P11_HANG_S = 36
+P11_CHAOS = f"crash@serve.dispatch:1;hang@serve.dispatch:3:{P11_HANG_S}"
+
+
+def expandable_segments(on: bool) -> None:
+    """Turn the caching allocator's expandable segments on or off (for
+    segments made from now on).  P11's 40-row prefill needs ~72 GB of the
+    card's 85: with fixed segments, the blocks it frees and asks for again
+    at other sizes strand ~11 GB, which the card does not have."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(f"expandable_segments:{on}")
+
+
+def phase_p11(params):
+    """P11 (see :func:`p11_runs`) on expandable segments."""
+    import torch
+
+    torch.cuda.empty_cache()
+    expandable_segments(True)
+    try:
+        return p11_runs(params)
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        expandable_segments(False)
+
+
+def p11_runs(params):
+    """P11: the serving tier at bench-8b.  Four games (seeds 0-3, P1's
+    engine config) through ``serve.run_serving_simulations`` and
+    ``api.run_simulation`` over one ``TorchEngine`` on the shared weights
+    behind ``ServingEngine``, the kernels of P1 captured at their largest
+    (merged) calls; then two games with a crashed and a hung dispatch,
+    which the retry ladder and the supervisor's one rebuild absorb.
+    Prints ``game P11`` and ``chaos P11``; returns the served run's launch
+    counts and captured inputs."""
+    import threading
+
+    import torch
+
+    from bcg_tpu_torch import api
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.obs import counters as obs_counters
+    from bcg_tpu_torch.runtime import resilience
+    from bcg_tpu_torch.serve import ServingEngine, run_serving_simulations
+
+    cfg = game_config(1, **PATHS["P1"]["engine"])
+    forms = PATHS["P1"]["kernels"]
+
+    def build():
+        return TorchEngine(cfg.engine, device=DEVICE, params=params)
+
+    def games(seeds):
+        return [lambda eng, s=s: api.run_simulation(
+            n_agents=10, byzantine_count=2, max_rounds=1, seed=s, engine=eng, config=cfg)
+            for s in seeds]
+
+    def counted_rows(engine):
+        rows = []
+        call = engine.batch_generate_json
+
+        def counted(prompts, temperature=0.8, max_tokens=512):
+            rows.append(len(prompts))
+            return call(prompts, temperature, max_tokens)
+
+        engine.batch_generate_json = counted
+        return rows
+
+    def finished(results, what):
+        bad = [r for r in results if isinstance(r, BaseException)]
+        if bad:
+            fail(f"P11: {what}: a game raised {type(bad[0]).__name__}: {bad[0]}")
+        stats = [r["metrics"] for r in results]
+        if any(m["total_rounds"] < 1 or len(m) < 40 for m in stats):
+            fail(f"P11: {what}: game statistics malformed")
+        return stats
+
+    # -- the served run
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = build()
+    boot_s = time.perf_counter() - t0
+    rows = counted_rows(engine)
+    serving = ServingEngine(engine, engine_factory=build)
+    # Host copies: a 40-row prefill leaves no room on the card for them.
+    cap = Capture(forms, device="cpu")
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        results = run_serving_simulations(engine, games(P11_SEEDS), serving=serving)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        plain_calls = plain_paged_calls()
+        snap = serving.stats()
+    finally:
+        cap.restore()
+        serving.scheduler.close()
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    stats = finished(results, "served run")
+    # A decide and a vote an agent a round, as the profiler counts them
+    # (P1's ``decisions``).
+    decisions = sum(2 * m["total_agents"] * m["total_rounds"] for m in stats)
+    hist = snap.get("hist_ms") or {}
+    line = {
+        "games": len(stats), "rounds": [m["total_rounds"] for m in stats],
+        "decisions": decisions, "game_seconds": wall,
+        "agent_decisions_per_sec": decisions / wall, "boot_seconds": boot_s,
+        "dispatches": snap["dispatches"], "merged_dispatches": snap["merged_dispatches"],
+        "rows_per_dispatch_mean": sum(rows) / max(len(rows), 1),
+        "rows_per_dispatch_max": max(rows, default=0), "rows_per_dispatch": rows,
+        "row_cap": serving.scheduler.row_cap,
+        "queue_wait_ms": hist.get("queue_wait"), "device_ms": hist.get("device"),
+        "e2e_ms": hist.get("e2e"), "spans_ms": snap.get("latency_ms"),
+        "failed_rows": engine.failed_rows, "total_rows": engine.total_rows,
+        "scheduler_failed": snap["failed"], "decode_steps": engine.total_decode_steps,
+        "kv_cache_bytes": engine.max_kv_cache_bytes, "peak_bytes": peak,
+        "peak_reserved_bytes": peak_reserved, "allocated_before_bytes": held,
+        "card_bytes": torch.cuda.mem_get_info()[1],
+        "launches": {k: counts[k] for k in forms}, "plain_paged_calls": plain_calls,
+        "capture_copied_bytes": cap.copied_bytes,
+    }
+    print("game P11: " + json.dumps(line), flush=True)
+    checks = {
+        "every P1 kernel launched": all(counts[k] > 0 for k in forms),
+        "no plain paged calls": plain_calls == 0,
+        "no failed rows": engine.failed_rows == 0 and snap["failed"] == 0,
+        "a dispatch merged games": snap["merged_dispatches"] >= 1 and max(rows) > 10,
+    }
+    engine.shutdown()
+    del engine, serving
+    torch.cuda.empty_cache()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"P11: {bad}")
+
+    # -- the chaos run
+    env = {"BCG_TPU_SERVE_WATCHDOG_S": str(P11_WATCHDOG_S),
+           "BCG_TPU_SERVE_MAX_DISPATCH_RETRIES": "1", "BCG_TPU_CHAOS": P11_CHAOS}
+    os.environ.update(env)
+    resilience.reset()
+    before = obs_counters.snapshot()
+    built = []
+
+    def rebuild():
+        fresh = build()
+        built.append(fresh)
+        return fresh
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = build()
+    serving = ServingEngine(engine, engine_factory=rebuild, linger_ms=P11_CHAOS_LINGER_MS)
+    try:
+        t0 = time.perf_counter()
+        results = run_serving_simulations(engine, games(P11_CHAOS_SEEDS), serving=serving)
+        wall = time.perf_counter() - t0
+        snap = serving.stats()
+    finally:
+        serving.scheduler.close()
+        # The condemned call wakes on its abandoned worker thread and runs
+        # on the old engine; nothing of it may outlive the phase.
+        for t in threading.enumerate():
+            if t.name == "bcg-serve-device":
+                t.join(timeout=P11_HANG_S + 600)
+        left = [t.name for t in threading.enumerate() if t.name.startswith("bcg-serve")]
+        for name in env:
+            os.environ.pop(name, None)
+        resilience.reset()
+    torch.cuda.synchronize()
+    joined_s = time.perf_counter() - t0
+    stats = finished(results, "chaos run")
+    injected = {k: v for k, v in obs_counters.delta(before).items()
+                if k.startswith("chaos.injected")}
+    recovery = snap.get("recovery") or {}
+    failed_rows = engine.failed_rows + sum(e.failed_rows for e in built)
+    print("chaos P11: " + json.dumps({
+        "games": len(stats), "rounds": [m["total_rounds"] for m in stats],
+        "game_seconds": wall, "seconds_to_join": joined_s, "watchdog_s": P11_WATCHDOG_S,
+        "chaos": P11_CHAOS, "engine_rebuilds": recovery.get("engine_rebuilds"),
+        "dispatch_retries": recovery.get("dispatch_retries"),
+        "recoveries": recovery.get("recoveries"), "engines_built": len(built),
+        "dispatches": snap["dispatches"], "scheduler_failed": snap["failed"],
+        "failed_rows": failed_rows, "threads_left": left,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(), **injected,
+    }), flush=True)
+    checks = {
+        "one engine rebuild": recovery.get("engine_rebuilds") == 1 and len(built) == 1,
+        "one crash and one hang injected": (injected.get("chaos.injected.crash") == 1
+                                           and injected.get("chaos.injected.hang") == 1),
+        "the crash and the hang retried": recovery.get("dispatch_retries") == 2,
+        "no failed rows": failed_rows == 0 and snap["failed"] == 0,
+        "no call outlives the phase": not left,
+    }
+    for e in [engine] + built:
+        e.shutdown()
+    del engine, built, serving
+    torch.cuda.empty_cache()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"P11 chaos: {bad}")
+    return counts, cap.inputs()
+
+
 def per_row(fn, *args):
     """Apply ``fn`` row by row (batch axis 0 of every tensor argument):
     the plain attention versions materialise [H, T, S] scores, which at
@@ -1355,7 +1603,10 @@ def phase_kernels(inputs, counts):
     results = []
     errors = []
 
-    def common(name):
+    def common(name, path=None):
+        """A form's identity and launches: at its home path (``name``), or
+        at another path's captured call (``name@path``, that path's
+        launches)."""
         src = "decode_attention_int8" if name == "chunk_decode_attention_int8" else name
         if name.startswith("paged_"):
             src = "paged_attention"
@@ -1363,12 +1614,14 @@ def phase_kernels(inputs, counts):
             src = "w4a16"
         per_path = {p: c[name] for p, c in counts.items()}
         # A form on no game path reports its launches summed over the paths.
+        launches = per_path[HOME[name]] if name in HOME else sum(per_path.values())
+        if path is not None and path != HOME.get(name):
+            name, launches = f"{name}@{path}", per_path[path]
         return dict(name=name, route="cuda", source=f"bcg_tpu_torch/csrc/{src}.cu",
-                    launches=per_path[HOME[name]] if name in HOME else sum(per_path.values()),
-                    launches_per_path=per_path)
+                    launches=launches, launches_per_path=per_path)
 
-    def flash():
-        q, k, v, mask, scale = inputs["P1"]["flash_prefill"]
+    def flash(path="P1"):
+        q, k, v, mask, scale = inputs[path]["flash_prefill"]
         out = attention.flash_attention_cuda(q, k, v, mask, scale)
         torch.cuda.synchronize()
         ref = per_row(attention.flash_attention_plain, q, k, v, mask, scale)
@@ -1376,6 +1629,10 @@ def phase_kernels(inputs, counts):
         check = attention_check(out, ref, (1, 3), dropped)
         del out, ref, dropped
         ms = time_ms(lambda: attention.flash_attention_cuda(q, k, v, mask, scale))
+        extra = {}
+        if path != "P1":
+            extra["graph_ms"] = graph_ms([lambda: attention.flash_attention_cuda(
+                q, k, v, mask, scale)])
         plain_ms = time_ms(lambda: per_row(attention.flash_attention_plain, q, k, v, mask, scale),
                            reps=3, warmup=1)
         B, T, H, Dh = q.shape
@@ -1389,18 +1646,21 @@ def phase_kernels(inputs, counts):
         # q, k, v and the mask read once, the output written once (bf16).
         byts = 2 * (2 * q.numel() + k.numel() + v.numel()) + mask.numel()
         bms, by = bound(byts, 4 * Dh * H * live)
-        return dict(common("flash_prefill"),
+        return dict(common("flash_prefill", path),
                     replaces="bcg_tpu/ops/attention.py:37 _flash_kernel",
-                    **check, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    **check, ms=ms, **extra, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms, library_ratio=ms / lib_ms, shape=[B, T, H, Hkv, S],
                     live_pairs=live)
 
-    def decode():
-        q, k, v, mask, scale = inputs["P1"]["decode_attention"]
+    def decode(path="P1"):
+        q, k, v, mask, scale = inputs[path]["decode_attention"]
         B, H, Dh = q.shape
         S, Hkv = k.shape[1], k.shape[2]
         m3 = mask if mask.dim() == 3 else mask[:, None]
         split = list(da._split_for(q, Hkv, S, m3.shape[1]))
+        # B * Hkv blocks filling two an SM leave nothing to split.
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        one_split = B * Hkv >= 2 * sms
         out = da.decode_attention_cuda(q, k, v, mask, scale)
         torch.cuda.synchronize()
         ref = da.decode_attention_plain(q, k, v, mask, scale)
@@ -1427,9 +1687,13 @@ def phase_kernels(inputs, counts):
         valid = m2.sum().item()
         byts = 2 * (2 * valid * Hkv * Dh) + 2 * 2 * q.numel() + m2.numel()
         bms, by = bound(byts, 4 * Dh * H * valid)
-        return dict(common("decode_attention"),
+        if one_split and split[0] != 1:
+            check["ok"] = False
+            errors.append(f"decode_attention at B = {B}: {split[0]} splits, not one")
+        return dict(common("decode_attention", path),
                     replaces="bcg_tpu/ops/decode_attention.py:57 _decode_kernel",
-                    **check, ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bms,
+                    **check, ms=ms, **({"graph_ms": ms} if path != "P1" else {}),
+                    event_ms=event_ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms, library_event_ms=lib_event_ms,
                     library_ratio=ms / lib_ms, split=split, shape=[B, H, Hkv, S],
                     valid_slots=valid)
@@ -1599,9 +1863,9 @@ def phase_kernels(inputs, counts):
                     inputs_from=(f"{src[0]} {src[1]}" if src else HOME[name]),
                     shape=[B, Kq, H, Hkv, nblk * bs, bs])
 
-    def sampler():
+    def sampler(path="P1"):
         logits, minb, dfa_ids, states, meta_i, meta_f, eos_id, _top_p = \
-            inputs["P1"]["guided_sampler"]
+            inputs[path]["guided_sampler"]
         B, V = logits.shape
         # Mixed rows: even rows greedy, odd rows sampled; the game's own
         # per-row scalars otherwise.
@@ -1619,7 +1883,8 @@ def phase_kernels(inputs, counts):
         big = (logits.repeat(reps, 1)[:nb].contiguous(), minb, dfa_ids.repeat(reps)[:nb],
                states.repeat(reps)[:nb], mi.repeat(reps, 1)[:nb].contiguous(), mf_big)
         mismatches, err = {}, 0
-        for label, args in (("P1", p1), (f"B{nb}", big)):
+        # The big batch is P1's alone: P11's call is a merged batch already.
+        for label, args in ((path, p1),) + (((f"B{nb}", big),) if path == "P1" else ()):
             for top_p in (1.0, 0.9):
                 tk, ak = guided_sampler.sample_rows_cuda(*args, eos_id, top_p)
                 tp, ap = guided_sampler.sample_rows_plain(*args, eos_id, top_p)
@@ -1639,7 +1904,7 @@ def phase_kernels(inputs, counts):
                                          B * V * (4 + 2)) for tp in (1.0, 0.9))
         bms, by = bound(byts, 0)
         total = sum(mismatches.values())
-        return dict(common("guided_sampler"),
+        return dict(common("guided_sampler", path),
                     replaces="bcg_tpu/ops/guided_sampler.py:93 _sampler_kernel",
                     max_abs_err=float(err), token_mismatches=mismatches, ok=total == 0,
                     ms=ms, graph_ms=g_ms, topp_event_ms=ms_topp, topp_graph_ms=g_ms_topp,
@@ -1653,7 +1918,9 @@ def phase_kernels(inputs, counts):
                   lambda: int8_forms("decode_attention_int8", "P4"),
                   lambda: int8_forms("chunk_decode_attention_int8", "P2"),
                   *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
-                    for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16):
+                    for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16,
+                  *[lambda f=f: f("P11") for f in (flash, decode, sampler)
+                    if "P11" in inputs]):
         results.append(phase())
         torch.cuda.empty_cache()
     extra = flash_p5()
@@ -1769,6 +2036,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_p10(params)
     print(f"phase P10: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    # The captured inputs wait in host memory while P11 runs: the served
+    # engine's row cap reads the card's whole memory, and a merged batch
+    # of 40 rows needs it.
+    inputs = move_inputs(inputs, "cpu")
+    counts["P11"], inputs["P11"] = phase_p11(params)
+    inputs = move_inputs(inputs, DEVICE)
+    print(f"phase P11: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.save_sampler_inputs:
         save_sampler_inputs(inputs["P1"]["guided_sampler"], args.save_sampler_inputs)
     t0 = time.perf_counter()

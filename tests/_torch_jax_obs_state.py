@@ -20,7 +20,7 @@ from bcg_tpu.obs import ledger as j_ledger
 from bcg_tpu.runtime import metrics as j_metrics
 
 _PUBLISHED = ("LAST_HOSTSYNC", "LAST_GAME_STATS", "LAST_COMPILE_OBS", "LAST_SAMPLER",
-              "LAST_KV_POOL")
+              "LAST_KV_POOL", "LAST_SERVE_STATS")
 
 
 @contextlib.contextmanager

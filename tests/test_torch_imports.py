@@ -3,6 +3,7 @@ of the JAX package, its engine runs on CUDA unless asked for the CPU,
 and every knob outside the ported path raises instead of being ignored.
 """
 
+import json
 import os
 import pkgutil
 import re
@@ -56,13 +57,21 @@ SLICE_MODULES = [
     "bcg_tpu_torch.obs.hostsync", "bcg_tpu_torch.obs.compile", "bcg_tpu_torch.obs.hlo",
     "bcg_tpu_torch.runtime.resilience", "bcg_tpu_torch.runtime.profiler",
 ]
+# The modules of the serving and sweep slice, alike.
+SERVE_MODULES = [
+    "bcg_tpu_torch.engine.fake", "bcg_tpu_torch.engine.fault",
+    "bcg_tpu_torch.engine.collective", "bcg_tpu_torch.serve", "bcg_tpu_torch.serve.scheduler",
+    "bcg_tpu_torch.serve.engine", "bcg_tpu_torch.sweep", "bcg_tpu_torch.sweep.spec",
+    "bcg_tpu_torch.sweep.controller", "bcg_tpu_torch.sweep.__main__",
+    "bcg_tpu_torch.experiments", "bcg_tpu_torch.api", "bcg_tpu_torch.cli",
+]
 
 
 @pytest.fixture(scope="module")
 def slice_imports():
     code = (
         "import importlib, json, subprocess, sys\n"
-        f"mods = {SLICE_MODULES!r}\n"
+        f"mods = {SLICE_MODULES + SERVE_MODULES!r}\n"
         "out = {}\n"
         "for m in mods:\n"
         "    r = subprocess.run([sys.executable, '-c', 'import importlib, sys; '\n"
@@ -83,6 +92,13 @@ def slice_imports():
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
 def test_slice_module_imports_without_jax_or_the_jax_package(slice_imports, mod):
+    rc, loaded, err = slice_imports[mod]
+    assert rc == 0, err
+    assert loaded == "[]"
+
+
+@pytest.mark.parametrize("mod", SERVE_MODULES)
+def test_serve_slice_module_imports_without_jax_or_the_jax_package(slice_imports, mod):
     rc, loaded, err = slice_imports[mod]
     assert rc == 0, err
     assert loaded == "[]"
@@ -207,15 +223,18 @@ def test_orchestrator_rejects_unported_round_paths():
 
 def test_create_engine_serves_torch_only():
     from bcg_tpu_torch.engine import create_engine
+    from bcg_tpu_torch.engine.fault import FaultInjectingEngine
 
     with pytest.raises(ValueError, match="torch"):
         create_engine(EngineConfig(backend="jax", model_name="bcg-tpu/tiny-test"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        create_engine(EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test",
-                                   fault_rate=0.1), device="cpu")
+    eng = create_engine(EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test",
+                                     fault_rate=0.1), device="cpu")
+    assert isinstance(eng, FaultInjectingEngine) and eng.rate == 0.1
+    assert isinstance(eng._engine, TorchEngine) and eng._engine.device.type == "cpu"
     eng = create_engine(EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test"),
                         device="cpu")
     assert isinstance(eng, TorchEngine) and eng.device.type == "cpu"
+    assert EngineConfig().backend == "torch"
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -245,8 +264,7 @@ def test_cli_builds_a_torch_config_on_cuda_by_default():
 
 @pytest.mark.parametrize("flag", [
     "--tensor-parallel=2", "--sequence-parallel=2", "--data-parallel=2",
-    "--serve", "--scan-layers", "--spmd-exchange",
-    "--fake-policy=consensus", "--fault-rate=0.1", "--fault-seed=1", "--backend=torch",
+    "--scan-layers", "--spmd-exchange",
 ])
 def test_cli_offers_no_flag_of_an_unported_path(flag, capsys):
     from bcg_tpu_torch.cli import build_parser
@@ -254,6 +272,31 @@ def test_cli_offers_no_flag_of_an_unported_path(flag, capsys):
     with pytest.raises(SystemExit):
         build_parser().parse_args([flag])
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def _serves(capsys):
+    from bcg_tpu_torch.cli import main
+
+    assert main(["--backend", "fake", "--honest", "3", "--byzantine", "0", "--rounds", "1",
+                 "--no-save", "--serve", "--verbose"]) == 0
+    out = capsys.readouterr().out
+    stats = json.loads(out[out.index("[Serving Scheduler]") + len("[Serving Scheduler]"):])
+    return stats["completed"] > 0 and stats["failed"] == 0
+
+
+# The serving slice's flags: each reaches the config or the serving wrapper.
+@pytest.mark.parametrize("flag, reached", [
+    ("--serve", lambda cfg, capsys: _serves(capsys)),
+    ("--fake-policy=stubborn", lambda cfg, capsys: cfg.engine.fake_policy == "stubborn"),
+    ("--fault-rate=0.1", lambda cfg, capsys: cfg.engine.fault_rate == 0.1),
+    ("--fault-seed=1", lambda cfg, capsys: cfg.engine.fault_seed == 1),
+    ("--backend=torch", lambda cfg, capsys: cfg.engine.backend == "torch"),
+])
+def test_cli_flag_of_the_serving_slice_reaches_the_run(flag, reached, capsys):
+    from bcg_tpu_torch.cli import build_parser, config_from_args
+
+    cfg = config_from_args(build_parser().parse_args([flag]))
+    assert reached(cfg, capsys)
 
 
 def test_cli_serves_the_decode_loops_and_the_int8_cache(capsys):

@@ -9,8 +9,8 @@ only PyTorch; there, skip the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Covered: flash prefill (groups 1-7, edge shapes), bf16 decode attention
-(single step — split over S, repeatable bit for bit and replayed in a
-CUDA graph — and chunk),
+(single step — split over S, at a merged batch of 40 rows on one split,
+repeatable bit for bit and replayed in a CUDA graph — and chunk),
 int8 decode attention (single step and chunk, at the bench-8b shapes
 and at a GQA group of 5), paged decode attention over bf16, int8 and
 packed-int4 block pools (single step and chunk, shuffled tables with
@@ -185,6 +185,34 @@ def test_decode_kernel_split_shapes(dev, case):
     scale = 128 ** -0.5
     out = decode_attention.decode_attention(q, k, v, mask, scale)
     torch.cuda.synchronize()
+    ref = decode_attention.decode_attention_plain(q, k, v, mask, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
+    split_ref = decode_attention.decode_attention_split_plain(q, k, v, mask, scale, n_split,
+                                                              split_len)
+    torch.testing.assert_close(out.float(), split_ref.float(), atol=TOL, rtol=TOL)
+
+
+def test_decode_kernel_at_a_merged_batch_of_forty(dev):
+    """The serving scheduler's merged batch of four 10-agent games: B = 40
+    rows at bench-8b's heads over a ~5k window, each row left-padded by
+    its own prompt length.  B * Hkv = 320 blocks fill two an SM of 132:
+    the one-split plan, held to the plain version and to the split
+    arithmetic's plain version at that plan."""
+    rng = np.random.default_rng(40)
+    B, S, H, Hkv = 40, 5072, 32, 8
+    q, k, v = _decode_inputs(dev, rng, B, S, H, Hkv)
+    m = np.zeros((B, S), bool)
+    for b in range(B):
+        m[b, rng.integers(0, S // 3):] = True
+    mask = torch.from_numpy(m).to(dev)
+    n_split, split_len = decode_attention._split_for(q, Hkv, S, 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (n_split == 1) == (B * Hkv >= 2 * sms)
+    scale = 128 ** -0.5
+    launches = decode_attention.decode_attention.launches
+    out = decode_attention.decode_attention(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert decode_attention.decode_attention.launches == launches + 1
     ref = decode_attention.decode_attention_plain(q, k, v, mask, scale)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL, rtol=TOL)
     split_ref = decode_attention.decode_attention_split_plain(q, k, v, mask, scale, n_split,
