@@ -257,20 +257,166 @@ class FakeEngine(InferenceEngine):
 
     def prepare_megaround(self, n_agents: int, lo: int, hi: int,
                           max_rounds: int):
-        """The fused mega-round's plan lives in ``engine/megaround.py``,
-        which the port does not have yet (ROADMAP A10)."""
-        raise NotImplementedError(
-            "megaround: the fused on-device round is not ported yet "
-            "(ROADMAP A10)"
+        """Hermetic mega-round plan: just the template renderer — the
+        fake mirror answers the rendered prompts directly, so there is
+        no tokenized buffer to build.  Mirrors the real plan builder's
+        value-range gate (negative ranges collide with the -1 absent
+        encoding) so fallback behaviour is identical under test."""
+        from bcg_tpu_torch.engine.megaround import (
+            MegaroundTemplate,
+            MegaroundUnsupported,
+        )
+
+        if lo < 0:
+            raise MegaroundUnsupported(
+                f"value_range ({lo}, {hi}): negative values collide with "
+                "the -1 absent/abstain encoding"
+            )
+        return MegaroundTemplate(
+            n_agents=n_agents, lo=lo, hi=hi, max_rounds=max_rounds
         )
 
     def run_megaround(self, plan, values, inbox, round_num,
                       receiver_mask, is_byzantine, initial_values,
                       equivocators=None):
-        """See :meth:`prepare_megaround` (ROADMAP A10)."""
-        raise NotImplementedError(
-            "megaround: the fused on-device round is not ported yet "
-            "(ROADMAP A10)"
+        """One fused round, hermetically: the stock decision policies
+        answer the SAME rendered template prompts the device plan
+        tokenizes, then exchange/tally/consensus run as the numpy mirror
+        of ``parallel.game_step``'s dense bodies.  Carries the fused
+        entry's exact sync profile — ONE ``round_readback`` note per
+        round instead of the lockstep 2 calls x 3 syncs — so hermetic
+        hostsync gates measure the real path's structure.
+
+        The retry ladder never sees fused rounds, so
+        ``fail_first_n_calls`` injection does not apply here (a fused
+        parse failure IS the -1/abstain outcome, not a retryable error).
+        """
+        import time
+
+        import numpy as np
+
+        from bcg_tpu_torch.engine.megaround import MegaroundResult
+
+        template = getattr(plan, "template", plan)
+        n = template.n_agents
+        values = np.asarray(values, dtype=np.int32)
+        inbox = np.asarray(inbox, dtype=np.int32)
+        mask = np.asarray(receiver_mask, dtype=bool)
+        is_byz = np.asarray(is_byzantine, dtype=bool)
+        initials = np.asarray(initial_values, dtype=np.int32)
+        equiv = (
+            np.zeros(n, dtype=bool) if equivocators is None
+            else np.asarray(equivocators, dtype=bool)
+        )
+
+        # Mega-round prompts are uniform integer-only schemas, so the
+        # mixed-policy schema-shape dispatch (_policy_for) is blind to
+        # roles here — dispatch per ROW on the is_byzantine array the
+        # fused entry already receives.
+        def row_policy(i: int) -> str:
+            if not self.policy.startswith("mixed:"):
+                return self.policy
+            _, honest_p, byz_p = self.policy.split(":")
+            return byz_p if is_byz[i] else honest_p
+
+        t0 = time.perf_counter()
+        with obs_tracer.span(
+            "engine.megaround", args={"rows": n, "round": int(round_num)}
+        ):
+            proposed = np.empty(n, dtype=np.int32)
+            for i, (_system, user, schema) in enumerate(
+                template.decision_prompts(values, inbox, round_num)
+            ):
+                out = self._decide(user, schema, row_policy(i))
+                v = out.get("value")
+                proposed[i] = int(v) if isinstance(v, int) else -1
+            new_values = np.where(proposed >= 0, proposed, values).astype(
+                np.int32
+            )
+            # Per-receiver exchange + tally: numpy twins of game_step's
+            # equivocate_proposals / masked_exchange_matrix /
+            # tally_votes_dense / check_consensus_dense.  Column j of
+            # the proposal matrix is constant unless sender j
+            # equivocates, in which case each receiver row gets its own
+            # deterministic variant.
+            proposal_matrix = np.broadcast_to(
+                proposed[None, :], (n, n)
+            ).astype(np.int32)
+            if equiv.any():
+                from bcg_tpu_torch.scenarios.strategies import equivocation_value
+
+                recv_idx = np.arange(n, dtype=np.int32)[:, None]
+                spread = equivocation_value(
+                    proposed[None, :], recv_idx, template.lo, template.hi
+                )
+                proposal_matrix = np.where(
+                    equiv[None, :] & (proposed >= 0)[None, :],
+                    spread, proposal_matrix,
+                ).astype(np.int32)
+            delivered = mask & (proposal_matrix >= 0)
+            received = np.where(delivered, proposal_matrix, -1).astype(
+                np.int32
+            )
+            deliveries = delivered.sum(axis=1).astype(np.int32)
+            # Vote phase: `_vote`'s rules over what each receiver's
+            # rendered vote prompt shows (own new value + delivered
+            # peers; dash slots match no regex) — computed from the same
+            # arrays the renderer reads, so prompt and vote agree.
+            vote_raw = np.zeros(n, dtype=np.int32)
+            for i in range(n):
+                policy = row_policy(i)
+                if policy in ("disrupt", "oscillate", "clique",
+                              "adaptive", "equivocate"):
+                    vote_raw[i] = 0
+                elif policy == "mimic":
+                    vote_raw[i] = 1
+                else:
+                    seen = [int(v) for v in received[i] if v >= 0]
+                    if new_values[i] >= 0:
+                        seen.append(int(new_values[i]))
+                    vote_raw[i] = 1 if seen and len(set(seen)) == 1 else 0
+            votes = np.where(vote_raw == 1, 1, 0).astype(np.int32)
+            stop = int((votes == 1).sum())
+            honest_valid = (~is_byz) & (new_values >= 0)
+            n_honest = int(honest_valid.sum())
+            same = (
+                honest_valid[:, None]
+                & honest_valid[None, :]
+                & (new_values[:, None] == new_values[None, :])
+            )
+            counts = np.where(honest_valid, same.sum(axis=1), 0)
+            modal_idx = int(np.argmax(counts))
+            ref = int(new_values[modal_idx])
+            modal_count = int(counts[modal_idx])
+            agreement = (
+                modal_count / max(n_honest, 1) * 100.0 if n_honest else 0.0
+            )
+            from_initial = bool(
+                ((initials == ref) & ~is_byz & (initials >= 0)).any()
+            )
+            # The fused entry's single packed readback.
+            obs_hostsync.note("round_readback", entry="megaround")
+        self.megaround_rounds += 1
+        self.megaround_seconds += time.perf_counter() - t0
+        obs_counters.inc("engine.megaround.rounds")
+        obs_hostsync.publish()
+        from bcg_tpu_torch.runtime import metrics as _metrics
+
+        _metrics.publish_megaround(self.megaround_stats())
+        return MegaroundResult(
+            proposed=proposed,
+            values=new_values,
+            received=received,
+            deliveries=deliveries,
+            vote_raw=vote_raw,
+            votes=votes,
+            stop=stop,
+            cont=n - stop,
+            terminate=stop * 3 >= n * 2,
+            has_consensus=(modal_count == n_honest and n_honest > 0)
+            and from_initial,
+            consensus_value=ref,
+            agreement_pct=float(agreement),
         )
 
     def megaround_stats(self) -> Dict[str, Any]:

@@ -7,8 +7,11 @@ attention) lives in :mod:`bcg_tpu_torch.ops.paged_attention`; this
 module owns everything the host decides per call:
 
 * **Block pool bookkeeping** — a free list over ``[1, num_blocks)``
-  (block 0 is the reserved null block that table padding points at) and
-  allocation with eviction pressure.
+  (block 0 is the reserved null block that table padding points at),
+  allocation with eviction pressure, and the ``kvpool.*`` gauges and
+  counters (blocks total / free / resident, headroom bytes, evicted
+  blocks, hit and lookup positions) refreshed wherever the resident or
+  free set changes.
 
 * **Radix index** — a tree over TOKEN IDS at block granularity: each
   node is one full block (``block_size`` tokens, the edge label from
@@ -26,10 +29,13 @@ module owns everything the host decides per call:
   Eviction (LRU over leaf nodes, only at refcount 0) runs under
   allocation pressure.
 
+* **Chaos seam** — ``BCG_TPU_CHAOS=exhaust@kvpool.alloc`` injects pool
+  exhaustion at the top of :meth:`PagedKV.alloc`.
+
 The radix tree, the allocator, the pins, the eviction order and
 :meth:`PagedKV.stats` are the JAX package's, decision for decision: the
 same calls leave both engines with the same resident, free and hit
-counts.  Four things differ:
+counts, and the same ``kvpool.*`` telemetry.  Four things differ:
 
 * the pool is allocated by the port's ``init_block_pool`` on the
   engine's device (one buffer per kind, per-layer views);
@@ -38,9 +44,9 @@ counts.  Four things differ:
   avoid aliasing under buffer donation);
 * there is no ``adopt``: the model writes the pool in place, so no
   call returns a new pool to re-adopt;
-* the ``obs.counters`` / ``obs.ledger`` gauges and the ``resilience``
-  chaos seam are left out, as in the port's orchestrator copy; ROADMAP
-  A12 (observability) and A11 (serving tiers) restore them.
+* the pool charges no ledger account: the engine charges the radix-
+  resident blocks to ``prefix_cache`` at the end of each call (one site,
+  and a charge replaces the amount, so the account reads the same bytes).
 
 Thread-safety: called only from the engine's generation path, which is
 serialised — no internal locking, same contract as the dense prefix
@@ -55,6 +61,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from bcg_tpu_torch.obs import counters as obs_counters
+from bcg_tpu_torch.runtime import resilience
 
 
 class PoolExhausted(RuntimeError):
@@ -108,6 +117,8 @@ class PagedKV:
         self._lookup_positions = 0
         self.pool = self._init_pool()
         self.block_bytes_dev = self._block_bytes()
+        obs_counters.set_gauge("kvpool.blocks_total", self.num_blocks - 1)
+        self._publish()
 
     # ------------------------------------------------------------ device pool
 
@@ -144,6 +155,7 @@ class PagedKV:
         for e in self.pool:
             for name, t in e.items():
                 t.fill_(1 if name.endswith("_scale") else 0)
+        self._publish()
 
     # -------------------------------------------------------------- allocator
 
@@ -156,6 +168,10 @@ class PagedKV:
         :class:`PoolExhausted` when the pinned resident set leaves no
         room — admission (``cap_for`` on free blocks) exists to make
         that unreachable in correctly-sized deployments."""
+        # Chaos seam (BCG_TPU_CHAOS `exhaust@kvpool.alloc`): injected
+        # pool exhaustion exercises the same PoolExhausted path a
+        # mis-sized pool would, upstream of any state mutation.
+        resilience.inject("kvpool.alloc")
         if n > len(self._free):
             self.evict(n - len(self._free))
         if n > len(self._free):
@@ -168,12 +184,14 @@ class PagedKV:
             )
         out = self._free[:n]
         del self._free[:n]
+        self._publish()
         return out
 
     def free(self, ids: Sequence[int]) -> None:
         """Return PRIVATE (never radix-inserted) blocks to the free
         list.  Contents are dead; the null block 0 is never accepted."""
         self._free.extend(i for i in ids if i != 0)
+        self._publish()
 
     def _iter_nodes(self):
         stack = list(self._root.children.values())
@@ -202,9 +220,12 @@ class PagedKV:
             self._free.append(victim.block)
             self.resident_blocks -= 1
             freed += 1
+            obs_counters.inc("kvpool.evicted_blocks")
             if (parent is not self._root and not parent.children
                     and parent.refcount == 0):
                 heapq.heappush(heap, (parent.last_use, id(parent), parent))
+        if freed:
+            self._publish()
         return freed
 
     # ------------------------------------------------------------ radix index
@@ -230,6 +251,8 @@ class PagedKV:
             node = child
         self._hit_positions += len(blocks) * bs
         self._lookup_positions += full * bs
+        obs_counters.inc("kvpool.hit_positions", len(blocks) * bs)
+        obs_counters.inc("kvpool.lookup_positions", full * bs)
         return path, blocks
 
     def pin(self, nodes: Sequence[_Node]) -> None:
@@ -272,13 +295,27 @@ class PagedKV:
             grafted.append(child)
             node = child
         self.pin(grafted)
+        self._publish()
         return grafted
 
     # ------------------------------------------------------------ accounting
 
+    def _publish(self) -> None:
+        obs_counters.set_gauge("kvpool.blocks_free", len(self._free))
+        obs_counters.set_gauge("kvpool.blocks_resident", self.resident_blocks)
+        obs_counters.set_gauge(
+            "kvpool.headroom_bytes", len(self._free) * self.block_bytes_dev
+        )
+
     def close(self) -> None:
-        """Engine shutdown: release the pool's device memory."""
+        """Engine shutdown: release the pool's device memory and zero the
+        published pool gauges so dead-pool telemetry (resident blocks,
+        headroom) cannot outlive the engine in the Prometheus export or
+        trace reports."""
         self.pool = []
+        for name in ("kvpool.blocks_total", "kvpool.blocks_free",
+                     "kvpool.blocks_resident", "kvpool.headroom_bytes"):
+            obs_counters.set_gauge(name, 0)
 
     def stats(self) -> Dict[str, Optional[float]]:
         """Pool/headroom snapshot for serve stats and bench JSON."""

@@ -58,10 +58,17 @@ Serving design, as in the JAX engine:
   and the ``engine.spec.*`` counters.  With every flag off they do no
   device work and add no host sync.
 
+* The fused mega-round (:meth:`TorchEngine.run_megaround`,
+  ``engine/megaround.py``): a whole consensus round as one eager program
+  over device tensors of game state — the suffix prefill against a
+  per-plan prefix cache, the plain loop with no poll, the on-device parse,
+  exchange, tally and consensus — with one host sync, its packed
+  readback.  Dense engines only, as in the JAX package.
+
 Ported: bf16, int8 and int4 weights, a dense or paged bf16, int8 or int4
-KV cache, the plain, fast-forward and speculative loops.  Every knob
-outside that raises ``NotImplementedError`` naming the ROADMAP item that
-brings it; none is ignored.
+KV cache, the plain, fast-forward and speculative loops, the fused
+mega-round.  Every knob outside that raises ``NotImplementedError``
+naming the ROADMAP item that brings it; none is ignored.
 """
 
 from __future__ import annotations
@@ -311,6 +318,14 @@ class TorchEngine(InferenceEngine):
         self.prefix_fallbacks = 0
         self._prefix_fallback_warned = False
         self._kv_budget_warned = False
+        # Fused mega-round (engine/megaround.py): round programs memoized
+        # per plan layout, the one resident plan's device arrays and
+        # per-plan prefix caches, and the guided tables per (schema, n).
+        self._megaround_programs: Dict[Tuple, Any] = {}
+        self._megaround_arrays: Dict[int, Tuple] = {}
+        self._megaround_guided_memo: Dict[Tuple, Any] = {}
+        self.megaround_rounds = 0
+        self.megaround_seconds = 0.0
 
         # Token-byte table padded to the MODEL vocab (pads are b'' =
         # forbidden, so logits and masks agree).
@@ -504,6 +519,14 @@ class TorchEngine(InferenceEngine):
 
     def _dev(self, arr, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=self.device, dtype=dtype)
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device with no host sync: one
+        non-blocking copy from pinned memory on CUDA (a pageable copy
+        waits for the device); on the CPU, ``t`` itself."""
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     @staticmethod
     def _all_done(done: torch.Tensor, entry: str) -> bool:
@@ -1096,16 +1119,20 @@ class TorchEngine(InferenceEngine):
 
     def _decode_loop(self, cache, first_logits, valid_mask, prompt_lens, L: int,
                      batch: GuidedBatch, temps, budgets, max_new: int,
-                     top_p: float, entry: str = "decode_loop"):
+                     top_p: float, entry: str = "decode_loop", poll: bool = True):
         """The guided token loop (``_decode_loop_fn``'s semantics).
         Returns ``(out [B, max_new] int32, steps)`` on the device;
         ``entry`` names the loop for the host-sync audit and the launch
-        census."""
+        census.  ``temps``/``budgets``: per-row lists, or tensors already
+        on the device.  ``poll=False`` (the fused round) runs all
+        ``max_new - 1`` steps with no "all done" poll, so the loop reads
+        nothing on the host; ``steps`` counts the same steps either way."""
         spec = self.spec
         eos = self.tokenizer.eos_id
         sampler = make_fused_sampler(eos, top_p)
-        row_temp = self._dev(np.asarray(temps, np.float32))
-        row_budget = self._dev(np.asarray(budgets, np.int32))
+        row_temp = temps if torch.is_tensor(temps) else self._dev(np.asarray(temps, np.float32))
+        row_budget = (budgets if torch.is_tensor(budgets)
+                      else self._dev(np.asarray(budgets, np.int32)))
         census = obs_hlo.step_census(entry, self.device)
 
         def sample(logits, states, emitted):
@@ -1125,7 +1152,7 @@ class TorchEngine(InferenceEngine):
             # Position max_new-1 is the last output slot, written by step
             # max_new-2.  Steps taken after every row finished only write
             # EOS over EOS; `steps` counts the ones the JAX loop runs.
-            if i % _DONE_CHECK == 0 and self._all_done(done, entry):
+            if poll and i % _DONE_CHECK == 0 and self._all_done(done, entry):
                 break
             if census is not None:
                 census.begin(i)
@@ -1750,11 +1777,214 @@ class TorchEngine(InferenceEngine):
         stats["scratch_reserve_blocks"] = self._paged_scratch_reserve()
         return stats
 
+    # ------------------------------------------------------------ mega-round
+
+    def prepare_megaround(self, n_agents: int, lo: int, hi: int,
+                          max_rounds: int):
+        """Build (and slot-splice-VERIFY) the fused-round plan for this
+        engine's tokenizer + chat template, or raise
+        ``MegaroundUnsupported`` so the orchestrator falls back to the
+        lockstep path.  Dense engines only: the fused round allocates its
+        own per-phase caches (a paged pool would need its own round
+        program)."""
+        from bcg_tpu_torch.engine.megaround import (
+            MegaroundTemplate,
+            MegaroundUnsupported,
+            build_plan,
+        )
+
+        if self._paged is not None:
+            raise MegaroundUnsupported(
+                "paged-KV engine (the fused round allocates dense "
+                "per-phase caches)"
+            )
+
+        def chat_parts(system: str, user: str):
+            return format_chat_parts(
+                self.config.model_name, system, user,
+                self.config.disable_qwen3_thinking,
+            )
+
+        return build_plan(
+            MegaroundTemplate(n_agents=n_agents, lo=lo, hi=hi,
+                              max_rounds=max_rounds),
+            self.tokenizer, chat_parts, self.max_model_len, _LEN_BUCKETS,
+        )
+
+    def _megaround_guided(self, schema: Dict, n: int):
+        """The guided-decode tables for one schema replicated over ``n``
+        rows, on the device, memoized per (schema, n) so steady-state
+        rounds reuse the same tensors (no per-round upload).  Built on
+        the host and uploaded with :meth:`_upload`, so the first round
+        makes no host sync for them either.  Returns ``(batch,
+        signature)``."""
+        key = (json.dumps(schema, sort_keys=True), n)
+        got = self._megaround_guided_memo.get(key)
+        if got is None:
+            guide = compile_schema(
+                schema, self._token_bytes, vocab_id=self.tokenizer.vocab_id,
+                compact=getattr(self.config, "guided_compact_json", False),
+            )
+            # The tables are built (and cached) on the host; this batch's
+            # own tensors go up.
+            batch = GuidedBatch([guide] * n)
+            for name, value in list(vars(batch).items()):
+                if torch.is_tensor(value):
+                    setattr(batch, name, self._upload(value))
+            sig = (batch.num_unique, batch.tables.shape[1], batch.tables.shape[2])
+            got = (batch, sig)
+            self._megaround_guided_memo[key] = got
+        return got
+
+    def _megaround_resident(self, plan):
+        """The plan's device arrays, built on its first round and kept for
+        one resident plan: per phase the token buffer, its valid mask and
+        the static-prefix KV (columns ``[0, prefix_len)`` prefilled once:
+        every round prefills only the slot-bearing suffix against it, the
+        fused path's analogue of the lockstep prefix cache), then the slot
+        token tables and the digit tables of the integer parse.  Each
+        phase's cache is sized as the lockstep dense path sizes one for
+        the same window and budget, ``L + max_new + 1`` slots."""
+        dev = self._megaround_arrays.get(id(plan))
+        if dev is not None:
+            return dev
+        n = plan.n_agents
+
+        def up(a):
+            return self._upload(torch.from_numpy(np.ascontiguousarray(a)))
+
+        phase_dev = []
+        for phase in (plan.decide, plan.vote):
+            base, valid = up(phase.base), up(phase.valid)
+            P = phase.prefix_len
+            S = phase.L + phase.max_new + 1
+            obs_compile.note_shape("megaround_prefix", (n, P, S),
+                                   names=("rows", "prefix_len", "cache_len"))
+            cache = self._new_cache(n, S)
+            _, cache = prefill(self.params, self.spec, base[:, :P].long(), valid[:, :P], cache)
+            phase_dev.extend([base, valid, cache])
+        dev = tuple(phase_dev) + (up(plan.val_table), up(plan.round_table),
+                                  (up(plan.digit_len), up(plan.digit_val)))
+        # One resident plan per engine: a game swaps plans rarely
+        # (re-prepare), so dead buffers do not accumulate.
+        self._megaround_arrays = {id(plan): dev}
+        return dev
+
+    def run_megaround(self, plan, values, inbox, round_num: int,
+                      receiver_mask, is_byzantine, initial_values,
+                      equivocators=None):
+        """Run one WHOLE consensus round as one fused program and return
+        its :class:`~bcg_tpu_torch.engine.megaround.MegaroundResult` after
+        ONE packed readback (``engine.hostsync.site.round_readback``,
+        attributed to the ``megaround`` entry) — the round's only host
+        sync: the round's inputs go up in one non-blocking copy, the
+        decode loops run every step without polling, and the 14 outputs
+        come back in one int32 buffer.
+
+        Every per-round quantity is a tensor argument, so the program and
+        its shapes are the plan's (the ``megaround`` shape signature: the
+        plan's static key + the guided signatures) and a later round adds
+        no compile record."""
+        from bcg_tpu_torch.engine.megaround import (
+            MegaroundResult,
+            build_round_program,
+        )
+
+        t0 = time.perf_counter()
+        n = plan.n_agents
+        dev = self._megaround_resident(plan)
+        guided_d, sig_d = self._megaround_guided(plan.decide.schema, n)
+        guided_v, sig_v = self._megaround_guided(plan.vote.schema, n)
+        key = plan.static_key() + (sig_d, sig_v)
+        prog = self._megaround_programs.get(key)
+        if prog is None:
+            obs_compile.note_shape(
+                "megaround", key,
+                names=("agents", "lo", "hi", "max_rounds", "decide_layout",
+                       "vote_layout", "decide_sig", "vote_sig"),
+            )
+            prog = build_round_program(plan, self)
+            self._megaround_programs[key] = prog
+        # The round's inputs in one host buffer, one upload: values,
+        # inbox, round index, receiver mask, Byzantine flags, initial
+        # values, equivocators (equivocators enter as a tensor, like
+        # is_byzantine: all-False keeps the exchange the plain broadcast).
+        equiv = np.zeros(n, bool) if equivocators is None else np.asarray(equivocators, bool)
+        packed = np.concatenate([
+            np.asarray(values, np.int32).ravel(), np.asarray(inbox, np.int32).ravel(),
+            np.asarray([round_num], np.int32),
+            np.asarray(receiver_mask, bool).ravel().astype(np.int32),
+            np.asarray(is_byzantine, bool).astype(np.int32),
+            np.asarray(initial_values, np.int32), equiv.astype(np.int32),
+        ])
+        args = torch.split(self._upload(torch.from_numpy(packed)),
+                           [n, n * n, 1, n * n, n, n, n])
+        values_t, inbox_t, round_t, mask_t, byz_t, init_t, equiv_t = args
+        sampler_launches = sample_rows.launches
+        with obs_tracer.span(
+            "engine.megaround", args={"agents": n, "round": int(round_num)}
+        ):
+            with obs_compile.time_block("megaround"):
+                outs = prog(
+                    self.params, *dev, values_t, inbox_t.view(n, n), round_t,
+                    mask_t.view(n, n).bool(), byz_t.bool(), init_t, equiv_t.bool(),
+                    guided_d, guided_v,
+                )
+            # THE round's one device->host sync: everything the host
+            # needs (values, deliveries, votes, tally, consensus) comes
+            # back in one int32 buffer (agreement_pct as its f32 bits).
+            flat = torch.cat([
+                o.reshape(-1).view(torch.int32) if o.dtype == torch.float32
+                else o.reshape(-1).to(torch.int32) for o in outs
+            ])
+            host = self._read_back("round_readback", "megaround", flat)
+        sizes = [n, n, n * n, n, n, n] + [1] * 8
+        parts = np.split(host, np.cumsum(sizes)[:-1])
+        (proposed, new_values, received, deliveries, vote_raw, votes,
+         stop, cont, term, cons_ok, cons_val, cons_pct,
+         steps_d, steps_v) = parts
+        sampler_launches = sample_rows.launches - sampler_launches
+        if sampler_launches:
+            obs_counters.inc("engine.sampler.fused_calls", sampler_launches)
+        steps = int(steps_d[0]) + int(steps_v[0])
+        self.last_decode_steps = steps
+        self.total_decode_steps += steps
+        self.megaround_rounds += 1
+        self.megaround_seconds += time.perf_counter() - t0
+        obs_counters.inc("engine.megaround.rounds")
+        obs_hostsync.publish()
+        _metrics.publish_megaround(self.megaround_stats())
+        return MegaroundResult(
+            proposed=proposed, values=new_values, received=received.reshape(n, n),
+            deliveries=deliveries, vote_raw=vote_raw, votes=votes,
+            stop=int(stop[0]), cont=int(cont[0]), terminate=bool(term[0]),
+            has_consensus=bool(cons_ok[0]), consensus_value=int(cons_val[0]),
+            agreement_pct=float(cons_pct.view(np.float32)[0]), syncs=1,
+        )
+
+    def megaround_stats(self) -> Dict[str, Any]:
+        """The fused-round block of bench-style stats: fused-round
+        volume, the per-round sync profile (1 by construction — exactly
+        one ``round_readback`` note per fused round), and fused-round
+        throughput over engine wall-clock."""
+        return {
+            "fused_rounds": self.megaround_rounds,
+            "syncs_per_round": 1.0 if self.megaround_rounds else 0.0,
+            "rounds_per_sec": (
+                self.megaround_rounds / self.megaround_seconds
+                if self.megaround_seconds > 0 else 0.0
+            ),
+        }
+
     def shutdown(self) -> None:
-        """Release the weights, the cached prefix KV and the paged pool,
-        and credit their ledger accounts."""
+        """Release the weights, the cached prefix KV, the fused round's
+        resident plan and programs and the paged pool, and credit their
+        ledger accounts."""
         obs_ledger.credit("params", id(self))
         obs_ledger.credit("prefix_cache", id(self))
+        self._megaround_programs.clear()
+        self._megaround_arrays.clear()
+        self._megaround_guided_memo.clear()
         self._prefix_cache.clear()
         self._prefix_bytes = 0
         if self._paged is not None:

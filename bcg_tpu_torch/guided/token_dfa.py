@@ -203,6 +203,95 @@ def _build_numpy(char_dfa: CharDFA, token_bytes: Sequence[bytes]) -> np.ndarray:
     return out
 
 
+
+def digit_token_tables(token_bytes: Sequence[bytes]):
+    """Per-token decimal tables for the on-device integer parse
+    (:func:`parse_int_values`): ``digit_len[t]`` = number of decimal
+    digit characters token t contributes (0 for any token containing a
+    non-digit byte — including ``b""`` pads), ``digit_val[t]`` = the
+    integer value of those digits.  Built once per tokenizer on the
+    host; the byte tokenizer's single-char digit tokens give
+    ``digit_len`` in {0, 1}, a trained-BPE vocabulary's multi-digit
+    tokens land their full width."""
+    vocab = len(token_bytes)
+    digit_len = np.zeros(vocab, dtype=np.int32)
+    digit_val = np.zeros(vocab, dtype=np.int32)
+    for i, t in enumerate(token_bytes):
+        if t and all(0x30 <= b <= 0x39 for b in t):
+            digit_len[i] = len(t)
+            digit_val[i] = int(t.decode("ascii"))
+    return digit_len, digit_val
+
+
+def walk_token_dfa(
+    tables,        # [U, S, V] int per-unique-guide transition tables
+    dfa_ids,       # [B] int32 row -> unique-guide index
+    init_states,   # [B] int32 start states
+    out_tokens,    # [B, T] int32 emitted tokens (EOS-filled past the end)
+    eos_id: int,
+):
+    """Walk each row's emitted tokens through its token DFA on the
+    device, returning the terminal state per row (int32; -1 once any
+    transition was forbidden — the row can never reach accepting,
+    matching the host parse failing).  EOS ends the walk: the decode
+    loop EOS-fills past each row's end, and EOS itself is a
+    sampler-level stop, not a table transition.  Two gathers per
+    emitted position and no host read — the decision budgets are tens
+    of tokens, so this is noise next to one decode step."""
+    import torch
+
+    dfa = dfa_ids.long()
+    states = init_states.to(torch.int32)
+    for j in range(out_tokens.shape[1]):
+        tok = out_tokens[:, j]
+        live = (tok != eos_id) & (states >= 0)
+        nxt = tables[dfa, states.clamp(min=0).long(), tok.long()].to(torch.int32)
+        states = torch.where(live, nxt, states)
+    return states
+
+
+def parse_int_values(
+    out_tokens,    # [B, T] int32 emitted tokens (EOS-filled past the end)
+    eos_id: int,
+    digit_len,     # [V] int32 (digit_token_tables)
+    digit_val,     # [V] int32
+    final_states,  # [B] int32 terminal DFA states (walk_token_dfa)
+    accepting,     # [U, S] bool per-unique-guide accepting table
+    dfa_ids,       # [B] int32 row -> unique-guide index
+):
+    """Parse each row's emitted integer on the device, with no host
+    read — the fused round's replacement for the host-side
+    ``json.loads``: decimal digits are accumulated positionally (each
+    digit token's value scaled by 10^(digits to its right)), guarded by
+    the terminal DFA state so a row whose automaton did not reach an
+    accepting state parses to -1 (abstain), exactly like a host-side
+    JSON failure.  Correct for any integer-valued schema whose NON-digit
+    skeleton contains no digit characters (the guided ``{"value": N}``
+    schemas) on any tokenizer whose digit-carrying tokens are
+    digit-ONLY (:func:`digit_token_tables`: mixed tokens contribute 0
+    digits and would surface as a mismatch against the lockstep oracle,
+    never silently).  ``digit_len``/``digit_val`` may be host numpy
+    tables; they go to ``out_tokens``' device.  A -1 terminal state
+    indexes the last state of ``accepting``, as negative indices do in
+    the JAX package's gather."""
+    import torch
+
+    dev = out_tokens.device
+    digit_len = torch.as_tensor(digit_len, device=dev)
+    digit_val = torch.as_tensor(digit_val, device=dev)
+    accepting = torch.as_tensor(accepting, device=dev)
+    # int32 throughout, wrapping where the JAX package's int32 does.
+    i32 = torch.int32
+    toks = out_tokens.long()
+    past_eos = torch.cumsum((toks == eos_id).to(i32), dim=1) > 0
+    dl = torch.where(past_eos, 0, digit_len[toks].to(i32))        # [B, T]
+    # Digits to the RIGHT of each position: reverse exclusive cumsum.
+    suffix = (torch.flip(torch.cumsum(torch.flip(dl, [1]), dim=1), [1]) - dl).to(i32)
+    scale = torch.where(dl > 0, torch.pow(torch.full_like(suffix, 10), suffix), 0)
+    acc = (digit_val[toks].to(i32) * scale).sum(dim=1, dtype=i32)
+    ok = accepting[dfa_ids.long(), final_states.long()] & (dl.sum(dim=1) > 0)
+    return torch.where(ok, acc, -1).to(torch.int32)
+
 def build_token_dfa(
     char_dfa: CharDFA,
     token_bytes: Sequence[bytes],

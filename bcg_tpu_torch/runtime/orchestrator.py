@@ -20,13 +20,15 @@ Differences from the reference (documented improvements):
 * Message buffers are GC'd per round (the reference leaks them).
 * Optional per-round checkpointing and phase profiling.
 
-The port's copy of ``bcg_tpu/runtime/orchestrator.py``, trimmed to the
-lockstep host-exchange path with its observability hooks (the round
-span, the per-round host-sync window, the profiler capture window, the
-game-event stream, the fleet round watermark): the SPMD exchange
-(ROADMAP A13) and the fused mega-round (A10) are not ported yet, and
-configuring either raises ``NotImplementedError`` instead of being
-ignored.  Game results do not depend on the hooks.
+The port's copy of ``bcg_tpu/runtime/orchestrator.py``: the lockstep
+host-exchange path and the fused mega-round (``AgentConfig.megaround`` /
+``BCG_TPU_MEGAROUND``, with the reference's warn-once lockstep fallback
+for configurations that cannot fuse), with their observability hooks
+(the round span, the per-round host-sync window, the profiler capture
+window, the game-event stream, the fleet round watermark).  The SPMD
+exchange (ROADMAP A13) is not ported yet, and configuring it raises
+``NotImplementedError`` instead of being ignored.  Game results do not
+depend on the hooks.
 """
 
 from __future__ import annotations
@@ -123,11 +125,6 @@ class BCGSimulation:
                 "spmd_exchange: the SPMD value exchange is not ported yet "
                 "(ROADMAP A13)"
             )
-        if self.config.agent.megaround or envflags.get_bool("BCG_TPU_MEGAROUND"):
-            raise NotImplementedError(
-                "megaround: the fused on-device round is not ported yet "
-                "(ROADMAP A10)"
-            )
         # Resolved adversary strategy (scenarios/strategies.py), or None
         # for the reference's single disrupt persona.
         self._strategy = None
@@ -211,6 +208,19 @@ class BCGSimulation:
         # check, so the disabled round loop carries no recorder cost,
         # no sink thread, and no game.* registry entries.
         self._recorder = obs_game_events.maybe_recorder(self)
+        # Host-protocol-equivalent message accounting of the exchanges
+        # that bypass the host protocol (the fused round's deliveries).
+        self._spmd_message_count = 0
+        # On-device mega-round (AgentConfig.megaround / BCG_TPU_MEGAROUND):
+        # the whole Decide -> Exchange -> Vote pipeline as ONE fused
+        # program (engine.run_megaround).  Eligibility is resolved once on
+        # the first round (_maybe_megaround); the inbox matrix carries each
+        # round's delivered ABSOLUTE values into the next round's prompts.
+        self._megaround_plan = None
+        self._megaround_resolved = False
+        self._megaround_inbox = None   # [n, n] int32, -1 = no delivery
+        self._megaround_mask = None    # receiver-view adjacency [n, n]
+        self._megaround_rounds = 0
 
     @staticmethod
     def _next_run_number(json_dir: str) -> str:
@@ -256,6 +266,19 @@ class BCGSimulation:
         """True when the resolved adversary strategy splits its proposal
         per receiver (scenarios/strategies.py ``equivocates``)."""
         return self._strategy is not None and self._strategy.equivocates
+
+    def _equivocators_np(self, ids):
+        """Per-agent equivocator flags aligned with ``ids`` (the sorted
+        agent order every exchange path uses): Byzantine rows when the
+        active strategy equivocates, else all-False — the identity that
+        keeps every exchange the plain broadcast matrix."""
+        import numpy as np
+
+        active = self._equivocation_active()
+        return np.asarray(
+            [active and self.game.agents[a].is_byzantine for a in ids],
+            dtype=bool,
+        )
 
     # --------------------------------------------------------------- validity
 
@@ -571,6 +594,15 @@ class BCGSimulation:
         if self._recorder:
             self._recorder.round_start(round_num)
 
+        # On-device mega-round: Decide -> Exchange -> Vote runs as ONE
+        # fused program (engine.run_megaround) and the host only applies
+        # the packed result — the lockstep phases below never execute.
+        # Any failed gate falls back to lockstep with a one-time warning.
+        if self._maybe_megaround() is not None:
+            agent_votes = self._run_megaround_phases(round_num)
+            self._advance_and_record(round_num, agent_votes)
+            return
+
         phase = Phase.PROPOSE
         game_state = self.game.get_game_state()
         game_state["vote_shared_core"] = self._vote_shared_core
@@ -788,6 +820,193 @@ class BCGSimulation:
             self._maybe_plot()  # --plots without result files still plots
         return self.game.get_statistics()
 
+    # ------------------------------------------------------- mega-round path
+
+    def _maybe_megaround(self):
+        """Resolve (once per simulation) whether rounds run fused.
+
+        Returns the prepared :class:`~bcg_tpu_torch.engine.megaround
+        .MegaroundPlan` when every gate passes, else None (lockstep).
+        The fallback matrix (DESIGN.md "Mega-round"):
+
+        * free-text decisions / sequential dispatch — the fused program
+          only speaks guided integer JSON, so it requires both
+          ``use_batched_inference`` and ``use_structured_output``;
+        * lossy or delayed channels — drop/delay realizations are host
+          protocol semantics the dense on-device exchange does not model;
+        * engine capability — the engine must expose
+          ``prepare_megaround``/``run_megaround`` AND accept this game's
+          shape (paged KV pools, multi-device meshes, non-byte-stable
+          tokenizers and negative value ranges all raise
+          ``MegaroundUnsupported``/``ValueError`` at plan build).
+
+        A requested-but-unavailable mega-round warns ONCE and the game
+        proceeds lockstep — flipping BCG_TPU_MEGAROUND on can never make
+        a previously-working configuration crash.
+        """
+        if self._megaround_plan is not None:
+            return self._megaround_plan
+        if self._megaround_resolved:
+            return None
+        self._megaround_resolved = True
+        want = bool(self.config.agent.megaround) or envflags.get_bool(
+            "BCG_TPU_MEGAROUND"
+        )
+        if not want:
+            return None
+        reason = None
+        if not (
+            self.config.agent.use_batched_inference
+            and self.config.agent.use_structured_output
+        ):
+            reason = (
+                "free-text / sequential decisions cannot fuse (requires "
+                "use_batched_inference + use_structured_output)"
+            )
+        elif self.config.communication.protocol_type != "a2a_sim":
+            reason = (
+                f"protocol_type={self.config.communication.protocol_type!r}:"
+                " lossy/delayed channel semantics live in the host protocol"
+            )
+        elif not hasattr(self.engine, "prepare_megaround"):
+            reason = (
+                f"engine {type(self.engine).__name__} has no fused round "
+                "entry"
+            )
+        if reason is None:
+            lo, hi = self.config.game.value_range
+            try:
+                self._megaround_plan = self.engine.prepare_megaround(
+                    n_agents=len(self.game.agents),
+                    lo=lo,
+                    hi=hi,
+                    max_rounds=self.game.max_rounds,
+                )
+            except Exception as exc:  # MegaroundUnsupported, ValueError
+                reason = f"{type(exc).__name__}: {exc}"
+        if self._megaround_plan is None:
+            warnings.warn(
+                "megaround requested but unavailable — falling back to "
+                f"lockstep rounds: {reason}",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            self.logger.log(f"[megaround] lockstep fallback: {reason}")
+            return None
+        self.logger.log("[megaround] fused round path enabled")
+        return self._megaround_plan
+
+    def _run_megaround_phases(
+        self, round_num: int
+    ) -> Dict[str, Optional[bool]]:
+        """Apply ONE fused-round result to game/agent/event state.
+
+        The engine already ran gather-assembly, both guided decode loops,
+        the on-device parses, the masked exchange and the vote tally on
+        device; everything below is host bookkeeping over the single
+        packed readback — no further device syncs in this method.
+        """
+        import numpy as np
+
+        plan = self._megaround_plan
+        ids = sorted(self.agents)
+        n = len(ids)
+        if self._megaround_inbox is None:
+            self._megaround_inbox = np.full((n, n), -1, dtype=np.int32)
+            # Receiver view (row i = senders whose out-edges reach i) —
+            # the same orientation as the SPMD exchange mask.
+            self._megaround_mask = self.topology.receiver_mask()
+
+        values = np.asarray(
+            [
+                int(self.game.agents[a].current_value)
+                if self.game.agents[a].current_value is not None
+                else -1
+                for a in ids
+            ],
+            dtype=np.int32,
+        )
+        initials = np.asarray(
+            [
+                int(self.game.agents[a].initial_value)
+                if self.game.agents[a].initial_value is not None
+                else -1
+                for a in ids
+            ],
+            dtype=np.int32,
+        )
+        is_byz = np.asarray(
+            [self.game.agents[a].is_byzantine for a in ids], dtype=bool
+        )
+
+        self.logger.log("[Mega-Round - fused Decide/Exchange/Vote on device]")
+        with self.profiler.phase("megaround"):
+            result = self.engine.run_megaround(
+                plan,
+                values,
+                self._megaround_inbox,
+                round_num,
+                self._megaround_mask,
+                is_byz,
+                initials,
+                equivocators=self._equivocators_np(ids),
+            )
+
+        proposed = np.asarray(result.proposed)
+        received = np.asarray(result.received)
+        for i, aid in enumerate(ids):
+            val = int(proposed[i])
+            if self._recorder:
+                # A -1 is a non-accepting DFA walk — the fused analogue
+                # of a host-side JSON parse failure ("invalid"/abstain).
+                self._recorder.decision(
+                    round_num,
+                    aid,
+                    self.agents[aid].is_byzantine,
+                    val if val >= 0 else None,
+                    "valid" if val >= 0 else "invalid",
+                )
+            if val >= 0:
+                self.game.update_agent_proposal(aid, val)
+                self.logger.log(f"  {aid}: -> {val}")
+            else:
+                self.logger.log(f"  {aid}: ABSTAINING")
+
+        for i, aid in enumerate(ids):
+            proposals = [
+                (
+                    ids[j],
+                    int(received[i, j]),
+                    f"Proposing value: {int(received[i, j])}",
+                )
+                for j in range(n)
+                if received[i, j] >= 0
+            ]
+            agent = self.agents[aid]
+            agent.receive_proposals(proposals)
+            agent.my_value = self.game.agents[aid].proposed_value
+            if self._recorder:
+                self._recorder.deliveries(
+                    round_num, aid, [p[0] for p in proposals],
+                    values=[p[1] for p in proposals],
+                )
+            self.logger.log(
+                f"  {aid}: received {len(proposals)} proposals (fused), "
+                "updated state"
+            )
+        # Host-protocol-equivalent message accounting (one message per
+        # delivered proposer->receiver edge) rides the SPMD counter, as in
+        # the JAX package, so display/save totals need no new plumbing.
+        self._spmd_message_count += int(np.asarray(result.deliveries).sum())
+
+        self._update_round_summaries(round_num)
+
+        # Next round's prompts read this round's delivered ABSOLUTE
+        # values (row 0 of the value token table renders absences).
+        self._megaround_inbox = received
+        self._megaround_rounds += 1
+        return result.vote_dict(ids)
+
     # ----------------------------------------------------------------- output
 
     def display_results(self) -> None:
@@ -824,7 +1043,7 @@ class BCGSimulation:
         log(f"  Honest: {', '.join(stats['honest_agent_ids'])}")
         net = self.network.get_network_stats()
         log("[Communication Statistics]")
-        log(f"  Total messages: {net['total_messages']}")
+        log(f"  Total messages: {net['total_messages'] + self._spmd_message_count}")
         log(f"  Topology: {net['topology_type']} (avg degree {net['avg_degree']:.1f})")
         perf = self.profiler.summary()
         log("[Performance]")
@@ -836,7 +1055,10 @@ class BCGSimulation:
         """Persist the three sinks: JSON, CSV metrics, log (reference
         main.py:792-995; layout byte-compatible)."""
         stats = self.game.get_statistics()
-        message_count = self.network.protocol.get_total_message_count()
+        message_count = (
+            self.network.protocol.get_total_message_count()
+            + self._spmd_message_count
+        )
         metrics = build_metrics_payload(
             run_number=int(self.run_number),
             stats=stats,

@@ -18,10 +18,11 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    versions on the CPU (int4: in bf16, see ``phase_small_reference``);
    then the same with int8 and int4 weights over a bf16 cache (int4
    through B5, held to the CPU run with bf16 leaves).
-4. Nine game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers,
-   random weights made once on the card from a seed and shared by every
-   engine through ``TorchEngine(params=...)``), each a full 8 honest + 2
-   Byzantine game through ``BCGSimulation(config, engine=TorchEngine(...))``.
+4. Nine game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers
+   (P8 and P9: 12), random weights made once on the card from a seed and
+   shared by every engine through ``TorchEngine(params=...)``), each a
+   full 8 honest + 2 Byzantine game through
+   ``BCGSimulation(config, engine=TorchEngine(...))``.
    Every kernel's launch count (and the call count of the plain paged
    attention versions) is set to 0 just before a path and read just
    after; each kernel of the path must be > 0, the plain paged calls 0,
@@ -29,7 +30,7 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
 
    * P1: the default engine (bf16 cache, plain loop), 1 round, timed
      and captured, then profiled (5, 6).
-   * P2: int8 cache, fast-forward loop, compact JSON, 2 rounds, timed
+   * P2: int8 cache, fast-forward loop, compact JSON, 1 round, timed
      and captured, then profiled; its line adds the decode steps per
      decision, their ratio to the steps the plain loop takes for the same
      outputs, and the KV-cache bytes.
@@ -48,7 +49,9 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    * P9: int4 weights (W4A16 through B5), bf16 cache, plain loop, 1
      round, timed, then profiled with B5's inputs captured in the
      profiled round.
-   P8 and P9 quantize their own copies of the shared bf16 weights.
+   P8 and P9 quantize their own copies of the shared bf16 weights, cut
+   to their first 12 of 36 layers (the script's time limit; their lines
+   print ``layers``).
    The paged paths' lines add the pool's block counts and prefix hit
    rate and the private KV bytes of the largest batch; every line has the
    KV bytes of its largest batch (P1's: the dense cache at the same game).
@@ -152,7 +155,23 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    third): both complete, the scheduler reads one engine rebuild and two
    retried dispatches, and the condemned call's thread is joined before
    the phase ends (``chaos P11:``).
-10. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+10. P12 (after P11, before the kernel phase): the fused mega-round on
+   P1's engine over the shared weights, with the host-sync auditor (the
+   card's sync debug mode on) and compile accounting on.  Three fused
+   rounds (10 agents, range 0-50, one Byzantine, state carried) are each
+   held to ``batch_generate_json`` at temperature 0 over the same
+   template prompts (0 decision and 0 vote mismatches), each must make
+   exactly one host sync (the ``round_readback`` seam) and rounds 2-3 no
+   compile record (``megaround P12:``, with decode steps a round and the
+   warm fused round's wall beside the warm lockstep pair's).  Then an
+   8 honest + 2 Byzantine game, 3 rounds, ``AgentConfig(megaround=True)``
+   through ``BCGSimulation`` (counts set to 0 just before, read just
+   after; the lockstep fallback's warning is an error; every round fused,
+   every proposal and vote parsed, one host sync a round), its B1, B3a
+   and B2 calls captured and held in the kernel phase as
+   ``flash_prefill@P12``, ``decode_attention@P12`` and
+   ``guided_sampler@P12`` (``game P12:``).
+11. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
 
@@ -677,13 +696,15 @@ def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
 # profiled), and the kernel forms it runs, whose inputs are captured in
 # the counted game (or with ``capture_in_profile`` in the profiled round;
 # ``capture_forms``: the ones captured, if not all; ``capture=False``:
-# none).  P1 plays one round and P2 two: the script's time limit is
-# shared by all eleven paths.
+# none; ``depth``: the layers kept, if not all).  P1 and P2 play one
+# round, P5 two (its second extends the first's radix chains); P8 and P9
+# run a third of the layers: the script's time limit is shared by all
+# twelve paths.
 PATHS = {
     "P1": dict(engine={}, rounds=1, timed=True,
                kernels=("flash_prefill", "decode_attention", "guided_sampler")),
     "P2": dict(engine=dict(kv_cache_dtype="int8", decode_fast_forward=True,
-                           guided_compact_json=True), rounds=2, timed=True,
+                           guided_compact_json=True), rounds=1, timed=True,
                kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
     "P3": dict(engine=dict(spec_decode=True), rounds=1, timed=False,
                kernels=("flash_prefill", "chunk_decode_attention", "guided_sampler")),
@@ -706,9 +727,9 @@ PATHS = {
     # profiled, B5's inputs captured.
     "P8": dict(engine=dict(quantization="int8", kv_cache_dtype="int8",
                            decode_fast_forward=True, guided_compact_json=True), rounds=1,
-               timed=True, capture=False,
+               timed=True, capture=False, depth=12,
                kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
-    "P9": dict(engine=dict(quantization="int4"), rounds=1, timed=True,
+    "P9": dict(engine=dict(quantization="int4"), rounds=1, timed=True, depth=12,
                capture_forms=("w4a16_matmul",), capture_in_profile=True,
                kernels=("flash_prefill", "decode_attention", "guided_sampler", "w4a16_matmul")),
 }
@@ -723,6 +744,18 @@ HOME = {"flash_prefill": "P1", "decode_attention": "P1", "guided_sampler": "P1",
 PAGED_DERIVED = {"paged_chunk_attention_bf16": ("P5", "paged_decode_attention_bf16"),
                  "paged_decode_attention_int8": ("P7", "paged_chunk_attention_int8"),
                  "paged_decode_attention_int4": ("P6", "paged_chunk_attention_int4")}
+
+def cut_depth(params, depth):
+    """The model spec and the shared weights cut to the first ``depth``
+    layers (the tree shares the kept leaves)."""
+    import dataclasses
+
+    from bcg_tpu_torch.models.configs import spec_for_model
+
+    spec = dataclasses.replace(spec_for_model(MODEL), num_layers=depth)
+    return spec, {n: t for n, t in params.items()
+                  if not n.startswith("layers.") or int(n.split(".")[1]) < depth}
+
 
 def play_on(engine, cfg):
     """One game under ``cfg`` on ``engine``: (wall ms, decode steps)."""
@@ -827,8 +860,11 @@ def phase_path(path, params):
 
     conf = PATHS[path]
     cfg = game_config(conf["rounds"], **conf["engine"])
+    spec = None
+    if "depth" in conf:
+        spec, params = cut_depth(params, conf["depth"])
     t0 = time.perf_counter()
-    engine = TorchEngine(cfg.engine, device=DEVICE, params=params)
+    engine = TorchEngine(cfg.engine, device=DEVICE, params=params, spec=spec)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -897,6 +933,8 @@ def phase_path(path, params):
         line.update(spec_drafted=engine.spec_drafted, spec_accepted=engine.spec_accepted)
     if engine.quantization:
         line.update(quantization=engine.quantization, param_bytes=engine._param_bytes)
+    if spec is not None:
+        line.update(layers=spec.num_layers)
     print(f"game {path}: " + json.dumps(line), flush=True)
     if stats["total_rounds"] < 1 or len(stats) < 40:
         fail(f"{path}: game statistics malformed: {sorted(stats)[:5]}...")
@@ -1019,9 +1057,7 @@ def phase_p10(params):
     if depth < 1:
         fail(f"P10: {free + DISK_MARGIN_BYTES} bytes free on disk, not one layer's room")
     if depth < spec.num_layers:
-        spec = dataclasses.replace(spec, num_layers=depth)
-        params = {n: t for n, t in params.items()
-                  if not n.startswith("layers.") or int(n.split(".")[1]) < depth}
+        spec, params = cut_depth(params, depth)
     print(f"P10: {shutil.disk_usage(root).free} bytes free on disk; depth {depth} of "
           f"{spec_for_model(MODEL).num_layers} layers", flush=True)
     torch.cuda.synchronize()
@@ -1371,6 +1407,214 @@ def p11_runs(params):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"P11 chaos: {bad}")
+    return counts, cap.inputs()
+
+
+# P12: the fused mega-round (ROADMAP A10) on P1's engine: three fused
+# rounds held to the lockstep oracle, then a fused game.  The flags on
+# while it runs: the host-sync auditor (with the card's sync debug mode)
+# and compile accounting.
+P12_ROUNDS = 3
+P12_FLAGS = {"BCG_TPU_HOSTSYNC": "1", "BCG_TPU_COMPILE_OBS": "1"}
+P12_SYNC_SITES = ("round_readback", "done_poll", "prefill_barrier", "device_sync")
+
+
+def _oracle_value(row, lo, hi):
+    """A lockstep row's integer, as the fused round parses it (-1: none)."""
+    if not isinstance(row, dict) or "error" in row:
+        return -1
+    v = row.get("value")
+    if isinstance(v, bool) or not isinstance(v, int):
+        return -1
+    return v if lo <= v <= hi else -1
+
+
+def phase_p12(params):
+    """P12: the fused mega-round at bench-8b, on P1's engine over the
+    shared weights, with the host-sync auditor and compile accounting on.
+
+    Engine level (the JAX package's perf-gate oracle arm): three fused
+    rounds (10 agents, range 0-50, 20-round template, one Byzantine, all
+    to all without self, state carried), each followed by
+    ``batch_generate_json`` at temperature 0 over the same template
+    prompts with each phase's budget.  Decision and vote mismatches must be
+    0, every fused round must make exactly one host sync (the
+    ``round_readback`` seam; no ``done_poll``, ``prefill_barrier`` or
+    ``device_sync``), and rounds 2-3 must add no compile record.  Prints
+    ``megaround P12``.
+
+    Game level: one 8 honest + 2 Byzantine game (seed 0, 3 rounds,
+    ``AgentConfig(megaround=True)``) through ``BCGSimulation``; the counts
+    set to 0 just before and read just after, B1, B3a and B2 captured.
+    Fails if the lockstep fallback is taken (its warning is made an
+    error), a round is not fused, a proposal or vote does not parse, or a
+    round makes more than one host sync.  Prints ``game P12``; returns the
+    game's launch counts and captured inputs."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.obs import counters
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    forms = PATHS["P1"]["kernels"]
+    cfg = game_config(P12_ROUNDS, **PATHS["P1"]["engine"])
+    cfg = dataclasses.replace(cfg, agent=dataclasses.replace(cfg.agent, megaround=True))
+    lo, hi = cfg.game.value_range
+    n = cfg.game.num_honest + cfg.game.num_byzantine
+    os.environ.update(P12_FLAGS)
+    obs_reset()
+
+    def syncs():
+        return {k: counters.value(f"engine.hostsync.{k}") for k in
+                ["total"] + [f"site.{s}" for s in P12_SYNC_SITES]}
+
+    try:
+        t0 = time.perf_counter()
+        engine = TorchEngine(cfg.engine, device=DEVICE, params=params)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+
+        # -- engine level: fused rounds against the lockstep oracle
+        plan = engine.prepare_megaround(n_agents=n, lo=lo, hi=hi, max_rounds=20)
+        mask = ~np.eye(n, dtype=bool)
+        byz = np.arange(n) == n - 1
+        values = np.random.default_rng(0).integers(lo, hi + 1, n).astype(np.int32)
+        initials = values.copy()
+        inbox = np.full((n, n), -1, np.int32)
+        rounds, mismatched = [], []
+        for r in range(1, P12_ROUNDS + 1):
+            torch.cuda.synchronize()
+            before = syncs()
+            compiles = counters.value("engine.compile_obs.cache_entries")
+            t0 = time.perf_counter()
+            res = engine.run_megaround(plan, values, inbox, r, mask, byz, initials)
+            fused_s = time.perf_counter() - t0
+            after = syncs()
+            new_compiles = counters.value("engine.compile_obs.cache_entries") - compiles
+            steps = engine.last_decode_steps
+            t0 = time.perf_counter()
+            dec = engine.batch_generate_json(plan.template.decision_prompts(values, inbox, r),
+                                             temperature=0.0, max_tokens=plan.decide.max_new)
+            vote = engine.batch_generate_json(
+                plan.template.vote_prompts(res.values, res.received, r),
+                temperature=0.0, max_tokens=plan.vote.max_new)
+            torch.cuda.synchronize()
+            lockstep_s = time.perf_counter() - t0
+            want_dec = [_oracle_value(d, lo, hi) for d in dec]
+            want_vote = [1 if _oracle_value(v, 0, 1) == 1 else 0 for v in vote]
+            for i in range(n):
+                for what, got, want in (("decision", res.proposed[i], want_dec[i]),
+                                        ("vote", res.votes[i], want_vote[i])):
+                    if int(got) != want:
+                        mismatched.append({"round": r, "agent": i, "phase": what,
+                                           "fused": int(got), "lockstep": want,
+                                           "lockstep_row": dec[i] if what == "decision"
+                                           else vote[i]})
+            rounds.append({
+                "round": r, "syncs": {k: after[k] - before[k] for k in after},
+                "compile_records": new_compiles, "decode_steps": steps,
+                "fused_seconds": fused_s, "lockstep_pair_seconds": lockstep_s,
+                "proposed": res.proposed.tolist(), "votes": res.votes.tolist(),
+                "terminate": res.terminate, "agreement_pct": res.agreement_pct,
+            })
+            values, inbox = res.values, res.received
+        warm = rounds[1:]
+        line = {
+            "rounds": rounds, "boot_seconds": boot_s,
+            "decision_mismatches": sum(m["phase"] == "decision" for m in mismatched),
+            "vote_mismatches": sum(m["phase"] == "vote" for m in mismatched),
+            "mismatched": mismatched[:10],
+            "syncs_per_round": [x["syncs"]["total"] for x in rounds],
+            "compile_records_after_round_1": sum(x["compile_records"] for x in warm),
+            "decode_steps_per_round": [x["decode_steps"] for x in rounds],
+            "warm_fused_round_seconds": statistics.mean(x["fused_seconds"] for x in warm),
+            "warm_lockstep_pair_seconds": statistics.mean(
+                x["lockstep_pair_seconds"] for x in warm),
+            "windows": {p: [getattr(plan, p).L, getattr(plan, p).prompt_len,
+                            getattr(plan, p).prefix_len, getattr(plan, p).max_new]
+                        for p in ("decide", "vote")},
+        }
+        print("megaround P12: " + json.dumps(line), flush=True)
+        engine_checks = {
+            "0 decision and 0 vote mismatches": not mismatched,
+            "one host sync a fused round, at round_readback": all(
+                x["syncs"] == {"total": 1, "site.round_readback": 1, "site.done_poll": 0,
+                               "site.prefill_barrier": 0, "site.device_sync": 0}
+                for x in rounds),
+            "no compile record after round 1": line["compile_records_after_round_1"] == 0,
+        }
+
+        # -- game level: a fused game through the entry point
+        results, game_steps = [], []
+        call = engine.run_megaround
+
+        def recorded(*args, **kw):
+            results.append(call(*args, **kw))
+            game_steps.append(engine.last_decode_steps)
+            return results[-1]
+
+        engine.run_megaround = recorded
+        fused0 = engine.megaround_rounds
+        hs0 = (counters.value("game.host_syncs.count"), counters.value("game.host_syncs.sum"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cap = Capture(forms)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message="megaround requested",
+                                        category=RuntimeWarning)
+                sim = BCGSimulation(cfg, engine=engine)
+                stats, decisions, votes = play_recorded(sim)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            cap.restore()
+            engine.run_megaround = call
+        peak = torch.cuda.max_memory_allocated()
+        game_rounds = counters.value("game.host_syncs.count") - hs0[0]
+        game_syncs = counters.value("game.host_syncs.sum") - hs0[1]
+        invalid = sum(int((r.proposed < 0).sum() + (r.vote_raw < 0).sum()) for r in results)
+        decisions_n = 2 * n * stats["total_rounds"]
+        gline = {
+            "rounds": stats["total_rounds"], "fused_rounds": engine.megaround_rounds - fused0,
+            "termination_reason": stats.get("termination_reason"),
+            "decisions_by_round": [d for _, d in decisions],
+            "votes_by_round": [v for _, v in votes],
+            "statistics_keys": len(stats), "failed_rows": engine.failed_rows,
+            "unparsed_proposals_and_votes": invalid, "decisions": decisions_n,
+            "game_seconds": wall, "agent_decisions_per_sec": decisions_n / wall,
+            "decode_steps_per_round": game_steps,
+            "host_syncs_per_round": game_syncs / max(game_rounds, 1),
+            "peak_bytes": peak, "launches": {k: counts[k] for k in forms},
+            "capture_copied_bytes": cap.copied_bytes,
+        }
+        print("game P12: " + json.dumps(gline), flush=True)
+    finally:
+        for name in P12_FLAGS:
+            os.environ.pop(name, None)
+        obs_reset()
+    checks = dict(engine_checks, **{
+        "the fused path (no lockstep fallback)": sim._megaround_plan is not None,
+        "every round fused": gline["fused_rounds"] == gline["rounds"] == sim._megaround_rounds
+        >= 1,
+        "statistics well formed": len(stats) > 40,
+        "every proposal and vote parsed": invalid == 0 and engine.failed_rows == 0,
+        "one host sync a game round": game_rounds == gline["rounds"] and game_syncs == game_rounds,
+        "B1, B3a and B2 launched": all(counts[k] > 0 for k in forms),
+    })
+    bad = [k for k, ok in checks.items() if not ok]
+    engine.shutdown()
+    del engine, sim
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"P12: {bad}")
     return counts, cap.inputs()
 
 
@@ -1883,7 +2127,8 @@ def phase_kernels(inputs, counts):
         big = (logits.repeat(reps, 1)[:nb].contiguous(), minb, dfa_ids.repeat(reps)[:nb],
                states.repeat(reps)[:nb], mi.repeat(reps, 1)[:nb].contiguous(), mf_big)
         mismatches, err = {}, 0
-        # The big batch is P1's alone: P11's call is a merged batch already.
+        # The big batch is P1's alone: P11's call is a merged batch already,
+        # P12's the same rows as P1's.
         for label, args in ((path, p1),) + (((f"B{nb}", big),) if path == "P1" else ()):
             for top_p in (1.0, 0.9):
                 tk, ak = guided_sampler.sample_rows_cuda(*args, eos_id, top_p)
@@ -1919,8 +2164,8 @@ def phase_kernels(inputs, counts):
                   lambda: int8_forms("chunk_decode_attention_int8", "P2"),
                   *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
                     for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16,
-                  *[lambda f=f: f("P11") for f in (flash, decode, sampler)
-                    if "P11" in inputs]):
+                  *[lambda f=f, p=p: f(p) for p in ("P11", "P12")
+                    for f in (flash, decode, sampler) if p in inputs]):
         results.append(phase())
         torch.cuda.empty_cache()
     extra = flash_p5()
@@ -2044,6 +2289,9 @@ def main() -> int:
     counts["P11"], inputs["P11"] = phase_p11(params)
     inputs = move_inputs(inputs, DEVICE)
     print(f"phase P11: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    counts["P12"], inputs["P12"] = phase_p12(params)
+    print(f"phase P12: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.save_sampler_inputs:
         save_sampler_inputs(inputs["P1"]["guided_sampler"], args.save_sampler_inputs)
     t0 = time.perf_counter()

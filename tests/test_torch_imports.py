@@ -65,13 +65,18 @@ SERVE_MODULES = [
     "bcg_tpu_torch.sweep.controller", "bcg_tpu_torch.sweep.__main__",
     "bcg_tpu_torch.experiments", "bcg_tpu_torch.api", "bcg_tpu_torch.cli",
 ]
+# The modules of the fused mega-round slice, alike.
+MEGAROUND_MODULES = [
+    "bcg_tpu_torch.engine.megaround", "bcg_tpu_torch.parallel",
+    "bcg_tpu_torch.parallel.game_step", "bcg_tpu_torch.guided.token_dfa",
+]
 
 
 @pytest.fixture(scope="module")
 def slice_imports():
     code = (
         "import importlib, json, subprocess, sys\n"
-        f"mods = {SLICE_MODULES + SERVE_MODULES!r}\n"
+        f"mods = {SLICE_MODULES + SERVE_MODULES + MEGAROUND_MODULES!r}\n"
         "out = {}\n"
         "for m in mods:\n"
         "    r = subprocess.run([sys.executable, '-c', 'import importlib, sys; '\n"
@@ -99,6 +104,13 @@ def test_slice_module_imports_without_jax_or_the_jax_package(slice_imports, mod)
 
 @pytest.mark.parametrize("mod", SERVE_MODULES)
 def test_serve_slice_module_imports_without_jax_or_the_jax_package(slice_imports, mod):
+    rc, loaded, err = slice_imports[mod]
+    assert rc == 0, err
+    assert loaded == "[]"
+
+
+@pytest.mark.parametrize("mod", MEGAROUND_MODULES)
+def test_megaround_slice_module_imports_without_jax_or_the_jax_package(slice_imports, mod):
     rc, loaded, err = slice_imports[mod]
     assert rc == 0, err
     assert loaded == "[]"
@@ -211,14 +223,12 @@ def test_env_overrides_are_not_ignored(monkeypatch):
 
 
 def test_orchestrator_rejects_unported_round_paths():
-    from bcg_tpu_torch.config import AgentConfig, BCGConfig, MetricsConfig, NetworkConfig
+    from bcg_tpu_torch.config import BCGConfig, MetricsConfig, NetworkConfig
     from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
 
     base = BCGConfig(metrics=MetricsConfig(save_results=False))
     with pytest.raises(NotImplementedError, match="A13"):
         BCGSimulation(base.replace(network=NetworkConfig(spmd_exchange=True)), engine=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        BCGSimulation(base.replace(agent=AgentConfig(megaround=True)), engine=object())
 
 
 def test_create_engine_serves_torch_only():

@@ -253,6 +253,98 @@ class TestRadixIndex:
         assert jm.resident_blocks > 0
 
 
+# The paged pool's telemetry (ROADMAP C-port-7): gauges, counters.
+KVPOOL_GAUGES = ("kvpool.blocks_total", "kvpool.blocks_free", "kvpool.blocks_resident",
+                 "kvpool.headroom_bytes")
+KVPOOL_COUNTERS = ("kvpool.evicted_blocks", "kvpool.hit_positions", "kvpool.lookup_positions")
+
+
+def _kvpool(counters, before):
+    """The ``kvpool.*`` gauges, and the counters' movement since
+    ``before`` (the registries are process-wide)."""
+    snap = counters.snapshot()
+    return ({g: snap.get(g, 0) for g in KVPOOL_GAUGES},
+            {c: snap.get(c, 0) - before.get(c, 0) for c in KVPOOL_COUNTERS})
+
+
+def test_kvpool_telemetry_equals_the_jax_pools():
+    """C-port-7: a seeded sequence of allocations, prefix lookups and
+    inserts (hits), frees and evictions, applied to both managers, leaves
+    the same ``kvpool.*`` gauges and counter movements after every step;
+    ``close()`` zeroes the gauges of both."""
+    from bcg_tpu.obs import counters as j_counters
+    from bcg_tpu_torch.obs import counters as t_counters
+
+    rng = np.random.default_rng(7)
+    jb, tb = j_counters.snapshot(), t_counters.snapshot()
+    jm = JPagedKV(j_spec(MODEL), 16, 2)
+    tm = PagedKV(spec_for_model(MODEL), 16, 2)
+    assert _kvpool(t_counters, tb)[0]["kvpool.blocks_total"] == 15
+    vocab = np.array([1, 2, 3], np.int32)
+    moved = set()
+    for _ in range(200):
+        op = rng.integers(0, 4)
+        toks = rng.choice(vocab, size=int(rng.integers(0, 9)))
+        if op == 0:
+            (jp, jbl), (tp, tbl) = jm.lookup(toks), tm.lookup(toks)
+            n = len(toks) // 2 - len(jbl)
+            if n > 0:
+                try:
+                    ids = jm.alloc(n)
+                except JPoolExhausted:
+                    with pytest.raises(PoolExhausted):
+                        tm.alloc(n)
+                    continue
+                assert tm.alloc(n) == ids
+                jm.insert(jp, toks, 2 * len(jbl), ids)
+                tm.insert(tp, toks, 2 * len(tbl), ids)
+        elif op == 1:
+            jm.unpin_all()
+            tm.unpin_all()
+        elif op == 2:
+            n = int(rng.integers(1, 6))
+            assert jm.evict(n) == tm.evict(n)
+        elif jm.free_blocks() > 2:
+            ids = jm.alloc(2)
+            assert tm.alloc(2) == ids
+            jm.free(ids)
+            tm.free(ids)
+        got, want = _kvpool(t_counters, tb), _kvpool(j_counters, jb)
+        assert got == want
+        moved |= {k for k, v in got[1].items() if v}
+    assert moved == set(KVPOOL_COUNTERS)
+    jm.close()
+    tm.close()
+    assert _kvpool(t_counters, tb)[0] == _kvpool(j_counters, jb)[0] == dict.fromkeys(
+        KVPOOL_GAUGES, 0)
+
+
+def test_kvpool_alloc_chaos_seam_injects_like_the_jax_pools(monkeypatch):
+    """C-port-7: ``BCG_TPU_CHAOS=exhaust@kvpool.alloc`` raises
+    ``PoolExhausted`` at the first allocation of either package's pool
+    (nothing taken off the free list), counted as an injected fault, and
+    the next allocation goes through."""
+    from bcg_tpu.runtime import resilience as j_resilience
+    from bcg_tpu_torch.runtime import resilience as t_resilience
+
+    monkeypatch.setenv("BCG_TPU_CHAOS", "exhaust@kvpool.alloc:1")
+    j_resilience.reset()
+    t_resilience.reset()
+    try:
+        for mgr, exc, res in ((JPagedKV(j_spec(MODEL), 8, 2), JPoolExhausted, j_resilience),
+                              (PagedKV(spec_for_model(MODEL), 8, 2), PoolExhausted,
+                               t_resilience)):
+            with pytest.raises(exc, match="chaos"):
+                mgr.alloc(1)
+            assert mgr.free_blocks() == 7
+            assert res.stats() == {"exhaust@kvpool.alloc": 1}
+            assert mgr.alloc(1) == [1]
+    finally:
+        monkeypatch.delenv("BCG_TPU_CHAOS")
+        j_resilience.reset()
+        t_resilience.reset()
+
+
 # --------------------------------------------------------------------- op
 
 def _pools(layout, Hkv, Dh, N=20, bs=8):

@@ -85,13 +85,12 @@ def _jax_state():
 # ------------------------------------------------------------ the copies
 
 # Module -> the functions, methods and docstrings where the port's copy
-# may differ from its original: the fake engine's mega-round reaches
-# engine/megaround.py (ROADMAP A10); the sweep builds its engines on a
-# torch device and its cooperative and multi-process arms ride
-# parallel/distributed.py (A13).
+# may differ from its original: the sweep builds its engines on a torch
+# device and its cooperative and multi-process arms ride
+# parallel/distributed.py (A13).  The fake engine is held whole.
 COPIES = {
     "engine/fault.py": (),
-    "engine/fake.py": ("FakeEngine.prepare_megaround", "FakeEngine.run_megaround"),
+    "engine/fake.py": (),
     "engine/collective.py": (),
     "serve/__init__.py": (),
     "serve/engine.py": (),
@@ -633,10 +632,3 @@ def test_create_engine_builds_fake_and_fault_injecting_engines(monkeypatch):
     with pytest.raises(ValueError, match="outside"):
         create_engine(EngineConfig(model_name=MODEL, fault_rate=2.0), device="cpu")
 
-
-def test_fake_engine_refuses_the_megaround():
-    eng = TFakeEngine()
-    with pytest.raises(NotImplementedError, match="A10"):
-        eng.prepare_megaround(3, 0, 50, 4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        eng.run_megaround(None, [], [], 1, [], [], [])
