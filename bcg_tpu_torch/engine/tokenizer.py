@@ -6,9 +6,11 @@ special ids.  Two implementations:
 
 * :class:`ByteTokenizer` — hermetic byte-level tokenizer (token i =
   byte i, plus specials), used by the tiny-test and bench models.
-* :class:`HFTokenizer` — wraps a local HuggingFace tokenizer for real
-  checkpoints (Qwen3 / Llama-3 / Mistral), recovering token byte strings
-  from the GPT-2 byte-unicode table or SentencePiece metaspace.
+* :class:`HFTokenizer` — a local HuggingFace tokenizer for real
+  checkpoints (Qwen3 / Llama-3 / Mistral), read from its
+  ``tokenizer.json`` by the port's own reader (no ``transformers``),
+  recovering token byte strings from the GPT-2 byte-unicode table or
+  SentencePiece metaspace.
 """
 
 from __future__ import annotations
@@ -63,39 +65,143 @@ class ByteTokenizer(Tokenizer):
 
 # GPT-2 byte<->unicode table (used by Qwen/Llama BPE vocabs).
 def _gpt2_byte_decoder() -> dict:
-    bs = (
-        list(range(ord("!"), ord("~") + 1))
-        + list(range(ord("\xa1"), ord("\xac") + 1))
-        + list(range(ord("\xae"), ord("\xff") + 1))
-    )
-    cs = bs[:]
-    n = 0
-    for b in range(256):
-        if b not in bs:
-            bs.append(b)
-            cs.append(256 + n)
-            n += 1
-    return {chr(c): b for b, c in zip(bs, cs)}
+    from bcg_tpu_torch.engine.tokenizer_json import bytes_to_unicode
+
+    return {c: b for b, c in bytes_to_unicode().items()}
+
+
+# The special-token attributes ``transformers`` reads from
+# tokenizer_config.json (then special_tokens_map.json), in its order.
+_SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
+                 "cls_token", "mask_token")
+# ``tokenizer_class`` -> the class's own special-token defaults (what
+# ``AutoTokenizer`` applies to a key the files leave out entirely).  A
+# class outside this table raises: its fast tokenizer may rewrite the
+# pipeline at load.
+_CLASS_DEFAULTS = {
+    None: {},
+    "PreTrainedTokenizerFast": {},
+    "Qwen2Tokenizer": {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                       "pad_token": "<|endoftext|>"},
+    "Qwen2TokenizerFast": {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                           "pad_token": "<|endoftext|>"},
+    "LlamaTokenizer": {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"},
+    "LlamaTokenizerFast": {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"},
+}
+
+
+def _content(tok):
+    """A special-token value of the config files: a string, or an
+    ``AddedToken`` serialized as a dict with ``content``."""
+    if isinstance(tok, dict):
+        return tok.get("content")
+    return tok
+
+
+def _read_json(path: str) -> dict:
+    import json
+
+    if not os.path.exists(path):
+        return {}
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _clean_up_tokenization(text: str) -> str:
+    """``transformers``' ``clean_up_tokenization``."""
+    return (text.replace(" .", ".").replace(" ?", "?").replace(" !", "!")
+            .replace(" ,", ",").replace(" ' ", "'").replace(" n't", "n't")
+            .replace(" 'm", "'m").replace(" 's", "'s").replace(" 've", "'ve")
+            .replace(" 're", "'re"))
 
 
 class HFTokenizer(Tokenizer):
-    """Adapter over ``transformers.AutoTokenizer`` loaded from a local
-    path (this build environment has no network egress; checkpoints must
-    already be on disk)."""
+    """A local HuggingFace tokenizer, read from its files by the port's
+    own reader (``engine/tokenizer_json.py``) — ``tokenizer.json``,
+    ``tokenizer_config.json`` and ``special_tokens_map.json`` — with no
+    ``transformers`` or ``tokenizers`` on any machine.  It loads them as
+    ``transformers.AutoTokenizer`` does: config special tokens resolved
+    with ``special_tokens_map.json`` and the class defaults filling the
+    gaps, registered as special added tokens where ``tokenizer.json``
+    lacks them, ``added_tokens_decoder`` flags applied over the file's,
+    a top-level ``ByteLevel``'s ``add_prefix_space`` set from the config,
+    and ``clean_up_tokenization_spaces`` on decode.  Token byte strings
+    come from the GPT-2 byte-unicode table or SentencePiece metaspace."""
 
     def __init__(self, path: str, vocab_id: Optional[int] = None):
-        from transformers import AutoTokenizer
+        from bcg_tpu_torch.engine.tokenizer_json import AddedToken, TokenizerJson, add_tokens
 
-        # local_files_only: a bare name would otherwise trigger ~minutes of
-        # network retries in this zero-egress environment before failing.
-        self.tk = AutoTokenizer.from_pretrained(
-            path, trust_remote_code=True, local_files_only=True
-        )
-        self.vocab_size = len(self.tk)
-        self.eos_id = self.tk.eos_token_id
-        self.pad_id = (
-            self.tk.pad_token_id if self.tk.pad_token_id is not None else self.eos_id
-        )
+        spec = _read_json(os.path.join(path, "tokenizer.json"))
+        if not spec:
+            raise FileNotFoundError(
+                f"no tokenizer.json under {path!r} (the port reads only "
+                "tokenizer.json checkpoints, not slow-tokenizer files)")
+        cfg = _read_json(os.path.join(path, "tokenizer_config.json"))
+        smap = _read_json(os.path.join(path, "special_tokens_map.json"))
+        cls = cfg.get("tokenizer_class")
+        if cls not in _CLASS_DEFAULTS:
+            raise NotImplementedError(f"tokenizer_class {cls!r}")
+        if cls and cls.startswith("Llama") and cfg.get("add_prefix_space") is not None:
+            raise NotImplementedError(
+                f"{cls} with add_prefix_space (rebuilt from the slow tokenizer)")
+        defaults = _CLASS_DEFAULTS[cls]
+
+        missing = object()
+        special: dict = {}
+        for key in _SPECIAL_KEYS + ("additional_special_tokens",):
+            val = cfg.get(key, missing)
+            if (val is missing or not val) and key in smap:
+                val = smap[key]
+            if val is missing:
+                val = defaults.get(key)
+            special[key] = val
+        additional = special.pop("additional_special_tokens") or []
+        special_tokens = [_content(special[k]) for k in _SPECIAL_KEYS]
+        self._special_tokens = [t for t in special_tokens + [_content(t) for t in additional]
+                                if t is not None]
+
+        # The file's added tokens with the ids tokenizers gives them, the
+        # config's added_tokens_decoder flags over them, then the config's
+        # special tokens the file lacks (transformers' load order).
+        model = spec.get("model") or {}
+        if model.get("type", "BPE") != "BPE":
+            raise NotImplementedError(f"tokenizer model: {model.get('type')}")
+        vocab = model.get("vocab", {})
+        added: dict = {}
+        add_tokens(added, [AddedToken.from_json(r) for r in spec.get("added_tokens", [])], vocab)
+        extra = []
+        for sid, row in (cfg.get("added_tokens_decoder") or {}).items():
+            tok = AddedToken.from_json(row, id=int(sid))
+            have = added.get(tok.id)
+            if have is None or have.content != tok.content:
+                raise NotImplementedError(
+                    f"tokenizer_config added_tokens_decoder entry {sid}: {tok.content!r} "
+                    "is not the tokenizer.json added token of that id")
+            if have.flags() != tok.flags():
+                tok.special = tok.special or tok.content in self._special_tokens
+                if have.special and not tok.special:
+                    raise NotImplementedError(
+                        f"tokenizer_config unmarks special added token {tok.content!r}")
+                extra.append(tok)
+        present = {t.content for t in added.values()}
+        extra += [AddedToken(-1, c, normalized=False, special=True)
+                  for c in dict.fromkeys(self._special_tokens) if c not in present]
+
+        pre = spec.get("pre_tokenizer")
+        prefix = cfg.get("add_prefix_space", False)
+        if (isinstance(pre, dict) and pre.get("type") == "ByteLevel"
+                and "add_prefix_space" in pre and prefix is not None
+                and pre["add_prefix_space"] != prefix):
+            pre = dict(pre, add_prefix_space=bool(prefix))
+        self._tj = TokenizerJson(spec, extra_added=extra, pre_tokenizer_override=pre)
+        self._clean_up = bool(cfg.get("clean_up_tokenization_spaces", False))
+        self._spec = dict(spec, pre_tokenizer=pre)
+
+        self._vocab = self._tj.vocab()
+        self.vocab_size = len(self._vocab)
+        eos, pad = _content(special["eos_token"]), _content(special["pad_token"])
+        self.eos_id = self._vocab.get(eos) if eos is not None else None
+        self.pad_id = self._vocab.get(pad) if pad is not None else self.eos_id
         if vocab_id is None:
             # Distinct HF vocabularies must not share a guided-DFA cache
             # slot (the cache key is (vocab_id, vocab_len) —
@@ -110,15 +216,13 @@ class HFTokenizer(Tokenizer):
         self._byte_level = self._detect_byte_level()
         # Added tokens (special or not) are stored as RAW strings in the
         # vocab, never byte-encoded — they must bypass the byte table.
-        added = getattr(self.tk, "added_tokens_decoder", {}) or {}
-        self._added_ids = set(added)
+        self._added_ids = set(self._tj.added)
         # Control tokens are marked special in tokenizer.json's
-        # added_tokens (AddedToken.special) — transformers only surfaces
-        # the config-registered ones via all_special_ids, but ALL of them
-        # must be forbidden in guided decoding (b'' in the DFA).
-        self._special_ids = set(self.tk.all_special_ids) | {
-            tid for tid, tok in added.items() if getattr(tok, "special", False)
-        }
+        # added_tokens — ALL of them must be forbidden in guided decoding
+        # (b'' in the DFA), beside the config-declared special tokens.
+        self._special_ids = {
+            self._vocab[t] for t in self._special_tokens if t in self._vocab
+        } | {tid for tid, tok in self._tj.added.items() if tok.special}
 
     def _detect_byte_level(self) -> bool:
         """True for GPT-2-style byte-level-BPE vocabs (Qwen, Llama-3,
@@ -126,49 +230,40 @@ class HFTokenizer(Tokenizer):
         pre-tekken).
 
         The vocab family decides how token strings map to bytes; checking
-        string CONTENT per token (the old heuristic: "has a metaspace →
-        SentencePiece") mis-decodes any byte-BPE vocab entry that happens
-        to contain a literal ``▁`` — e.g. an added token — corrupting the
-        token DFA for every schema.  Introspect the backend tokenizer's
-        declared pre-tokenizer/decoder instead; fall back to a whole-vocab
-        scan for the byte-level space marker ``Ġ`` (U+0120), which every
-        byte-BPE vocab contains and no SentencePiece vocab does.
+        string CONTENT per token mis-decodes any byte-BPE vocab entry that
+        happens to contain a literal ``▁`` — e.g. an added token —
+        corrupting the token DFA for every schema.  Read the declared
+        pre-tokenizer/decoder instead; fall back to a whole-vocab scan for
+        the byte-level space marker ``Ġ`` (U+0120), which every byte-BPE
+        vocab contains and no SentencePiece vocab does.
         """
-        import json as _json
+        spec = self._spec
 
-        backend = getattr(self.tk, "backend_tokenizer", None)
-        if backend is not None:
-            try:
-                spec = _json.loads(backend.to_str())
+        def _types(node):
+            if not isinstance(node, dict):
+                return set()
+            out = {node.get("type")}
+            for sub in node.get("pretokenizers", []) or []:
+                out |= _types(sub)
+            for sub in node.get("decoders", []) or []:
+                out |= _types(sub)
+            return out
 
-                def _types(node):
-                    if not isinstance(node, dict):
-                        return set()
-                    out = {node.get("type")}
-                    for sub in node.get("pretokenizers", []) or []:
-                        out |= _types(sub)
-                    for sub in node.get("decoders", []) or []:
-                        out |= _types(sub)
-                    return out
-
-                kinds = _types(spec.get("pre_tokenizer") or {})
-                kinds |= _types(spec.get("decoder") or {})
-                kinds |= {(spec.get("model") or {}).get("type")}
-                if "ByteLevel" in kinds:
-                    return True
-                if "Metaspace" in kinds:
-                    return False
-            except (ValueError, TypeError, KeyError, AttributeError):
-                # Malformed/unexpected backend spec JSON: fall through to
-                # the whole-vocab scan below.
-                pass
-        return any("Ġ" in t for t in self.tk.get_vocab())
+        kinds = _types(spec.get("pre_tokenizer") or {})
+        kinds |= _types(spec.get("decoder") or {})
+        kinds |= {(spec.get("model") or {}).get("type")}
+        if "ByteLevel" in kinds:
+            return True
+        if "Metaspace" in kinds:
+            return False
+        return any("Ġ" in t for t in self._vocab)
 
     def encode(self, text: str) -> List[int]:
-        return self.tk.encode(text, add_special_tokens=False)
+        return self._tj.encode(text)
 
     def decode(self, ids: Sequence[int]) -> str:
-        return self.tk.decode(list(ids), skip_special_tokens=True)
+        text = self._tj.decode(list(ids), skip_special_tokens=True)
+        return _clean_up_tokenization(text) if self._clean_up else text
 
     def _token_to_bytes(self, token: str, tid: int) -> bytes:
         if tid in self._special_ids:
@@ -177,9 +272,9 @@ class HFTokenizer(Tokenizer):
             # Non-special added token: raw string, whatever the family.
             return token.encode("utf-8")
         if self._byte_level:
-            # GPT-2 byte-unicode table (fix vs round 1: byte-level is
-            # decided per VOCAB, so a literal metaspace inside a byte-BPE
-            # token can no longer divert it to the SentencePiece branch).
+            # GPT-2 byte-unicode table (byte-level is decided per VOCAB, so
+            # a literal metaspace inside a byte-BPE token can never divert
+            # it to the SentencePiece branch).
             try:
                 return bytes(self._byte_decoder[ch] for ch in token)
             except KeyError:
@@ -194,7 +289,7 @@ class HFTokenizer(Tokenizer):
 
     def token_bytes(self) -> List[bytes]:
         out = [b""] * self.vocab_size
-        for token, tid in self.tk.get_vocab().items():
+        for token, tid in self._vocab.items():
             if tid < self.vocab_size:
                 out[tid] = self._token_to_bytes(token, tid)
         return out

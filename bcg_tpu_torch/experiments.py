@@ -260,9 +260,18 @@ def main(argv: Optional[List[str]] = None) -> None:
                         "sweeps without any LLM; engine/fake.py)")
     args = p.parse_args(argv)
 
-    # A ``bcg-hf/*`` fixture is loaded like any local checkpoint: the
-    # port does not build it (models/hf_fixture.py is not ported,
-    # ROADMAP queue A), so it must exist already.
+    sweep_models = (
+        args.models.split(",") if args.preset == "model-sweep" else []
+    )
+    for name in [args.model, *sweep_models]:
+        if name and name.startswith("bcg-hf/"):
+            # Hermetic HF fixtures materialize on demand (idempotent) — a
+            # parity sweep must not depend on an earlier run having built
+            # the checkpoint.
+            from bcg_tpu_torch.models.hf_fixture import build_checkpoint
+
+            build_checkpoint(name)
+
     common = dict(runs=args.runs, model_name=args.model, backend=args.backend,
                   max_rounds=args.rounds, seed=args.seed,
                   concurrency=args.concurrency, fault_rate=args.fault_rate,

@@ -182,9 +182,9 @@ MODEL_SPECS: Dict[str, ModelSpec] = {
         rms_eps=1e-5, max_position=32768,
     ),
     # Hermetic HF-artifact specs (models/hf_fixture.py): loaded through
-    # the REAL checkpoint pipeline — AutoTokenizer + safetensors shards +
+    # the REAL checkpoint pipeline — tokenizer.json + safetensors shards +
     # config.json on local disk — with random weights.  `tiny` proves the
-    # pipeline on CPU in tests; `bench-1b` is the TPU-scale variant.
+    # pipeline on CPU in tests; `bench-1b` is the larger variant.
     "bcg-hf/tiny": ModelSpec(
         name="bcg-hf/tiny",
         vocab_size=512, hidden_size=64, num_layers=2,

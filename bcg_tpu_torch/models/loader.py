@@ -63,7 +63,7 @@ def find_checkpoint_dir(model_name: str) -> Optional[str]:
         candidates.append(env)
     candidates.append(model_name)  # model_name may itself be a path
     # Repo-local checkpoints (e.g. the hermetic bcg-hf/* artifact sets
-    # built by the JAX package's models/hf_fixture.py).
+    # built by models/hf_fixture.py).
     candidates.append(os.path.join("checkpoints", model_name.replace("/", "--")))
     hf_home = os.environ.get("HF_HOME", os.path.expanduser("~/.cache/huggingface"))
     snap_root = os.path.join(

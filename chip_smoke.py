@@ -134,7 +134,24 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    by kind beside the wrappers' launches and calls: B3a 36 and B2 1, both
    ways), the ledger's ``params`` charge beside ``param_bytes`` and
    ``torch.cuda.memory_allocated``, the spans and the five largest, and
-   the number of game-event lines.  The checkpoint is deleted.
+   the number of game-event lines.  Then P13 serves the same checkpoint,
+   which is deleted after it: the directory is renamed to a
+   ``Qwen/Qwen3-8B`` snapshot (bench-8b's registered widths), given the
+   shipped ChatML tokenizer set (``bcg_tpu_torch/models/
+   fixture_tokenizers/chatml``, a byte-level BPE of 448 entries) and a
+   ``config.json``, and ``TorchEngine(model_name="Qwen/Qwen3-8B")`` boots
+   from it through ``find_checkpoint_dir``, ``load_checkpoint_params`` and
+   ``tokenizer_for_model`` — the port's own ``tokenizer.json`` reader, no
+   fallback (P10's engine and loaded copy freed first: two weight copies
+   at most).  One sampled round of P1's game, untimed (``game P13:`` the
+   tokenizer's length beside the model's vocabulary, the share of logit
+   ids the token DFA can reach, prompt tokens per row beside the byte
+   tokenizer's on the same prompts, decode steps, failed and unparsed rows
+   (0), the prompts' encode/decode round trip, peak memory, launches); its
+   B1, B3a and B2 calls captured and held in the kernel phase as
+   ``flash_prefill@P13``, ``decode_attention@P13`` and
+   ``guided_sampler@P13`` (B2 over a 151,936-wide row of which the DFA
+   reaches a few hundred ids).
 9. P11 (after P10, before the kernel phase): the serving tier at full
    width and depth.  Four of P1's games (seeds 0-3, 1 round, P1's engine
    config) played at once through ``serve.run_serving_simulations`` and
@@ -1086,7 +1103,7 @@ def phase_p10(params):
         if mismatched or extra:
             fail(f"P10: loaded leaves differ from the shared weights: {mismatched[:5]} {extra[:5]}")
     finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+        # The checkpoint stays for P13 (deleted with ``root`` at the end).
         del os.environ["BCG_TPU_CHECKPOINT_DIR"]
 
     events = os.path.join(root, "events.jsonl")
@@ -1163,7 +1180,8 @@ def phase_p10(params):
         for name in list(P10_FLAGS) + ["BCG_TPU_GAME_EVENTS"]:
             os.environ.pop(name, None)
         obs_reset()
-        shutil.rmtree(root, ignore_errors=True)
+        if os.path.exists(events):
+            os.remove(events)
     layers = spec.num_layers
     kern = census.get("kernels") or {}
     checks = {
@@ -1184,7 +1202,161 @@ def phase_p10(params):
     del engine, loaded
     torch.cuda.empty_cache()
     if bad:
+        shutil.rmtree(root, ignore_errors=True)
         fail(f"P10: {bad}")
+    # P13 serves the same checkpoint under a real model's name; the card
+    # then holds the shared weights and P13's loaded copy, no third.
+    try:
+        if depth < spec_for_model(MODEL).num_layers:
+            fail(f"P13: needs the full-depth checkpoint; the disk held {depth} layers")
+        t0 = time.perf_counter()
+        p13 = phase_p13(out_dir, root)
+        print(f"phase P13: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return p13
+
+
+# P13: the bench-8b checkpoint of P10, served as a real model would be:
+# under the registered name of the model whose widths it has, with a real
+# byte-level BPE tokenizer (the shipped ChatML fixture set) read by the
+# port's own tokenizer.json reader, found and loaded by the normal entry
+# points.  One sampled round of P1's game.
+P13_MODEL = "Qwen/Qwen3-8B"
+
+
+def phase_p13(ckpt_dir, root):
+    """P13: ``ckpt_dir`` (P10's 4-shard HF checkpoint of the shared
+    weights) becomes a ``Qwen/Qwen3-8B`` snapshot: renamed under ``root``,
+    given the shipped ChatML tokenizer set (``models/fixture_tokenizers``)
+    and a ``config.json``, and found through ``BCG_TPU_CHECKPOINT_DIR``.
+    ``TorchEngine(model_name="Qwen/Qwen3-8B")`` boots from it through
+    ``find_checkpoint_dir``, ``load_checkpoint_params`` and
+    ``tokenizer_for_model`` (the port's reader: no fallback — a reader
+    error fails the run), then plays one sampled round of P1's game (8
+    honest + 2 Byzantine, seed 0, prefix caching on), untimed, with B1,
+    B3a and B2 captured for the kernel phase (``*@P13``).  The counts are
+    set to 0 just before and read just after.  Prints ``game P13``: the
+    tokenizer's length beside the model's vocabulary, the share of logit
+    ids the token DFA can reach, prompt tokens per row beside the byte
+    tokenizer's on the same prompts (P1's template), decode steps, failed
+    and unparsed rows (0), whether every prompt round-trips through
+    ``encode`` and ``decode``, peak memory and launches.  Returns the
+    launch counts and captured inputs."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from bcg_tpu_torch.engine.chat_template import format_chat_prompt
+    from bcg_tpu_torch.engine.tokenizer import HFTokenizer
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.models import hf_fixture
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.loader import find_checkpoint_dir
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    spec = spec_for_model(P13_MODEL)
+    bench = spec_for_model(MODEL)
+    widths = ("vocab_size", "hidden_size", "num_layers", "num_heads", "num_kv_heads",
+              "head_dim", "intermediate_size", "qk_norm", "rope_theta", "rms_eps")
+    if any(getattr(spec, w) != getattr(bench, w) for w in widths):
+        fail(f"P13: {P13_MODEL}'s registered widths are not {MODEL}'s")
+    snap = os.path.join(root, P13_MODEL.replace("/", "--"))
+    os.rename(ckpt_dir, snap)
+    shipped = hf_fixture.shipped_tokenizer_dir("chatml", hf_fixture.SHIPPED_VOCAB)
+    for name in hf_fixture.TOKENIZER_FILES:
+        shutil.copyfile(os.path.join(shipped, name), os.path.join(snap, name))
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(hf_fixture._hf_config(spec), f, indent=2)
+    forms = PATHS["P1"]["kernels"]
+    cfg = game_config(PATHS["P1"]["rounds"], **PATHS["P1"]["engine"])
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine, model_name=P13_MODEL))
+    os.environ["BCG_TPU_CHECKPOINT_DIR"] = root
+    try:
+        found = find_checkpoint_dir(P13_MODEL)
+        if found != snap:
+            fail(f"P13: find_checkpoint_dir gave {found!r}, not {snap!r}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = TorchEngine(cfg.engine, device=DEVICE)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        tok = engine.tokenizer
+        if not isinstance(tok, HFTokenizer):
+            fail(f"P13: the engine's tokenizer is {type(tok).__name__}, not the port's reader")
+        prompts, results = [], []
+        call = engine.batch_generate_json
+
+        def recorded(rows, *args, **kw):
+            prompts.extend(rows)
+            out = call(rows, *args, **kw)
+            results.extend(out)
+            return out
+
+        engine.batch_generate_json = recorded
+        cap = Capture(forms)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            cap.restore()
+            engine.batch_generate_json = call
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        del os.environ["BCG_TPU_CHECKPOINT_DIR"]
+    texts = [(system, user if isinstance(user, str) else "".join(user))
+             for system, user, _ in prompts]
+    bpe_tokens = [len(tok.encode(format_chat_prompt(P13_MODEL, s, u))) for s, u in texts]
+    byte_tokens = [len(format_chat_prompt(MODEL, s, u).encode("utf-8")) for s, u in texts]
+    roundtrip = all(tok.decode(tok.encode(x)) == x for pair in texts for x in pair)
+    reachable = sum(1 for b in tok.token_bytes() if b)
+    unparsed = sum(1 for r in results if isinstance(r, dict) and "error" in r)
+    line = {
+        "model": P13_MODEL, "checkpoint": os.path.basename(snap),
+        "files": sorted(os.listdir(snap)), "boot_seconds": boot_s,
+        "tokenizer": type(tok).__name__, "byte_level": tok._byte_level,
+        "tokenizer_len": tok.vocab_size, "model_vocab": spec.vocab_size,
+        "dfa_reachable_ids": reachable, "dfa_reachable_share": reachable / spec.vocab_size,
+        "rows": len(prompts),
+        "prompt_tokens_per_row": {"mean": statistics.mean(bpe_tokens), "min": min(bpe_tokens),
+                                  "max": max(bpe_tokens)},
+        "byte_tokenizer_tokens_per_row_at_P1": {
+            "mean": statistics.mean(byte_tokens), "min": min(byte_tokens),
+            "max": max(byte_tokens)},
+        "decode_steps": engine.total_decode_steps, "rounds": stats["total_rounds"],
+        "decisions_by_round": [d for _, d in decisions],
+        "votes_by_round": [v for _, v in votes],
+        "failed_rows": engine.failed_rows, "total_rows": engine.total_rows,
+        "unparsed_rows": unparsed, "prompts_round_trip": roundtrip,
+        "game_seconds": wall, "peak_bytes": peak,
+        "launches": {k: counts[k] for k in forms},
+        "plain_paged_calls": plain_paged_calls(),
+        "capture_copied_bytes": cap.copied_bytes,
+    }
+    print("game P13: " + json.dumps(line), flush=True)
+    checks = {
+        "the port's reader serves the checkpoint's tokenizer": line["tokenizer"] == "HFTokenizer",
+        "byte-level BPE detected": tok._byte_level,
+        "no failed rows": engine.failed_rows == 0 and engine.total_rows > 0,
+        "no unparsed rows": unparsed == 0,
+        "every prompt round-trips": roundtrip,
+        "fewer prompt tokens than the byte tokenizer": sum(bpe_tokens) < sum(byte_tokens),
+        "B1, B3a and B2 launched": all(counts[k] > 0 for k in forms),
+        "no plain paged calls": line["plain_paged_calls"] == 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"P13: {bad}")
+    return counts, cap.inputs()
 
 
 # P11: four of P1's games served at once by one engine behind the
@@ -2164,7 +2336,7 @@ def phase_kernels(inputs, counts):
                   lambda: int8_forms("chunk_decode_attention_int8", "P2"),
                   *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
                     for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16,
-                  *[lambda f=f, p=p: f(p) for p in ("P11", "P12")
+                  *[lambda f=f, p=p: f(p) for p in ("P11", "P12", "P13")
                     for f in (flash, decode, sampler) if p in inputs]):
         results.append(phase())
         torch.cuda.empty_cache()
@@ -2279,8 +2451,8 @@ def main() -> int:
         counts[path], inputs[path] = phase_path(path, params)
         print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    phase_p10(params)
-    print(f"phase P10: {time.perf_counter() - t0:.1f} s", flush=True)
+    counts["P13"], inputs["P13"] = phase_p10(params)
+    print(f"phase P10 (P13 included): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     # The captured inputs wait in host memory while P11 runs: the served
     # engine's row cap reads the card's whole memory, and a merged batch

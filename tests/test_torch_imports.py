@@ -116,6 +116,47 @@ def test_megaround_slice_module_imports_without_jax_or_the_jax_package(slice_imp
     assert loaded == "[]"
 
 
+# The static checker and the HF fixture / tokenizer slice: each imported
+# in a fresh interpreter that then holds neither JAX, the JAX package,
+# transformers nor tokenizers.
+CHECKER_HF_MODULES = [
+    "bcg_tpu_torch.analysis", "bcg_tpu_torch.analysis.core", "bcg_tpu_torch.analysis.rules",
+    "bcg_tpu_torch.analysis.interproc", "bcg_tpu_torch.analysis.__main__",
+    "bcg_tpu_torch.models.hf_fixture", "bcg_tpu_torch.engine.tokenizer",
+    "bcg_tpu_torch.engine.tokenizer_json",
+]
+
+
+@pytest.fixture(scope="module")
+def checker_hf_imports():
+    code = (
+        "import json, subprocess, sys\n"
+        f"mods = {CHECKER_HF_MODULES!r}\n"
+        "out = {}\n"
+        "for m in mods:\n"
+        "    r = subprocess.run([sys.executable, '-c', 'import importlib, sys; '\n"
+        "        f'importlib.import_module({m!r}); '\n"
+        "        'print(sorted(k for k in sys.modules if k.split(\".\")[0] in '\n"
+        "        '(\"jax\", \"bcg_tpu\", \"transformers\", \"tokenizers\")))'],\n"
+        "        capture_output=True, text=True)\n"
+        "    out[m] = [r.returncode, r.stdout.strip(), r.stderr[-500:]]\n"
+        "print(json.dumps(out))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mod", CHECKER_HF_MODULES)
+def test_checker_and_hf_module_imports_without_jax_transformers_or_tokenizers(
+        checker_hf_imports, mod):
+    rc, loaded, err = checker_hf_imports[mod]
+    assert rc == 0, err
+    assert loaded == "[]"
+
+
 def test_source_names_neither_jax_nor_the_jax_package():
     pat = re.compile(r"^\s*(import jax|from jax\b)|\bbcg_tpu\.(?!_)", re.M)
     hits = []
