@@ -1474,9 +1474,12 @@ class TorchEngine(InferenceEngine):
         a shape signature (``pad_batch``, obs/compile.py).  Nothing is
         compiled per shape here: the one-time costs of a new size (plan
         queries, workspace growth) are timed at their own seams in the
-        kernel wrappers."""
+        kernel wrappers, and the first call of a new size is timed whole,
+        as the JAX engine times a new signature's first dispatch."""
         obs_compile.note_shape("pad_batch", (len(parts),), names=("batch",))
-        return self._decode_batch(parts, batch, real_B, temps, budgets, top_p, free=free)
+        with obs_compile.time_block("pad_batch"):
+            return self._decode_batch(parts, batch, real_B, temps, budgets, top_p,
+                                      free=free)
 
     def _run_guided(self, parts: List[Tuple[str, str, str]], schemas: List[Dict],
                     temperature, max_tokens, top_p: float = 1.0) -> List[str]:

@@ -14,9 +14,12 @@ feed the same records as the JAX package's trace-cache misses:
   plan cache (``sampler_plan``), and each first-use ``nvcc`` build of a
   kernel library (``nvcc_<library>``; builds run side by side, so each
   is charged the wall time since the previous one finished, and a
-  batch's charges add up to its wall time).  A first signature is a ``first_compile``; any later one is
-  a ``retrace`` that emits exactly ONE structured cause record: which
-  argument changed (``batch 8→16``), classified into the cause taxonomy
+  batch's charges add up to its wall time).  Each new signature counts
+  ``engine.compile.<entry>``, as a trace-cache miss does in the JAX
+  engine.  A first signature is a ``first_compile``; any later one is
+  a ``retrace`` (``engine.retrace.<entry>``) that emits exactly ONE
+  structured cause record: which argument changed (``batch 8→16``),
+  classified into the cause taxonomy
   (``shape`` / ``dtype`` / ``static_knob`` / ``path`` / ``arity``) —
   ``engine.retrace_cause.<kind>`` counters plus a JSONL event through
   the bounded :class:`~bcg_tpu_torch.obs.export.EventSink` when the flag
@@ -212,6 +215,10 @@ class CompileObserver:
         # exact-bytes zero-surface test has a definite complement).
         obs_counters.counter("engine.compile_obs.first_compile_ms")
         obs_counters.counter("engine.compile_obs.retrace_ms")
+        # The JAX census's ahead-of-time compile milliseconds, which the
+        # report scripts read beside the other two: the port's census
+        # watches a step run and compiles nothing, so it stays 0.
+        obs_counters.counter("engine.compile_obs.aot_ms")
         obs_counters.gauge("engine.compile_obs.cache_entries")
         if events_path:
             from bcg_tpu_torch.obs import export as obs_export
@@ -263,7 +270,12 @@ class CompileObserver:
             self._cache_entries += 1
             entries = self._cache_entries
         obs_counters.set_gauge("engine.compile_obs.cache_entries", entries)
+        # The JAX engine's trace-cache counters, which the report scripts
+        # read beside the compile-time histograms: every new signature,
+        # and each one after the first.
+        obs_counters.inc(f"engine.compile.{entry}")
         if not first:
+            obs_counters.inc(f"engine.retrace.{entry}")
             self._record_cause(entry, sig, prior, names)
         stash = self._stash()
         elapsed = stash.pop(entry, None)

@@ -26,8 +26,11 @@ JAX module's names where one exists: ``step_ops`` (every kernel of the
 step, on the card), ``step_custom_calls`` (the hand-written kernels'
 calls: what the JAX census counts as custom calls), ``step_dots``
 (matrix products), ``step_fusions`` (the rest); and
-``engine.hlo.<entry>.{calls,launches,kernels}.<kind>``.  There is no
-drift gate and no baseline file here: the JAX baseline is TPU HLO.
+``engine.hlo.<entry>.{calls,launches,kernels}_<kind>`` (one name segment
+after the entry, as every census gauge has: ``scripts/trace_report.py``
+reads the segment before the last dot as the entry).  The drift gate
+over these records is ``bcg_tpu_torch/tools/census_gate.py``, with its
+own baseline: the JAX baseline is TPU HLO.
 
 Cost: two profiled steps per entry (the one before the counted step
 warms the profiler up; a device synchronization on each side, the
@@ -268,7 +271,7 @@ def publish_gauges(entry: str, census: Dict[str, Any]) -> None:
             obs_counters.set_gauge(f"engine.hlo.{entry}.{metric}", value)
     for table in ("calls", "launches", "kernels"):
         for kind, value in census.get(table, {}).items():
-            obs_counters.set_gauge(f"engine.hlo.{entry}.{table}.{kind}", value)
+            obs_counters.set_gauge(f"engine.hlo.{entry}.{table}_{kind}", value)
 
 
 def snapshot() -> Dict[str, Dict[str, Any]]:

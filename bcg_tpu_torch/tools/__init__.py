@@ -1,2 +1,3 @@
-"""One-off diagnostics of the port, run on a CUDA card (``python -m
-bcg_tpu_torch.tools.<name>``); nothing in the package imports them."""
+"""Tools over the port, run as ``python -m bcg_tpu_torch.tools.<name>``:
+diagnostics on a CUDA card, and the perf gate, the census gate and the
+report runner on the CPU.  Nothing in the package imports them."""

@@ -134,7 +134,16 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    by kind beside the wrappers' launches and calls: B3a 36 and B2 1, both
    ways), the ledger's ``params`` charge beside ``param_bytes`` and
    ``torch.cuda.memory_allocated``, the spans and the five largest, and
-   the number of game-event lines.  Then P13 serves the same checkpoint,
+   the number of game-event lines.  The game's trace
+   (``BCG_TPU_TRACE_OUT``), event stream, compile-cause stream and metric
+   shards (``BCG_TPU_METRICS_SHARD_DIR``, run ``p10``) are kept under
+   ``build/reports`` for the reports phase.  ``census P10:`` holds the
+   decode step's census to the ``cuda`` section of
+   ``bcg_tpu_torch/tools/census_baseline.json`` (36 layers, exact counts;
+   ``--save-census FILE`` writes the census, the input of ``python -m
+   bcg_tpu_torch.tools.census_gate --update-cuda FILE``); a finding, or a
+   depth cut by a small disk, fails the run in the reports phase.  Then
+   P13 serves the same checkpoint,
    which is deleted after it: the directory is renamed to a
    ``Qwen/Qwen3-8B`` snapshot (bench-8b's registered widths), given the
    shipped ChatML tokenizer set (``bcg_tpu_torch/models/
@@ -171,7 +180,19 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    the first dispatch, a hang past ``BCG_TPU_SERVE_WATCHDOG_S`` on the
    third): both complete, the scheduler reads one engine rebuild and two
    retried dispatches, and the condemned call's thread is joined before
-   the phase ends (``chaos P11:``).
+   the phase ends (``chaos P11:``).  The alert plane is on in the chaos
+   run (``BCG_TPU_ALERTS``, its stream under ``build/reports``); two quiet
+   evaluations after it resolve what fired.
+   Then the reports phase: the five report scripts (``scripts/
+   {consensus,trace,compile,fleet,alert}_report.py``, each run as a
+   process) over P10's files and P11's alert stream.  ``reports P10:``
+   prints each one's exit code and headline figures and whether they
+   agree with P10's and P11's own: the consensus report's rounds with the
+   game's, the trace report's host syncs with ``host_syncs_total`` and its
+   census row with ``kernels_per_step``, the compile report's entries with
+   the port's seams, the fleet report's one shard, the alert report's
+   transitions with the alert engine's.  A non-zero exit, a disagreement
+   or a census finding fails the run.
 10. P12 (after P11, before the kernel phase): the fused mega-round on
    P1's engine over the shared weights, with the host-sync auditor (the
    card's sync debug mode on) and compile accounting on.  Three fused
@@ -241,6 +262,8 @@ DEVICE = "cuda"
 # of int8 and 5.0 GB of int4 at bench-8b, room for a 10-row batch at the
 # longest window plus two rounds of radix-resident prompts.
 PAGED_POOL_BLOCKS = 8192
+# Files the options ask for (main fills it).
+SAVE = {"census": None}
 
 
 def fail(msg: str) -> None:
@@ -978,15 +1001,31 @@ P10_FLAGS = {"BCG_TPU_TRACE": "1", "BCG_TPU_HOSTSYNC": "1", "BCG_TPU_COMPILE_OBS
              "BCG_TPU_HLO_CENSUS": "1"}
 MAX_SHARD_BYTES = 5 * 10**9
 DISK_MARGIN_BYTES = 2 << 30
+# The files the report scripts read: P10's game-event stream, trace,
+# compile-cause stream and metric shards, and the alert stream of P11's
+# chaos run (a plain game starts no alert plane; the serving scheduler
+# does).  They wait under REPORTS_DIR until the reports phase.
+REPORTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "reports")
+REPORT_FILES = {"events": "events.jsonl", "trace": "trace.json",
+                "compile_events": "compile.jsonl", "shards": "shards",
+                "alerts": "alerts.jsonl"}
+P10_RUN_ID = "p10"
+# Figures of P10 and of P11's alert plane that the reports must agree with.
+P10_OBS = {}
+
+
+def report_file(key: str) -> str:
+    return os.path.join(REPORTS_DIR, REPORT_FILES[key])
 
 
 def obs_reset():
     """Make the observability modules read the environment again (each
-    reads its flags once)."""
-    from bcg_tpu_torch.obs import compile as obs_compile, game_events, hlo, hostsync, tracer
+    reads its flags once); closes the trace's, streams' and shards' files."""
+    from bcg_tpu_torch.obs import (alerts, compile as obs_compile, fleet, game_events, hlo,
+                                   hostsync, tracer)
 
     for fn in (tracer.reset, hostsync.reset, obs_compile.reset, hlo.reset,
-               game_events.reset_sink):
+               game_events.reset_sink, fleet.reset, alerts.reset):
         fn()
 
 
@@ -1055,8 +1094,7 @@ def phase_p10(params):
     from bcg_tpu_torch.engine.torch_engine import TorchEngine
     from bcg_tpu_torch.models.configs import spec_for_model
     from bcg_tpu_torch.models.loader import find_checkpoint_dir, load_checkpoint_params
-    from bcg_tpu_torch.obs import (compile as obs_compile, game_events, hlo, hostsync,
-                                   ledger, tracer)
+    from bcg_tpu_torch.obs import compile as obs_compile, fleet, hlo, hostsync, ledger, tracer
     from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
 
     spec = spec_for_model(MODEL)
@@ -1106,8 +1144,13 @@ def phase_p10(params):
         # The checkpoint stays for P13 (deleted with ``root`` at the end).
         del os.environ["BCG_TPU_CHECKPOINT_DIR"]
 
-    events = os.path.join(root, "events.jsonl")
-    os.environ.update(P10_FLAGS, BCG_TPU_GAME_EVENTS=events)
+    shutil.rmtree(REPORTS_DIR, ignore_errors=True)
+    os.makedirs(REPORTS_DIR)
+    p10_env = dict(P10_FLAGS, BCG_TPU_GAME_EVENTS=report_file("events"),
+                   BCG_TPU_TRACE_OUT=report_file("trace"),
+                   BCG_TPU_COMPILE_OBS=report_file("compile_events"),
+                   BCG_TPU_METRICS_SHARD_DIR=report_file("shards"), BCG_TPU_RUN_ID=P10_RUN_ID)
+    os.environ.update(p10_env)
     obs_reset()
     try:
         cfg = game_config(PATHS["P1"]["rounds"], **PATHS["P1"]["engine"])
@@ -1119,14 +1162,24 @@ def phase_p10(params):
         wall = time.perf_counter() - t0
         counts = launch_counts()
         plain_calls = plain_paged_calls()
+        hs = hostsync.summary()
+        census = hlo.snapshot().get("decode_loop")
+        led = ledger.snapshot()
+        spans = tracer.summarize()
+        compile_brief = obs_compile.brief()
+        # The files whole: the trace exported, the streams drained, the
+        # shard flushed and closed.
+        tracer.flush()
+        fleet.flush_shards()
+        fleet.reset()   # the writer's closing flush still stamps run p10
+        for name in p10_env:
+            del os.environ[name]
+        obs_reset()
         if depth == spec_for_model(MODEL).num_layers:
             want = GAMES["P1"]
         else:
             # A cut model: the reference is the same game over the shared
             # weights cut the same way, without the observability flags.
-            for name in P10_FLAGS:
-                del os.environ[name]
-            obs_reset()
             ref_engine = TorchEngine(cfg.engine, device=DEVICE, params=params, spec=spec)
             ref_stats, ref_dec, ref_votes = play_recorded(BCGSimulation(cfg, engine=ref_engine))
             ref_engine.shutdown()
@@ -1146,15 +1199,10 @@ def phase_p10(params):
                  f"{'P1' if depth == spec_for_model(MODEL).num_layers else 'its reference'}: "
                  f"decisions {decisions} votes {votes} against {want[0]} {want[1]}")
 
-        hs = hostsync.summary()
         rounds = hs["rounds"]["count"]
-        census = hlo.snapshot().get("decode_loop")
         if census is None:
             fail("P10: the launch census recorded no decode step")
-        led = ledger.snapshot()
-        spans = tracer.summarize()
-        game_events.reset_sink()   # drains the stream to its file
-        with open(events) as f:
+        with open(report_file("events")) as f:
             event_lines = sum(1 for _ in f)
         obs = {
             "host_syncs_per_round": {site: n / rounds for site, n in hs["by_site"].items()},
@@ -1173,15 +1221,30 @@ def phase_p10(params):
             "spans": sum(r["count"] for r in spans.values()), "span_names": len(spans),
             "top_spans_ms": {k: r["total_ms"] for k, r in list(spans.items())[:5]},
             "game_event_lines": event_lines,
-            "compile": obs_compile.brief(),
+            "compile": compile_brief,
         }
         print("obs P10: " + json.dumps(obs), flush=True)
     finally:
-        for name in list(P10_FLAGS) + ["BCG_TPU_GAME_EVENTS"]:
+        for name in p10_env:
             os.environ.pop(name, None)
         obs_reset()
-        if os.path.exists(events):
-            os.remove(events)
+    # The census against the card's pinned step (tools/census_baseline.json,
+    # section "cuda"); a finding fails the run in the reports phase.
+    from bcg_tpu_torch.tools import census_gate
+
+    findings = census_gate.check_drift({"decode_loop": census}, census_gate.load_baseline(),
+                                       "cuda", layers=depth)
+    print("census P10: " + json.dumps({
+        "entry": "decode_loop", "layers": depth, "section": "cuda",
+        "counts": census_gate.flat_counts(census, "cuda"), "findings": findings,
+    }), flush=True)
+    if SAVE["census"]:
+        os.makedirs(os.path.dirname(os.path.abspath(SAVE["census"])), exist_ok=True)
+        with open(SAVE["census"], "w") as f:
+            json.dump({"layers": depth, "torch_version": torch.__version__,
+                       "entries": {"decode_loop": census}}, f, indent=2)
+    P10_OBS.update(rounds=stats["total_rounds"], host_syncs_total=hs["total"],
+                   census=census, compile=compile_brief, census_findings=findings)
     layers = spec.num_layers
     kern = census.get("kernels") or {}
     checks = {
@@ -1215,6 +1278,65 @@ def phase_p10(params):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return p13
+
+
+# The port's own seams of compile accounting (obs/compile.py), besides the
+# nvcc_<library> builds.
+COMPILE_SEAMS = ("pad_batch", "split_workspace", "sampler_plan", "megaround_prefix",
+                 "megaround")
+
+
+def phase_reports():
+    """The five report scripts (``scripts/*_report.py``, run as processes
+    by ``bcg_tpu_torch.tools.reports``) over P10's game-event stream,
+    trace, compile-cause stream and metric shards and P11's alert stream.
+    Prints ``reports P10:``: each script's exit code and headline figures,
+    and whether they agree with P10's and P11's own (the consensus
+    report's rounds with the game's, the trace report's host syncs with
+    the auditor's total and its census row with the card's kernels a
+    step, the compile report's entries with the port's seams and its
+    cache entries with the observer's, the fleet report's one shard of
+    run ``p10``, the alert report's transitions with the alert engine's).
+    Fails on a non-zero exit, a disagreement, or a census finding of
+    P10's ``census P10:`` line.  Deletes the files."""
+    import shutil
+
+    from bcg_tpu_torch.tools import reports
+
+    try:
+        results = reports.run_all(**{k: report_file(k) for k in REPORT_FILES})
+    finally:
+        shutil.rmtree(REPORTS_DIR, ignore_errors=True)
+    kern = P10_OBS["census"].get("kernels") or {}
+    cons, trace, comp = (results.get(k, {}) for k in
+                         ("consensus_report", "trace_report", "compile_report"))
+    row = (trace.get("census") or {}).get("decode_loop") or {}
+    listed = set(comp.get("entries") or {}) | set(comp.get("cause_entries") or ())
+    alert = results.get("alert_report", {})
+    agree = {
+        "every report exits 0": len(results) == 5 and all(r["rc"] == 0
+                                                          for r in results.values()),
+        "consensus rounds = the game's": (cons.get("games") == 1
+                                          and cons.get("rounds") == P10_OBS["rounds"]),
+        "trace host syncs = host_syncs_total": (trace.get("host_syncs")
+                                                == P10_OBS["host_syncs_total"]),
+        "trace census = kernels_per_step": (bool(kern)
+                                            and row.get("step_ops") == sum(kern.values())
+                                            and row.get("step_fusions") == kern.get("other")),
+        "compile report lists the port's seams": (
+            bool(listed) and all(e in COMPILE_SEAMS or e.startswith("nvcc_") for e in listed)
+            and comp.get("cache_entries") == P10_OBS["compile"]["cache_entries"]),
+        "fleet report merges one shard": (results.get("fleet_report", {}).get("runs")
+                                          == {P10_RUN_ID: 1}),
+        "alert report = the alert engine": (
+            alert.get("fired", 0) >= 1 and alert.get("fired") == P10_OBS["alerts"]["fired"]
+            and alert.get("resolved") == P10_OBS["alerts"]["resolved"]),
+        "census: no finding against the cuda section": not P10_OBS["census_findings"],
+    }
+    print("reports P10: " + json.dumps({"reports": results, "agree": agree}), flush=True)
+    bad = [k for k, ok in agree.items() if not ok]
+    if bad:
+        fail(f"reports P10: {bad}; census findings: {P10_OBS['census_findings']}")
 
 
 # P13: the bench-8b checkpoint of P10, served as a real model would be:
@@ -1416,7 +1538,7 @@ def p11_runs(params):
 
     from bcg_tpu_torch import api
     from bcg_tpu_torch.engine.torch_engine import TorchEngine
-    from bcg_tpu_torch.obs import counters as obs_counters
+    from bcg_tpu_torch.obs import alerts as obs_alerts, counters as obs_counters
     from bcg_tpu_torch.runtime import resilience
     from bcg_tpu_torch.serve import ServingEngine, run_serving_simulations
 
@@ -1514,11 +1636,14 @@ def p11_runs(params):
     if bad:
         fail(f"P11: {bad}")
 
-    # -- the chaos run
+    # -- the chaos run, with the alert plane on: its stream goes to the
+    # reports phase
     env = {"BCG_TPU_SERVE_WATCHDOG_S": str(P11_WATCHDOG_S),
-           "BCG_TPU_SERVE_MAX_DISPATCH_RETRIES": "1", "BCG_TPU_CHAOS": P11_CHAOS}
+           "BCG_TPU_SERVE_MAX_DISPATCH_RETRIES": "1", "BCG_TPU_CHAOS": P11_CHAOS,
+           "BCG_TPU_ALERTS": "1", "BCG_TPU_ALERT_EVENTS": report_file("alerts")}
     os.environ.update(env)
     resilience.reset()
+    obs_alerts.reset()
     before = obs_counters.snapshot()
     built = []
 
@@ -1543,6 +1668,15 @@ def p11_runs(params):
             if t.name == "bcg-serve-device":
                 t.join(timeout=P11_HANG_S + 600)
         left = [t.name for t in threading.enumerate() if t.name.startswith("bcg-serve")]
+        # Two quiet cycles resolve what the faults fired; then the alert
+        # engine stops and its stream is closed.
+        for _ in range(2):
+            obs_alerts.evaluate_now()
+        alert_engine = obs_alerts.engine()
+        alerts = ({"fired": alert_engine.fired, "resolved": alert_engine.resolved,
+                   "by_rule": alert_engine.fired_by_rule()}
+                  if alert_engine is not None else {"fired": 0, "resolved": 0, "by_rule": {}})
+        obs_alerts.reset()
         for name in env:
             os.environ.pop(name, None)
         resilience.reset()
@@ -1563,7 +1697,9 @@ def p11_runs(params):
         "failed_rows": failed_rows, "threads_left": left,
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "peak_reserved_bytes": torch.cuda.max_memory_reserved(), **injected,
+        "alerts": alerts,
     }), flush=True)
+    P10_OBS["alerts"] = alerts
     checks = {
         "one engine rebuild": recovery.get("engine_rebuilds") == 1 and len(built) == 1,
         "one crash and one hang injected": (injected.get("chaos.injected.crash") == 1
@@ -2408,7 +2544,12 @@ def main() -> int:
                         help="also write P1's captured sampler call to FILE (torch.save), "
                              "the input of python -m bcg_tpu_torch.tools.sampler_kernel "
                              "--inputs FILE")
+    parser.add_argument("--save-census", metavar="FILE",
+                        help="also write P10's decode-step census to FILE (JSON), the "
+                             "input of python -m bcg_tpu_torch.tools.census_gate "
+                             "--update-cuda FILE")
     args = parser.parse_args()
+    SAVE["census"] = args.save_census
     import torch
 
     if not torch.cuda.is_available():
@@ -2461,6 +2602,9 @@ def main() -> int:
     counts["P11"], inputs["P11"] = phase_p11(params)
     inputs = move_inputs(inputs, DEVICE)
     print(f"phase P11: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_reports()
+    print(f"phase reports: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     counts["P12"], inputs["P12"] = phase_p12(params)
     print(f"phase P12: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -377,7 +377,7 @@ def test_census_counts_a_decode_steps_calls(weights, obs_env, case):
     assert census["calls"] == {kind: layers, "guided_sampler": 1}
     assert census["launches"] == {}     # the CPU runs the plain versions
     assert census["step_custom_calls"] == layers + 1
-    assert obs_counters.value(f"engine.hlo.{entry}.calls.{kind}") == layers
+    assert obs_counters.value(f"engine.hlo.{entry}.calls_{kind}") == layers
 
 
 def test_census_is_off_by_default(weights, obs_env):
