@@ -44,8 +44,8 @@ Whole-program rules (``interproc.py``): ``BCG-LOCK-ORDER``,
 regions across module boundaries (``propagate_capture_regions``).
 
 The JAX package's BCG-JIT-OUTSHARD, BCG-JIT-DONATE, BCG-SHARD-AXIS and
-BCG-SHARD-DIVISOR have no torch construct until the port has a mesh
-(ROADMAP A13) and are not rules here.
+BCG-SHARD-DIVISOR are not rules here yet: their torch constructs
+(``parallel/``) wait for their retargeting (ROADMAP A13b).
 
 Suppression: the port's baseline (``bcg_tpu_torch/analysis/
 baseline.json``) parks deliberate findings with a one-line

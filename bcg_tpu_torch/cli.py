@@ -8,8 +8,11 @@ checkpoints, the backend (``torch`` or the deterministic ``fake``), the
 serving scheduler (``--serve``), fake policies and fault injection, plus
 ``--device``: the game runs on the CUDA card unless ``--device cpu`` is
 given, and ``--profile-dir`` (a ``torch.profiler`` trace of the run).
-The parallelism flags come back with ROADMAP A13, which ports what they
-switch on.  As in the JAX package, the block-paged KV
+The mesh flags (``--tensor-parallel``, ``--sequence-parallel``,
+``--data-parallel``) run one process a device under ``torchrun``, every
+rank playing the same game (rank 0 writes the results);
+``--spmd-exchange`` exchanges values with one all-gather over the mesh's
+``dp`` ranks.  As in the JAX package, the block-paged KV
 cache and the packed-int4 KV cache have no flag: they are
 ``BCG_TPU_PAGED_KV=1`` and ``BCG_TPU_KV_DTYPE=int4`` (or
 ``EngineConfig.paged_kv`` / ``kv_cache_dtype``).
@@ -23,6 +26,8 @@ cache and the packed-int4 KV cache have no flag: they are
         --quantization int4
     BCG_TPU_PAGED_KV=1 BCG_TPU_KV_DTYPE=int4 python -m bcg_tpu_torch.cli --honest 2 \
         --byzantine 1 --model bcg-tpu/tiny-dh128 --device cpu --fast-forward
+    torchrun --nproc-per-node 2 -m bcg_tpu_torch.cli --honest 2 --byzantine 1 \
+        --model tiny-test --device cpu --tensor-parallel 2 --no-save
 """
 
 from __future__ import annotations
@@ -57,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", type=str, default=None, help="Model preset key or full path")
     p.add_argument("--seed", type=int, default=None, help="Game RNG seed (reproducible runs)")
     p.add_argument("--topology", type=str, default=None, choices=["fully_connected", "ring", "grid"], help="Network topology")
+    p.add_argument("--spmd-exchange", action="store_true",
+                   help="Exchange values via one all_gather over the mesh's dp ranks "
+                        "instead of the host message loop")
     p.add_argument("--serve", action="store_true",
                    help="Route LLM calls through the continuous-batching "
                         "serving scheduler (bcg_tpu_torch/serve; also enabled by "
@@ -69,6 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", type=str, default=None,
                    help="Write a torch.profiler trace of the run to this directory (trace.json)")
     p.add_argument("--resume", type=str, default=None, help="Resume from checkpoint file")
+    p.add_argument("--tensor-parallel", type=int, default=None,
+                   help="TP mesh axis size (heads, MLP and vocabulary split over ranks)")
+    p.add_argument("--sequence-parallel", type=int, default=None,
+                   help="SP mesh axis size (the KV sequence split over ranks; "
+                        "ring-attention prefill)")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="DP mesh axis size (agent parallelism: each rank decodes its "
+                        "share of a game batch's rows)")
     p.add_argument("--quantization", type=str, default=None, choices=["int8", "int4"],
                    help="Weight quantization: int8 = dynamic W8A8 (halves the weight "
                         "bytes), int4 = grouped W4A16 (a quarter of bf16's)")
@@ -140,6 +156,12 @@ def config_from_args(args) -> BCGConfig:
         engine = dataclasses.replace(engine, backend=args.backend)
     if args.model:
         engine = dataclasses.replace(engine, model_name=resolve_model_name(args.model))
+    if args.tensor_parallel:
+        engine = dataclasses.replace(engine, tensor_parallel_size=args.tensor_parallel)
+    if args.sequence_parallel:
+        engine = dataclasses.replace(engine, sequence_parallel_size=args.sequence_parallel)
+    if args.data_parallel:
+        engine = dataclasses.replace(engine, data_parallel_size=args.data_parallel)
     if args.quantization:
         engine = dataclasses.replace(engine, quantization=args.quantization)
     if args.kv_cache_dtype:
@@ -163,6 +185,8 @@ def config_from_args(args) -> BCGConfig:
     network = base.network
     if args.topology:
         network = dataclasses.replace(network, topology_type=args.topology)
+    if args.spmd_exchange:
+        network = dataclasses.replace(network, spmd_exchange=True)
     communication = base.communication
     if args.protocol:
         communication = dataclasses.replace(communication, protocol_type=args.protocol)
@@ -221,10 +245,22 @@ def main(argv: Optional[list] = None) -> int:
     print(f"  Backend: {config.engine.backend} ({config.engine.model_name})")
     print("=" * 60)
 
+    device = args.device
+    if any(n > 1 for n in (args.tensor_parallel or 1, args.sequence_parallel or 1,
+                           args.data_parallel or 1)):
+        # One rank a device: the world comes from torchrun's environment.
+        from bcg_tpu_torch.parallel import distributed
+
+        try:
+            distributed.initialize(device_type=args.device)
+        except RuntimeError as e:   # --device cuda (the default) on a host without a card
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+        device = distributed.device()
     try:
         from bcg_tpu_torch.engine.interface import create_engine
 
-        engine = create_engine(config.engine, device=args.device)
+        engine = create_engine(config.engine, device=device)
         if args.resume:
             from bcg_tpu_torch.runtime.checkpoint import resume_simulation
 
@@ -248,7 +284,7 @@ def main(argv: Optional[list] = None) -> int:
         # same config, on the same device (BCG_TPU_SERVE_WATCHDOG_S).
         serving = ServingEngine(
             sim.engine, owns_inner=True,
-            engine_factory=lambda: create_engine(config.engine, device=args.device),
+            engine_factory=lambda: create_engine(config.engine, device=device),
         )
         sim.set_engine(serving)
     try:

@@ -140,8 +140,9 @@ def create_engine(engine_config, llm_config=None, device=None) -> InferenceEngin
     ``backend="torch"`` is :class:`TorchEngine` on ``device`` (the torch
     device; ``None`` means CUDA), ``"fake"`` the deterministic
     :class:`FakeEngine`; a fault rate wraps either in
-    :class:`FaultInjectingEngine`.  Meshes are not ported yet (ROADMAP
-    A13): :class:`TorchEngine` refuses them."""
+    :class:`FaultInjectingEngine`.  A mesh (``tensor_/sequence_/
+    data_parallel_size``) serves the default engine only; with any other
+    knob :class:`TorchEngine` refuses it (ROADMAP A13b)."""
     from bcg_tpu_torch.runtime import envflags
 
     # Env overrides (BCG_TPU_FAULT_RATE / BCG_TPU_FAULT_SEED) win over

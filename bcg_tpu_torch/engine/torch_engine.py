@@ -65,10 +65,25 @@ Serving design, as in the JAX engine:
   exchange, tally and consensus — with one host sync, its packed
   readback.  Dense engines only, as in the JAX package.
 
+* Tensor, sequence and data parallelism (``tensor_/sequence_/
+  data_parallel_size``) for the default engine — bf16 weights, a dense
+  bf16 cache, the plain loop — over a ``("dp", "tp", "sp")`` mesh of ranks
+  (``parallel/``; one process and device a rank, every rank running the
+  same game).  Each rank holds its slices of the weights
+  (``parallel/sharding.py``) and of the caches: kv heads over ``tp``, the
+  sequence over ``sp`` (caches aligned to ``sp``; a full prefill goes round
+  the ring, a prefix-cached suffix and the decode steps merge the slices),
+  batch rows over ``dp`` (the batch padded to a multiple of ``dp``; each
+  ``dp`` rank prefills and decodes its rows, then the outputs are gathered
+  so every rank parses the same rows).  The kernels run at the local
+  shapes; the sampler runs on the gathered logits with the same generator
+  on every rank, so every rank samples the same tokens.
+
 Ported: bf16, int8 and int4 weights, a dense or paged bf16, int8 or int4
 KV cache, the plain, fast-forward and speculative loops, the fused
-mega-round.  Every knob outside that raises ``NotImplementedError``
-naming the ROADMAP item that brings it; none is ignored.
+mega-round, and the mesh above.  Every knob outside that raises
+``NotImplementedError`` naming the ROADMAP item that brings it (a mesh
+with any other knob: A13b); none is ignored.
 """
 
 from __future__ import annotations
@@ -106,6 +121,7 @@ from bcg_tpu_torch.models.transformer import (
     prefill_chunk_at,
     prefill_paged,
     prefill_paged_chunk_at,
+    prefill_sp,
     prefill_with_prefix,
 )
 from bcg_tpu_torch.obs import (
@@ -117,6 +133,7 @@ from bcg_tpu_torch.obs import (
     tracer as obs_tracer,
 )
 from bcg_tpu_torch.ops.guided_sampler import make_fused_sampler, sample_rows
+from bcg_tpu_torch.parallel.collectives import all_gather, all_reduce
 from bcg_tpu_torch.runtime import envflags, metrics as _metrics, resilience
 
 # Bucket ladders: identical to the JAX engine's (see jax_engine.py for
@@ -147,23 +164,25 @@ def _ff_decode_slots(max_new: int) -> int:
     return (3 * max_new) // 2 + 2 * FF_CHUNK
 
 
-def _pad_batch(real_B: int) -> int:
+def _pad_batch(real_B: int, multiple: int = 1) -> int:
     """Batch-size bucketing: small (retry) batches round up to a power of
-    two; full-size game batches stay exact."""
-    return real_B if real_B >= 8 else 1 << (real_B - 1).bit_length()
+    two; full-size game batches stay exact; then up to a multiple of the
+    ``dp`` degree, so the rows split evenly over the ``dp`` ranks."""
+    B = real_B if real_B >= 8 else 1 << (real_B - 1).bit_length()
+    return B + (-B) % multiple
 
 
-def _chunk_size(cap: int) -> int:
+def _chunk_size(cap: int, multiple: int = 1) -> int:
     """Largest chunk whose padded batch stays within ``cap``."""
-    return max(s for s in range(1, cap + 1) if _pad_batch(s) <= cap)
+    return max(s for s in range(1, cap + 1) if _pad_batch(s, multiple) <= cap)
 
 
-def _pad_rows(*lists):
+def _pad_rows(*lists, multiple: int = 1):
     """Pad parallel per-sequence lists to the bucketed batch size by
     repeating row 0 (padding rows' results are discarded).
     Returns (real_B, B, *padded_lists)."""
     real_B = len(lists[0])
-    B = _pad_batch(real_B)
+    B = _pad_batch(real_B, multiple)
     return (real_B, B) + tuple(l + [l[0]] * (B - real_B) for l in lists)
 
 
@@ -183,6 +202,16 @@ def _resolve_device(device) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def _rank_device(asked: torch.device, rank_dev: torch.device) -> torch.device:
+    """Under a mesh the engine runs on its rank's device: the one asked
+    for (``_resolve_device``'s) must be of that device's type, and of its
+    index when it names one."""
+    if asked.type != rank_dev.type or (asked.index is not None and asked != rank_dev):
+        raise ValueError(f"TorchEngine: device {asked} asked for, but this rank's "
+                         f"torch.distributed world runs it on {rank_dev}")
+    return rank_dev
 
 
 def _resolve_paged_impl(raw: str, device: torch.device) -> str:
@@ -206,13 +235,24 @@ def _resolve_paged_impl(raw: str, device: torch.device) -> str:
 
 class TorchEngine(InferenceEngine):
     def __init__(self, config, device=None, params=None,
-                 spec: Optional[ModelSpec] = None):
+                 spec: Optional[ModelSpec] = None, mesh=None):
         self.config = config
-        self.device = _resolve_device(device)
         self.spec = spec or spec_for_model(config.model_name)
         if self.spec is None:
             raise ValueError(f"No architecture spec for model {config.model_name!r}")
         self.kv_cache_dtype = self._check_config(config)
+        # The mesh (parallel/): given, or built over the world the config's
+        # sizes name (a clear error when no world of that size exists).
+        if mesh is None and any(self._mesh_sizes(config)):
+            from bcg_tpu_torch.parallel.mesh import mesh_from_engine_config
+
+            mesh = mesh_from_engine_config(config)
+        self.mesh = mesh
+        self.device = _resolve_device(device)
+        if mesh is not None:
+            from bcg_tpu_torch.parallel import distributed
+
+            self.device = _rank_device(self.device, distributed.device())
         self.kv_int8 = self.kv_cache_dtype == "int8"
         # False | "int8" | "int4": the ``quantized=`` argument of every
         # cache and pool allocation.
@@ -253,7 +293,17 @@ class TorchEngine(InferenceEngine):
                 "BCG_TPU_DISABLE_W4_KERNEL: the PyTorch engine runs every "
                 "decode-shaped int4 matmul through the W4A16 kernel on CUDA; "
                 "the dequantize route serves CPU tensors only")
-        self.spec = dataclasses.replace(self.spec, dense_route=route)
+        par = None
+        if self.mesh is not None:
+            from bcg_tpu_torch.parallel.sharding import ModelParallel
+
+            par = ModelParallel(self.spec, self.mesh)
+        self.spec = dataclasses.replace(self.spec, dense_route=route, par=par)
+        self._dp, self._sp = (par.dp, par.sp) if par is not None else (1, 1)
+        # Rows the dp split could not take (a row cap below dp): each such
+        # batch runs whole on every dp rank.
+        self.dp_bypasses = 0
+        self.sp_bypasses = 0
         self.params = self._load_params(params)
         # Compute dtype follows the weights (bf16 served; the CPU parity
         # tests pass f32 weights, as the JAX engine accepts them); the KV
@@ -263,7 +313,7 @@ class TorchEngine(InferenceEngine):
         # Bytes of one cache slot of one layer: k and v, plus their two
         # scales per kv head (int8: 1-byte values, f32 scales; int4:
         # half-byte values, bf16 scales — half the int8 slot).
-        Hkv, Dh = self.spec.num_kv_heads, self.spec.head_dim
+        Hkv, Dh = (par.kv_heads if par is not None else self.spec.num_kv_heads), self.spec.head_dim
         self._kv_slot_bytes = {"int8": Hkv * (2 * Dh + 8), "int4": Hkv * (Dh + 4)}.get(
             self.kv_cache_dtype, Hkv * Dh * 4)
 
@@ -414,10 +464,22 @@ class TorchEngine(InferenceEngine):
                 f"quantization={config.quantization!r}: expected None, "
                 "'int8' or 'int4'"
             )
-        for name in ("tensor_parallel_size", "data_parallel_size",
-                     "sequence_parallel_size"):
-            if int(getattr(config, name, 1)) > 1:
-                raise _not_ported(f"{name}={getattr(config, name)}", "A13")
+        sizes = TorchEngine._mesh_sizes(config)
+        if any(sizes):
+            # A13a: the default engine over a mesh; every other knob with it
+            # is A13b.
+            others = [knob for knob, on in (
+                (f"quantization={config.quantization!r}", config.quantization is not None),
+                (f"kv_cache_dtype={kv_raw!r}", kv_raw != "bfloat16"),
+                ("paged_kv", bool(getattr(config, "paged_kv", False))
+                 or env_flag("BCG_TPU_PAGED_KV")),
+                ("decode_fast_forward", bool(getattr(config, "decode_fast_forward", False))),
+                ("spec_decode", bool(getattr(config, "spec_decode", False))
+                 or env_flag("BCG_TPU_SPEC")),
+            ) if on]
+            if others:
+                mesh_knobs = ", ".join(sizes)
+                raise _not_ported(f"{', '.join(others)} with {mesh_knobs}", "A13b")
         # The port always runs its hand-written kernels: the plain
         # versions serve CPU tensors only, never a CUDA batch.
         if config.attention_impl not in ("auto", "pallas"):
@@ -435,6 +497,13 @@ class TorchEngine(InferenceEngine):
                 "the fused sampler kernel ('auto')"
             )
         return kv_raw
+
+    @staticmethod
+    def _mesh_sizes(config) -> List[str]:
+        """The mesh knobs set above 1, as ``name=value``."""
+        return [f"{n}={getattr(config, n)}" for n in
+                ("tensor_parallel_size", "data_parallel_size", "sequence_parallel_size")
+                if int(getattr(config, n, 1) or 1) > 1]
 
     def _load_params(self, params):
         """The served weight tree (the JAX engine's boot section, without
@@ -457,22 +526,29 @@ class TorchEngine(InferenceEngine):
         mode = self.quantization
         transform = quantize_leaf_transform(self.spec, mode) if mode else None
         if params is None and self._ckpt_dir is None:
-            from bcg_tpu_torch.models.convert import init_params
+            from bcg_tpu_torch.models.loader import init_random_params_sharded
 
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
-            params = init_params(self.spec, gen, self.device, leaf_transform=transform)
+            params = init_random_params_sharded(self.spec, gen, self.mesh, self.device,
+                                                leaf_transform=transform)
         elif params is None:
             from bcg_tpu_torch.models import artifact
             from bcg_tpu_torch.models.loader import load_checkpoint_params
 
             if artifact.artifact_mode(self._ckpt_dir) is not None:
+                if self.mesh is not None:
+                    raise _not_ported("a pre-quantized artifact under a mesh", "A13b")
                 params = artifact.load_quantized_artifact(
                     self.spec, self._ckpt_dir, mode, self.device)
             else:
                 params = load_checkpoint_params(
                     self.spec, self.config.model_name, self.device,
-                    leaf_transform=transform, ckpt_dir=self._ckpt_dir)
+                    leaf_transform=transform, ckpt_dir=self._ckpt_dir, mesh=self.mesh)
+        elif self.mesh is not None:
+            from bcg_tpu_torch.parallel.sharding import shard_params
+
+            params = shard_params(params, self.spec, self.mesh)
         else:
             wq = params["layers.0.wq"]
             tree_mode = ("int4" if is_int4(wq) else "int8") if is_quantized(wq) else None
@@ -600,9 +676,16 @@ class TorchEngine(InferenceEngine):
             p: n for p, n in self._prefix_lens_memo.items() if p in live
         }
 
-    def _new_cache(self, batch: int, length: int):
+    def _new_cache(self, batch: int, length: int, seq_split: bool = False):
+        """A zero cache; ``seq_split``: a batch's decode cache, this rank's
+        slice of the sequence under ``sp`` (prefix entries stay whole on
+        every rank, so any batch cache can take them)."""
         return init_kv_cache(self.spec, batch, length, self.kv_dtype, self.device,
-                             quantized=self.kv_quantized)
+                             quantized=self.kv_quantized, seq_split=seq_split)
+
+    def _sp_align(self, S: int) -> int:
+        """Cache length aligned to ``sp`` (the slices must be equal)."""
+        return S + (-S) % self._sp
 
     def _store_entry(self, key, entry) -> None:
         entry["bytes"] = entry["kv"].nbytes()
@@ -656,19 +739,25 @@ class TorchEngine(InferenceEngine):
         return entry
 
     def _assemble_cache(self, entries: List[Dict[str, Any]], gid: np.ndarray,
-                        tail: int):
+                        tail: int, seq_split: bool = False):
         """Batch cache ``[B, P + tail]`` whose slots ``[0, Pb)`` of row ``i``
         hold entry ``gid[i]``'s prefix KV (zero past each entry's bucket
         and in the tail; int8 scales one there) — one copy per distinct
-        entry, all layers at once, in either cache layout."""
+        entry, all layers at once, in either cache layout.  An sp-split
+        cache (``seq_split``) takes the entry slots its slice holds."""
         P = max(e["bucket"] for e in entries)
-        cache = self._new_cache(len(gid), P + tail)
+        cache = self._new_cache(len(gid), P + tail, seq_split)
+        lo = cache.seq0 or 0
+        sd = cache.seq_dim
         for u, e in enumerate(entries):
+            n = min(e["bucket"], lo + cache.buf.shape[sd]) - lo
+            if n <= 0:
+                continue
             rows = torch.as_tensor(np.nonzero(gid == u)[0], device=self.device)
             src = e["kv"]
-            cache.buf.narrow(cache.seq_dim, 0, e["bucket"])[:, :, rows] = src.buf
+            cache.buf.narrow(sd, 0, n)[:, :, rows] = src.buf.narrow(sd, lo, n)
             if cache.quantized:
-                cache.scales.narrow(cache.seq_dim, 0, e["bucket"])[:, :, rows] = src.scales
+                cache.scales.narrow(sd, 0, n)[:, :, rows] = src.scales.narrow(sd, lo, n)
         return cache
 
     def _get_core_entry(self, prefix: str, core: str,
@@ -806,7 +895,8 @@ class TorchEngine(InferenceEngine):
         B = len(rows)
         gid = np.array([uniq.index((p, c)) for p, c, _ in rows], dtype=np.int32)
         tail = Ls + (decode_slots if decode_slots is not None else max_new + 1)
-        cache = self._assemble_cache([entries[k] for k in uniq], gid, tail)
+        tail = self._sp_align(P + tail) - P
+        cache = self._assemble_cache([entries[k] for k in uniq], gid, tail, seq_split=True)
         prefix_valid = np.zeros((B, P), dtype=bool)
         prefix_lens = np.zeros((B,), dtype=np.int32)
         prefix_toks = []
@@ -1040,12 +1130,27 @@ class TorchEngine(InferenceEngine):
         has_prefix = prefix_valid is not None
         P = prefix_valid.shape[1] if has_prefix else 0
         if not C or L <= C:
+            if has_prefix and cache.seq0 is not None:
+                # The suffix is ONE chunk against the cached prefix, written
+                # into the sp-split cache and attending all of it slice by
+                # slice (prefill_chunk_at's ring branch, as the JAX engine).
+                return prefill_chunk_at(
+                    self.params, self.spec, self._dev(tokens, torch.long),
+                    self._dev(valid), cache, self._dev(prefix_valid),
+                    self._dev(prefix_lens, torch.int32), P,
+                )
             if has_prefix:
                 return prefill_with_prefix(
                     self.params, self.spec, self._dev(tokens, torch.long),
                     self._dev(valid), cache, self._dev(prefix_valid),
                     self._dev(prefix_lens, torch.int32),
                 )
+            if self._sp > 1:
+                if L % self._sp == 0:
+                    return prefill_sp(self.params, self.spec, self._dev(tokens, torch.long),
+                                      self._dev(valid), cache)
+                # An off-ladder window: every rank prefills the whole prompt.
+                self._note_sp_bypass(f"prompt window L={L} not divisible by sp={self._sp}")
             return prefill(self.params, self.spec, self._dev(tokens, torch.long),
                            self._dev(valid), cache)
         B = tokens.shape[0]
@@ -1067,6 +1172,33 @@ class TorchEngine(InferenceEngine):
                 self._dev(pos_off.astype(np.int32)), P + start,
             )
         return first_logits, cache
+
+    def _note_sp_bypass(self, reason: str) -> None:
+        """Count (and warn once about) a prefill that could not go round
+        the ``sp`` ring: every rank computes it whole instead."""
+        self.sp_bypasses += 1
+        obs_counters.inc("engine.sp_bypasses")
+        if self.sp_bypasses == 1:
+            warnings.warn(f"sequence-parallel prefill bypassed: {reason}; further "
+                          "bypasses are counted in engine.sp_bypasses", stacklevel=3)
+
+    def _dp_rows(self, B: int) -> slice:
+        """This rank's rows of a batch padded to a multiple of ``dp``."""
+        n = B // self._dp
+        return slice(self.spec.par.dp_rank * n, (self.spec.par.dp_rank + 1) * n)
+
+    def _dp_mult(self, cap) -> int:
+        """The dp padding multiple a row cap allows: below dp, the batch
+        runs whole on every dp rank (counted and warned once)."""
+        if self._dp == 1 or not cap or self._dp <= cap:
+            return self._dp
+        self.dp_bypasses += 1
+        obs_counters.inc("engine.dp_bypasses")
+        if self.dp_bypasses == 1:
+            warnings.warn(f"data-parallel batch split bypassed: row cap {cap} below "
+                          f"dp={self._dp}; further bypasses are counted in "
+                          "engine.dp_bypasses", stacklevel=3)
+        return 1
 
     def _prefill_paged_possibly_chunked(self, tokens, valid, Ls: int, cache,
                                         prefix_valid, prefix_lens):
@@ -1266,7 +1398,7 @@ class TorchEngine(InferenceEngine):
         )
 
     def _decode_batch(self, parts, batch, real_B, temps, budgets, top_p,
-                      free: bool = False) -> List[str]:
+                      free: bool = False, dp_rows: Optional[slice] = None) -> List[str]:
         """:meth:`_decode_batch_impl`, and the call's ``finally``: credit
         the call's KV ledger accounts; for a paged engine, free the call's
         private blocks and unpin its radix paths — or, after a failure
@@ -1276,7 +1408,7 @@ class TorchEngine(InferenceEngine):
         (``runtime.metrics.publish_kv_pool``)."""
         try:
             return self._decode_batch_impl(parts, batch, real_B, temps, budgets, top_p,
-                                           free=free)
+                                           free=free, dp_rows=dp_rows)
         finally:
             if self._paged is not None:
                 if self._paged_dirty:
@@ -1299,7 +1431,7 @@ class TorchEngine(InferenceEngine):
                 obs_ledger.reconcile()
 
     def _decode_batch_impl(self, parts, batch, real_B, temps, budgets, top_p,
-                           free: bool = False) -> List[str]:
+                           free: bool = False, dp_rows: Optional[slice] = None) -> List[str]:
         """Prefill + guided decode for a batch-padded list of
         ``(prefix, core, suffix)`` prompt parts (the JAX engine's
         ``_decode_batch_impl``): over the block pool for a paged engine,
@@ -1308,7 +1440,10 @@ class TorchEngine(InferenceEngine):
         supersedes fast-forward; fast-forward skips the free path, whose
         permissive automaton has no forced chains.  Traced as the
         ``engine.prefill`` and ``engine.decode`` spans; the batch's KV
-        bytes are charged to the ledger until the call ends."""
+        bytes are charged to the ledger until the call ends.  ``dp_rows``:
+        ``parts`` are this rank's rows of the padded batch, whose outputs
+        are gathered over ``dp`` after the loop (``real_B`` counts the
+        whole batch's real rows)."""
         B = len(parts)
         max_new = max(budgets)
         use_spec = self.spec_decode
@@ -1319,7 +1454,8 @@ class TorchEngine(InferenceEngine):
             decode_slots = _ff_decode_slots(max_new)
         else:
             decode_slots = max_new + 1
-        self._check_kv_budget(B, budgets, decode_slots)
+        self._check_kv_budget(B * (self._dp if dp_rows is not None else 1), budgets,
+                              decode_slots)
         t0 = time.perf_counter()
         paged = self._paged is not None
         with obs_tracer.span("engine.prefill", args={"rows": B}):
@@ -1369,8 +1505,8 @@ class TorchEngine(InferenceEngine):
             elif not paged:
                 full_prompts = [p + c + t for p, c, t in parts]
                 tokens, valid, L = self._prepare_batch(full_prompts, budgets)
-                S = L + decode_slots
-                cache = self._new_cache(B, S)
+                S = self._sp_align(L + decode_slots)
+                cache = self._new_cache(B, S, seq_split=True)
                 first_logits, cache = self._prefill_possibly_chunked(tokens, valid, L, cache)
                 valid_mask = np.zeros((B, S), dtype=bool)
                 valid_mask[:, :L] = valid
@@ -1418,6 +1554,9 @@ class TorchEngine(InferenceEngine):
             else:
                 out, steps = self._decode_loop(*loop_args, entry=loop_entry)
             self._paged_dirty = False
+            if dp_rows is not None:
+                out = all_gather(out, self.mesh, "dp", dim=0)
+                steps = all_reduce(steps.clone(), self.mesh, "dp", op="max")
             out_np = self._read_back("decode_readback", loop_entry, out)
         steps = int(self._read_back("steps_readback", loop_entry, steps))
         sampler_launches = sample_rows.launches - sampler_launches
@@ -1469,7 +1608,7 @@ class TorchEngine(InferenceEngine):
         return texts
 
     def _decode_padded(self, parts, batch, real_B, temps, budgets, top_p,
-                       free: bool = False) -> List[str]:
+                       free: bool = False, dp_rows: Optional[slice] = None) -> List[str]:
         """:meth:`_decode_batch` of a padded batch, its padded size noted as
         a shape signature (``pad_batch``, obs/compile.py).  Nothing is
         compiled per shape here: the one-time costs of a new size (plan
@@ -1479,7 +1618,7 @@ class TorchEngine(InferenceEngine):
         obs_compile.note_shape("pad_batch", (len(parts),), names=("batch",))
         with obs_compile.time_block("pad_batch"):
             return self._decode_batch(parts, batch, real_B, temps, budgets, top_p,
-                                      free=free)
+                                      free=free, dp_rows=dp_rows)
 
     def _run_guided(self, parts: List[Tuple[str, str, str]], schemas: List[Dict],
                     temperature, max_tokens, top_p: float = 1.0) -> List[str]:
@@ -1491,8 +1630,9 @@ class TorchEngine(InferenceEngine):
         derived = self._provisioned_row_cap(parts, budgets)
         if derived is not None:
             cap = min(cap, derived) if cap else derived
-        if cap and _pad_batch(n) > cap:
-            step = _chunk_size(cap)
+        mult = self._dp_mult(cap)
+        if cap and _pad_batch(n, mult) > cap:
+            step = _chunk_size(cap, mult)
             out: List[str] = []
             for i in range(0, n, step):
                 out.extend(self._run_guided(
@@ -1501,8 +1641,11 @@ class TorchEngine(InferenceEngine):
                 ))
             return out
         real_B, B, parts, schemas, temps, budgets = _pad_rows(
-            parts, schemas, temps, budgets
+            parts, schemas, temps, budgets, multiple=mult
         )
+        rows = self._dp_rows(B) if mult > 1 else None
+        if rows is not None:
+            parts, schemas, temps, budgets = parts[rows], schemas[rows], temps[rows], budgets[rows]
         guides = [
             compile_schema(
                 s, self._token_bytes, vocab_id=self.tokenizer.vocab_id,
@@ -1511,7 +1654,7 @@ class TorchEngine(InferenceEngine):
             for s in schemas
         ]
         batch = GuidedBatch(guides, device=self.device)
-        return self._decode_padded(parts, batch, real_B, temps, budgets, top_p)
+        return self._decode_padded(parts, batch, real_B, temps, budgets, top_p, dp_rows=rows)
 
     def _run_free(self, full_prompts, temperature, max_tokens, top_p=1.0):
         """Unguided generation: the same loop under a permissive
@@ -1524,8 +1667,9 @@ class TorchEngine(InferenceEngine):
         derived = self._provisioned_row_cap(parts, budgets)
         if derived is not None:
             cap = min(cap, derived) if cap else derived
-        if cap and _pad_batch(n) > cap:
-            step = _chunk_size(cap)
+        mult = self._dp_mult(cap)
+        if cap and _pad_batch(n, mult) > cap:
+            step = _chunk_size(cap, mult)
             out: List[str] = []
             for i in range(0, n, step):
                 out.extend(self._run_free(
@@ -1533,9 +1677,13 @@ class TorchEngine(InferenceEngine):
                     budgets[i:i + step], top_p,
                 ))
             return out
-        real_B, B, parts, temps, budgets = _pad_rows(parts, temps, budgets)
-        batch = GuidedBatch.permissive(B, self.spec.vocab_size, device=self.device)
-        texts = self._decode_padded(parts, batch, real_B, temps, budgets, top_p, free=True)
+        real_B, B, parts, temps, budgets = _pad_rows(parts, temps, budgets, multiple=mult)
+        rows = self._dp_rows(B) if mult > 1 else None
+        if rows is not None:
+            parts, temps, budgets = parts[rows], temps[rows], budgets[rows]
+        batch = GuidedBatch.permissive(len(parts), self.spec.vocab_size, device=self.device)
+        texts = self._decode_padded(parts, batch, real_B, temps, budgets, top_p, free=True,
+                                    dp_rows=rows)
         return [t.strip() for t in texts]
 
     # ---------------------------------------------------------- memory budget
@@ -1617,8 +1765,20 @@ class TorchEngine(InferenceEngine):
         budget = self._kv_row_budget()
         if budget is None:
             return None
-        per_row = S * self._kv_slot_bytes * self.spec.num_layers
-        return max(1, int(budget // per_row)) if per_row > 0 else None
+        # dp rows (one a dp rank) of length S, at the bytes one rank holds.
+        per_rows = self._kv_bytes_per_device(self._dp, S)
+        return self._dp * max(1, int(budget // per_rows)) if per_rows > 0 else None
+
+    def _kv_bytes_per_device(self, B: int, S: int) -> int:
+        """Bytes one rank holds of a dense ``[B, S]`` cache: divided only
+        by the mesh axes that engage (``parallel/sharding.py``)."""
+        if self.mesh is None:
+            return B * S * self._kv_slot_bytes * self.spec.num_layers
+        from bcg_tpu_torch.parallel.sharding import kv_cache_bytes_per_device
+
+        shape = (B, S, self.spec.num_kv_heads, self.spec.head_dim)
+        return kv_cache_bytes_per_device(
+            self.mesh, [(shape, self.kv_dtype)] * (2 * self.spec.num_layers))
 
     def _provisioned_row_cap(self, parts, budgets: List[int]) -> Optional[int]:
         """``hbm_utilization`` as a row provisioner: caps the decoded rows
@@ -1667,7 +1827,7 @@ class TorchEngine(InferenceEngine):
         if self._mem_limit is None:
             return
         S = self.max_model_len - min(budgets) - 1 + decode_res
-        kv_total = B * S * self._kv_slot_bytes * self.spec.num_layers
+        kv_total = self._kv_bytes_per_device(B, self._sp_align(S))
         if kv_total + self._param_bytes > self.config.hbm_utilization * self._mem_limit:
             warnings.warn(
                 f"worst-case KV cache ({kv_total / 1e9:.1f} GB for B={B}, "
@@ -1801,6 +1961,9 @@ class TorchEngine(InferenceEngine):
                 "paged-KV engine (the fused round allocates dense "
                 "per-phase caches)"
             )
+        if self.mesh is not None:
+            raise MegaroundUnsupported(
+                f"multi-device mesh ({self.mesh.size()} ranks; ROADMAP A13b)")
 
         def chat_parts(system: str, user: str):
             return format_chat_parts(

@@ -10,7 +10,7 @@ projections (qk_norm=True).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 
@@ -70,6 +70,9 @@ class ModelSpec:
     tie_embeddings: bool = False
     max_position: int = 40960
     dense_route: DenseRoute = DenseRoute()
+    # The engine's mesh plan (``parallel.sharding.ModelParallel``; None:
+    # one device), carried like ``dense_route`` into every forward pass.
+    par: Optional[object] = field(default=None, compare=False, repr=False)
 
     @property
     def q_size(self) -> int:

@@ -12,17 +12,23 @@ on the card.  The names, the transposes and the tied-embedding,
 ``qk_norm`` and ``attn_bias`` rules are the JAX loader's.
 
 There is no network, so checkpoints must exist on local disk (the HF
-cache layout or a flat directory of ``*.safetensors``).  The JAX
-module's born-sharded random init and its boot-peak report are mesh
-code and wait for the mesh port (ROADMAP A13); a ``bcg-tpu/*`` preset's
-random weights come from :func:`bcg_tpu_torch.models.convert.init_params`.
+cache layout or a flat directory of ``*.safetensors``).  Under a mesh a
+load reads only the rank's slice of each tensor out of the mapping.
+
+A ``bcg-tpu/*`` preset's random weights come from
+:func:`bcg_tpu_torch.models.convert.init_params`, or under a mesh from
+:func:`init_random_params_sharded` (the same values, the rank's slices);
+:func:`boot_peak_report` accounts that boot's device memory without
+making a weight.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from bcg_tpu_torch.models.configs import ModelSpec
@@ -101,6 +107,118 @@ def hf_name(logical: str) -> str:
     return _TOP_MAP[logical]
 
 
+def _no_sharded_quantizer(mesh, leaf_transform) -> None:
+    from bcg_tpu_torch.parallel.mesh import mesh_shape
+
+    if leaf_transform is not None and mesh_shape(mesh)["tp"] > 1:
+        raise NotImplementedError(
+            "quantized weights under a tp mesh: not ported to the PyTorch engine yet "
+            "(ROADMAP A13b)")
+
+
+def init_random_params_sharded(spec: ModelSpec, generator: torch.Generator, mesh=None,
+                               device="cuda", dtype=torch.bfloat16,
+                               leaf_transform=None) -> Dict:
+    """:func:`~bcg_tpu_torch.models.convert.init_params`'s weights, this
+    rank's slices only (``parallel.sharding.shard_leaf``).  The leaves are
+    drawn one after another from one generator, so each full leaf is drawn
+    on the device (the same values, leaf for leaf, as ``init_params`` for
+    the same generator and seed), its slice kept and the rest freed: peak
+    device memory is the shards so far plus one full leaf (its f32 draw
+    and its ``dtype`` copy).  ``mesh=None`` is ``init_params``."""
+    from bcg_tpu_torch.models.convert import init_params
+    from bcg_tpu_torch.models.transformer import param_plan
+    from bcg_tpu_torch.parallel.sharding import shard_leaf
+
+    if mesh is None:
+        return init_params(spec, generator, device, dtype, leaf_transform)
+    _no_sharded_quantizer(mesh, leaf_transform)
+    params = {}
+    for name, kind, shape in param_plan(spec):
+        if kind == "dense":
+            w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+            w.mul_(1.0 / math.sqrt(shape[0]))
+            leaf = w.to(dtype)
+            del w
+        else:
+            fill = torch.ones if kind == "ones" else torch.zeros
+            leaf = fill(shape, dtype=dtype, device=device)
+        leaf = shard_leaf(name, leaf, spec, mesh, shape)
+        params[name] = leaf_transform(name, leaf) if leaf_transform and kind == "dense" else leaf
+        del leaf
+    return params
+
+
+def boot_peak_report(spec: ModelSpec, mesh=None, quantization: Optional[str] = None,
+                     dtype=torch.bfloat16) -> Dict:
+    """Per-device boot memory of :func:`init_random_params_sharded`,
+    worked out from the plan's shapes (no weight is made): the final tree
+    (each leaf at its shard's size), and the init peak — the tree so far
+    plus the current leaf's transient, which in the port is the FULL leaf
+    (its f32 draw beside its ``dtype`` copy; the JAX package draws shards
+    directly).  The port keeps no stacked layout, so there is no
+    stacking phase."""
+    from bcg_tpu_torch.models.convert import _quantized_shapes
+    from bcg_tpu_torch.models.transformer import param_plan
+    from bcg_tpu_torch.parallel.mesh import mesh_shape
+    from bcg_tpu_torch.parallel.sharding import leaf_dim
+
+    if quantization is not None:
+        _no_sharded_quantizer(mesh, quantization)
+    tp = mesh_shape(mesh)["tp"]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    parts_bytes = {"q": 1, "scale": 4, "q4": 1, "gscale": 2}
+
+    def shard(name, shape, nbytes_each):
+        dim = leaf_dim(name, spec, tp)
+        n = int(np.prod(shape, dtype=np.int64))
+        return n * nbytes_each // (tp if dim is not None else 1)
+
+    done = init_peak = max_transient = 0
+    max_leaf = None
+    for name, kind, shape in param_plan(spec):
+        full = int(np.prod(shape, dtype=np.int64))
+        if kind == "dense" and quantization is not None:
+            parts = ("q", "scale") if quantization == "int8" else ("q4", "gscale")
+            out_b = sum(shard(f"{name}.{p}", shp, parts_bytes[p])
+                        for p, shp in _quantized_shapes(parts, shape).items())
+        else:
+            out_b = shard(name, shape, itemsize)
+        transient = full * (4 + itemsize) if kind == "dense" else full * itemsize
+        init_peak = max(init_peak, done + transient + out_b)
+        if transient > max_transient:
+            max_transient, max_leaf = transient, name
+        done += out_b
+    return {
+        "final_bytes_per_device": done,
+        "init_peak_bytes_per_device": init_peak,
+        "peak_bytes_per_device": init_peak,
+        "max_init_transient_bytes": max_transient,
+        "max_init_transient_leaf": max_leaf,
+        "devices": 1 if mesh is None else mesh.size(),
+        "quantization": quantization,
+    }
+
+
+def _read_slice(handle, name: str, transposed: bool, dim: Optional[int], tp: int, r: int,
+                device) -> torch.Tensor:
+    """Rank ``r``'s slice of a checkpoint tensor along logical ``dim``
+    (the HF dim is ``1 - dim`` for a transposed ``[out, in]`` tensor),
+    read out of the file's mapping: only the slice is copied."""
+    if dim is None:
+        return handle.tensor(name, device)
+    arr = handle.numpy(name)
+    hf_dim = (1 - dim) if transposed else dim
+    n = arr.shape[hf_dim] // tp
+    idx = [slice(None)] * arr.ndim
+    idx[hf_dim] = slice(r * n, (r + 1) * n)
+    part = np.ascontiguousarray(arr[tuple(idx)])
+    tag = handle.dtype(name)
+    t = (torch.from_numpy(part.view(np.int16)).view(torch.bfloat16) if tag == "BF16"
+         else torch.from_numpy(part))
+    return t.to(device)
+
+
 def load_checkpoint_params(
     spec: ModelSpec,
     model_name: str,
@@ -108,6 +226,7 @@ def load_checkpoint_params(
     leaf_transform=None,
     ckpt_dir: Optional[str] = None,
     dtype=torch.bfloat16,
+    mesh=None,
 ) -> Dict:
     """Load every ``param_plan`` leaf of ``spec`` onto ``device``.
 
@@ -118,11 +237,19 @@ def load_checkpoint_params(
     copies.  ``ckpt_dir``: a pre-resolved checkpoint directory (skips the
     candidate walk a caller already did via :func:`find_checkpoint_dir`).
     A checkpoint without ``lm_head.weight`` loads without the head (the
-    JAX loader's rule).
+    JAX loader's rule).  Under a ``mesh`` each leaf is this rank's
+    ``tp`` slice (``parallel.sharding``), read out of the file's mapping
+    without the rest of the tensor.
     """
     from bcg_tpu_torch.models.convert import dense_leaf
     from bcg_tpu_torch.models.safetensors_np import SafetensorsFile
     from bcg_tpu_torch.models.transformer import param_plan
+    from bcg_tpu_torch.parallel.mesh import mesh_shape
+    from bcg_tpu_torch.parallel.sharding import leaf_dim
+
+    _no_sharded_quantizer(mesh, leaf_transform)
+    tp = mesh_shape(mesh)["tp"]
+    r = mesh.get_local_rank("tp") if tp > 1 else 0
 
     if ckpt_dir is None:
         ckpt_dir = require_checkpoint_dir(model_name)
@@ -150,9 +277,13 @@ def load_checkpoint_params(
             path = name_to_file[name]
             if path not in open_files:
                 open_files[path] = SafetensorsFile(path)
-            t = open_files[path].tensor(name, device)
-            if logical.split(".")[-1] in _TRANSPOSED:
+            transposed = logical.split(".")[-1] in _TRANSPOSED
+            dim = leaf_dim(logical, spec, tp)
+            t = _read_slice(open_files[path], name, transposed, dim, tp, r, device)
+            if transposed:
                 t = t.t()
+            if dim is not None:
+                shape = tuple(d // tp if i == dim else d for i, d in enumerate(shape))
             t = dense_leaf(logical, t, shape, device, dtype)
             params[logical] = leaf_transform(logical, t) if leaf_transform else t
             del t

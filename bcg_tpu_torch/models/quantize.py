@@ -1,6 +1,6 @@
 """int8 (W8A8) and grouped int4 (W4A16) weight quantization, and the
 packed-int4 KV-cache quantizer — the port of ``bcg_tpu/models/quantize.py``
-(the tensor-parallel quantizer waits for ROADMAP A13).
+(the tensor-parallel quantizer waits for ROADMAP A13b).
 
 **Weights.** ``quantization="int8"`` stores every dense matmul weight of a
 block (``wq wk wv wo w_gate w_up w_down``) and the LM head as int8 with a

@@ -34,6 +34,17 @@ PyTorch — the port of ``bcg_tpu/models/transformer.py``.
 * Where JAX returns a NEW cache, this module writes the cache IN PLACE
   and returns the same entries (see :func:`_write_cache`).  A write slot
   may be a device tensor, so the decode loops never read it back.
+* Under a mesh (``spec.par``, a :class:`~bcg_tpu_torch.parallel.sharding.
+  ModelParallel`) each rank holds its slices of the weights and computes
+  with its local head counts: column-parallel q/k/v and gate/up products,
+  row-parallel ``wo`` and ``w_down`` each followed by one f32 sum over
+  ``tp``, a vocabulary-split embedding (a masked local lookup, then a sum)
+  and LM head (local logits, then a gather along the vocabulary) — what
+  GSPMD inserts in the JAX package.  A cache split over ``sp``
+  (``KVCache.seq0``) holds one slice of the sequence: a rank writes only
+  the slots it owns, and attention over it merges the slices
+  (:mod:`bcg_tpu_torch.ops.ring_attention`); :func:`prefill_sp` sends the
+  prompt's k/v blocks round the ring.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from bcg_tpu_torch.ops.decode_attention import (
     dequantize_kv,
     quantize_kv,
 )
+from bcg_tpu_torch.parallel.collectives import all_gather, all_reduce, broadcast
 from bcg_tpu_torch.ops.paged_attention import (
     block_size as paged_block_size,
     is_paged,
@@ -79,7 +91,8 @@ class KVCache(list):
     ``[B, Hkv, S]`` (f32; int4: bf16) of ``scales``
     ``[num_layers, 2, B, Hkv, S]``."""
 
-    def __init__(self, buf: torch.Tensor, scales: Optional[torch.Tensor] = None):
+    def __init__(self, buf: torch.Tensor, scales: Optional[torch.Tensor] = None,
+                 seq0: Optional[int] = None, seq_total: Optional[int] = None):
         super().__init__(
             {"k": buf[li, 0], "v": buf[li, 1]} if scales is None else
             {"k": buf[li, 0], "v": buf[li, 1], "k_scale": scales[li, 0],
@@ -88,6 +101,10 @@ class KVCache(list):
         )
         self.buf = buf
         self.scales = scales
+        # An sp-split cache holds slots [seq0, seq0 + S_local) of a
+        # sequence of ``seq_total`` slots; None: the whole sequence.
+        self.seq0 = seq0
+        self.seq_total = seq_total if seq_total is not None else buf.shape[self.seq_dim]
 
     @property
     def quantized(self) -> bool:
@@ -241,14 +258,26 @@ def attention(q, k, v, mask, scale):
 # ------------------------------------------------------------------ forward
 
 def init_kv_cache(spec: ModelSpec, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu", quantized=False) -> KVCache:
+                  dtype=torch.bfloat16, device="cpu", quantized=False,
+                  seq_split: bool = False) -> KVCache:
     """Zero-filled dense cache (see :class:`KVCache`): bf16 ``{"k", "v"}``
     ``[B, S, Hkv, Dh]``, or with ``quantized`` (True or ``"int8"``) int8
     ``[B, Hkv, S, Dh]`` — one kv head's positions adjacent, so a kernel
     streams them with 16-byte loads — plus f32 scales ``[B, Hkv, S]``
     initialised to ones; ``"int4"``: the packed ``[B, Hkv, S, Dh/2]`` int8
-    slab with bf16 scales."""
+    slab with bf16 scales.  Under a mesh ``Hkv`` is the rank's kv heads,
+    and with ``seq_split`` (and ``sp`` > 1) the cache is this rank's
+    ``S / sp`` slots of the sequence."""
     L, Hkv, Dh = spec.num_layers, spec.num_kv_heads, spec.head_dim
+    par = spec.par
+    seq0 = total = None
+    if par is not None:
+        Hkv = par.kv_heads
+        if seq_split and par.sp > 1:
+            if max_len % par.sp:
+                raise ValueError(f"cache length {max_len} not divisible by sp={par.sp}")
+            total, max_len = max_len, max_len // par.sp
+            seq0 = par.sp_rank * max_len
     if quantized:
         dh_store, scale_dtype = Dh, torch.float32
         if quantized == "int4":
@@ -260,7 +289,8 @@ def init_kv_cache(spec: ModelSpec, batch: int, max_len: int,
             torch.ones((L, 2, batch, Hkv, max_len), dtype=scale_dtype, device=device),
         )
     shape = (batch, max_len, Hkv, Dh)
-    return KVCache(torch.zeros((L, 2) + shape, dtype=dtype, device=device))
+    return KVCache(torch.zeros((L, 2) + shape, dtype=dtype, device=device), seq0=seq0,
+                   seq_total=total)
 
 
 def kv_is_int4(entry: Dict) -> bool:
@@ -298,16 +328,25 @@ def _dequant_view(entry: Dict, dtype):
                  .to(dtype, memory_format=torch.contiguous_format) for n in ("k", "v"))
 
 
-def _write_cache(entry: Dict, k, v, pos) -> Dict:
+def _write_cache(entry: Dict, k, v, pos, seq0: Optional[int] = None) -> Dict:
     """Write fresh k/v ``[B, T, Hkv, Dh]`` into the cache entry IN PLACE at
     slots ``[pos, pos+T)`` (the JAX version returns an updated copy),
     quantizing first for an int8 entry.  ``pos`` is a Python int, a 0-d
     device tensor (the fast-forward loop's write position, written by
     ``index_copy_`` so the host never reads it), or a ``[B]`` tensor of
     per-row slots (:func:`_write_cache_rows`).  A paged entry writes
-    through its block table (:func:`~bcg_tpu_torch.ops.paged_attention.paged_write`)."""
+    through its block table (:func:`~bcg_tpu_torch.ops.paged_attention.paged_write`).
+    ``seq0``: the entry is an sp slice holding slots ``[seq0, seq0 +
+    S_local)`` (a Python-int ``pos`` only): only the slots it owns are
+    written."""
     if is_paged(entry):
         return paged_write(entry, k, v, pos)
+    if seq0 is not None:
+        lo = max(pos, seq0)
+        hi = min(pos + k.shape[1], seq0 + entry["k"].shape[1])
+        if hi <= lo:
+            return entry
+        k, v, pos = k[:, lo - pos:hi - pos], v[:, lo - pos:hi - pos], lo - seq0
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         return _write_cache_rows(entry, k, v, pos)
     T = k.shape[1]
@@ -356,12 +395,13 @@ def _write_cache_rows(entry: Dict, k, v, row_pos) -> Dict:
     return entry
 
 
-def _cache_attention(q, entry: Dict, mask, scale):
+def _cache_attention(q, entry: Dict, mask, scale, plan=None):
     """Decode-step attention over the cache through the decode kernels'
     wrappers: a paged entry through the paged kernel; a dense int4 entry
     dequantized whole to bf16 (as the JAX package does: it has no dense
     int4 kernel) and through the bf16 kernel.  q: [B, 1, H, Dh]; mask:
-    [B, S]."""
+    [B, S]; ``plan``: the bf16 kernel's split plan shape under a mesh
+    (``ModelParallel.decode_plan``)."""
     if is_paged(entry):
         return paged_decode_attention(q, entry, mask, scale)
     if kv_is_int4(entry):
@@ -370,7 +410,7 @@ def _cache_attention(q, entry: Dict, mask, scale):
     if "k_scale" in entry:
         return decode_attention_int8(q[:, 0], entry["k"], entry["v"], entry["k_scale"],
                                      entry["v_scale"], mask, scale)[:, None]
-    return decode_attention(q[:, 0], entry["k"], entry["v"], mask, scale)[:, None]
+    return decode_attention(q[:, 0], entry["k"], entry["v"], mask, scale, plan)[:, None]
 
 
 def _cache_len(cache) -> int:
@@ -411,27 +451,52 @@ def _block(
     cache_entry: Dict,        # {k, v} [B, S, Hkv, Dh]
     attn_mask: torch.Tensor,  # prefill: [B, T, hist_len+T]; decode: [B, S]
     hist_len: int = 0,        # cache slots [0, hist_len) hold a reusable prefix
+    seq0: Optional[int] = None,  # the entry is an sp slice from this slot
+    ring: Optional[str] = None,  # "prefill": x is this rank's block of the
+                                 # prompt; "cache": decode over an sp slice
+    kv_valid: Optional[torch.Tensor] = None,  # [B, T] of the block (ring prefill)
 ) -> Tuple[torch.Tensor, Dict]:
     B, T, D = x.shape
+    par = spec.par
     h = rms_norm(x, layer["attn_norm"], spec.rms_eps)
     route = spec.dense_route
     q, k, v = (dense(h, layer["wq"], route=route), dense(h, layer["wk"], route=route),
                dense(h, layer["wv"], route=route))
     if "bq" in layer:  # Qwen2-style projection biases
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    q = q.reshape(B, T, spec.num_heads, spec.head_dim)
-    k = k.reshape(B, T, spec.num_kv_heads, spec.head_dim)
-    v = v.reshape(B, T, spec.num_kv_heads, spec.head_dim)
+    # Local head counts under tp: the products' widths say them.
+    q = q.reshape(B, T, -1, spec.head_dim)
+    k = k.reshape(B, T, -1, spec.head_dim)
+    v = v.reshape(B, T, -1, spec.head_dim)
     if spec.qk_norm:
         q = rms_norm(q, layer["q_norm"], spec.rms_eps)
         k = rms_norm(k, layer["k_norm"], spec.rms_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    entry = _write_cache(cache_entry, k, v, kv_write_pos)
+    if ring == "prefill":
+        # The whole prompt's k/v, for the owners of its slots.
+        kw, vw = (all_gather(t, par.mesh, "sp", dim=1) for t in (k, v))
+        entry = _write_cache(cache_entry, kw, vw, kv_write_pos, seq0)
+    else:
+        entry = _write_cache(cache_entry, k, v, kv_write_pos, seq0)
+    sel = _kv_selector(par)
 
     scale = 1.0 / math.sqrt(spec.head_dim)
-    if T > 1 and hist_len > 0:
+    if ring == "prefill":
+        from bcg_tpu_torch.ops.ring_attention import ring_attention
+
+        attn_out = ring_attention(q, sel(k), sel(v), par.mesh, causal=True, scale=scale,
+                                  kv_valid=kv_valid)
+    elif ring == "cache":
+        if T > 1:
+            raise ValueError("a prefill into an sp-split cache goes through prefill_sp "
+                             "or prefill_chunk_at")
+        from bcg_tpu_torch.ops.ring_attention import sp_decode_attention
+
+        attn_out = sp_decode_attention(q[:, 0], sel(entry["k"]), sel(entry["v"]), attn_mask,
+                                       par.mesh, scale=scale)[:, None]
+    elif T > 1 and hist_len > 0:
         # Suffix prefill: the chunk attends over the cached prefix KV plus
         # itself.  When the chunk was just written right behind the
         # prefix and the cache holds q's dtype, the cache slots
@@ -444,43 +509,106 @@ def _block(
         else:
             hk = torch.cat([_dequant_slice(entry, "k", hist_len, q.dtype), k], dim=1)
             hv = torch.cat([_dequant_slice(entry, "v", hist_len, q.dtype), v], dim=1)
-        attn_out = attention(q, hk, hv, attn_mask, scale)
+        attn_out = attention(q, sel(hk), sel(hv), attn_mask, scale)
     elif T > 1:
         # Full prefill attends over the FRESH chunk only.
-        attn_out = attention(q, k, v, attn_mask, scale)
+        attn_out = attention(q, sel(k), sel(v), attn_mask, scale)
     else:
-        attn_out = _cache_attention(q, entry, attn_mask, scale)
-    x = x + dense(attn_out.reshape(B, T, spec.q_size), layer["wo"], route=route)
+        entry_q = entry if par is None else {"k": sel(entry["k"]), "v": sel(entry["v"])}
+        attn_out = _cache_attention(q, entry_q, attn_mask, scale,
+                                    par.decode_plan(B) if par is not None else None)
+    return _block_out(layer, spec, x, attn_out), entry
 
+
+def _row_parallel(x: torch.Tensor, w, spec, split: bool) -> torch.Tensor:
+    """``dense(x, w)`` of a row-parallel weight.  Where ``tp`` splits it,
+    each rank's partial product is taken in f32, summed over ``tp`` in
+    f32 and rounded once to the product's type — as one device's product
+    is rounded once."""
+    par = spec.par
+    if par is None or not split:
+        return dense(x, w, route=spec.dense_route)
+    if x.dtype == w.dtype == torch.bfloat16:
+        # The bf16 product's f32 accumulator itself, not its bf16 rounding.
+        x2 = x.reshape(-1, x.shape[-1])
+        part = (torch.mm(x2, w, out_dtype=torch.float32) if x.is_cuda
+                else x2.float() @ w.float()).reshape(*x.shape[:-1], w.shape[-1])
+    else:
+        part = dense(x, w, torch.float32, route=spec.dense_route)
+    return all_reduce(part, par.mesh, "tp").to(x.dtype)
+
+
+def _block_out(layer, spec, x, attn_out):
+    """The block after attention: ``wo`` and the SwiGLU MLP, each
+    row-parallel product summed over ``tp`` under a mesh."""
+    B, T = x.shape[:2]
+    route = spec.dense_route
+    par = spec.par
+    x = x + _row_parallel(attn_out.reshape(B, T, -1), layer["wo"], spec,
+                          par is not None and par.heads_split)
     h = rms_norm(x, layer["mlp_norm"], spec.rms_eps)
     gate = F.silu(dense(h, layer["w_gate"], route=route))
-    x = x + dense(gate * dense(h, layer["w_up"], route=route), layer["w_down"], route=route)
-    return x, entry
+    return x + _row_parallel(gate * dense(h, layer["w_up"], route=route), layer["w_down"],
+                             spec, par is not None and par.mlp_split)
+
+
+def _kv_selector(par):
+    """``t ->`` the kv heads this rank's q heads read (a view over heads,
+    which the kernels take), or the identity."""
+    if par is None or par.kv_sel is None:
+        return lambda t: t
+    return par.select_kv
 
 
 def _run_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask,
-                hist_len: int = 0):
+                hist_len: int = 0, ring: Optional[str] = None, kv_valid=None):
     """Apply every decoder block in order (a Python loop: PyTorch runs
     eagerly, so there is no program-size reason to scan).  A paged
-    cache's write index is worked out once for all layers."""
+    cache's write index is worked out once for all layers; over an
+    sp-split cache a decode step attends its slice (``ring="cache"``),
+    through the slice's columns of ``attn_mask``."""
     if is_paged(cache[0]):
         write_pos = paged_write_index(cache[0], x.shape[1], write_pos)
+    seq0 = getattr(cache, "seq0", None)
+    if ring is None and seq0 is not None:
+        ring = "cache"
+        attn_mask = attn_mask[..., seq0:seq0 + cache[0]["k"].shape[1]]
     for li in range(spec.num_layers):
         x, _ = _block(
             _layer(params, li), spec, x, cos, sin, write_pos, cache[li],
-            attn_mask, hist_len=hist_len,
+            attn_mask, hist_len=hist_len, seq0=seq0, ring=ring, kv_valid=kv_valid,
         )
     return x, cache
 
 
+def _embed(params, spec, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings; under a vocabulary-split ``tp`` a masked lookup
+    in the rank's rows, then one sum (exact: one rank holds each id)."""
+    par = spec.par
+    if par is None or not par.vocab_split:
+        return params["embed"][tokens]
+    table = params["embed"]
+    ids = tokens - par.tp_rank * table.shape[0]
+    own = (ids >= 0) & (ids < table.shape[0])
+    x = table[ids.clamp(0, table.shape[0] - 1)] * own[..., None].to(table.dtype)
+    return all_reduce(x.float(), par.mesh, "tp").to(table.dtype)
+
+
 def _logits(params: TransformerParams, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits; under a vocabulary-split ``tp`` the rank's columns
+    gathered along the vocabulary (every rank then holds all of them)."""
     h = rms_norm(x, params["final_norm"], spec.rms_eps)
     if "lm_head" in params:
-        return dense(h, params["lm_head"], torch.float32, route=spec.dense_route)
-    if not spec.tie_embeddings:
+        out = dense(h, params["lm_head"], torch.float32, route=spec.dense_route)
+    elif not spec.tie_embeddings:
         raise KeyError(f"params for untied model {spec.name!r} lack 'lm_head'")
-    hh, ee = _promote(h, params["embed"])
-    return (hh @ ee.T).float()
+    else:
+        hh, ee = _promote(h, params["embed"])
+        out = (hh @ ee.T).float()
+    par = spec.par
+    if par is not None and par.vocab_split:
+        out = all_gather(out, par.mesh, "tp", dim=-1)
+    return out
 
 
 def _positions(valid: torch.Tensor, offset=None) -> torch.Tensor:
@@ -502,9 +630,31 @@ def prefill(params, spec, tokens, valid, cache) -> Tuple[torch.Tensor, KVCache]:
     last-position logits ``[B, V]`` f32 and the cache."""
     positions = _positions(valid)
     cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
-    x = params["embed"][tokens]
+    x = _embed(params, spec, tokens)
     x, cache = _run_layers(params, spec, x, cos, sin, 0, cache, _chunk_mask(valid))
     return _logits(params, spec, x[:, -1:, :])[:, 0, :], cache
+
+
+def prefill_sp(params, spec, tokens, valid, cache) -> Tuple[torch.Tensor, KVCache]:
+    """Sequence-parallel full-prompt prefill (``tokens``/``valid`` ``[B,
+    L]``, left-padded, L divisible by ``sp``): each rank runs its block of
+    ``L / sp`` positions through the model, attention goes round the ring
+    (:func:`~bcg_tpu_torch.ops.ring_attention.ring_attention`), and the
+    prompt's k/v are written to the slots of ``[0, L)`` the rank's cache
+    holds.  Returns the last position's logits ``[B, V]`` (on every rank)
+    and the cache."""
+    from bcg_tpu_torch.ops.ring_attention import shard_seq
+
+    par = spec.par
+    positions = _positions(valid)
+    blk_tokens, blk_valid, blk_pos = (shard_seq(t, par.mesh) for t in (tokens, valid, positions))
+    cos, sin = rope_table(blk_pos, spec.head_dim, spec.rope_theta, spec.rope_scaling)
+    x = _embed(params, spec, blk_tokens)
+    x, cache = _run_layers(params, spec, x, cos, sin, 0, cache, None, ring="prefill",
+                           kv_valid=blk_valid)
+    # The last position lies in the last rank's block.
+    last = broadcast(x[:, -1:, :].contiguous(), par.mesh, "sp", src=par.sp - 1)
+    return _logits(params, spec, last)[:, 0, :], cache
 
 
 def prefill_with_prefix(params, spec, tokens, valid, cache, prefix_valid,
@@ -517,7 +667,7 @@ def prefill_with_prefix(params, spec, tokens, valid, cache, prefix_valid,
     cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
     hist_mask = prefix_valid[:, None, :] & valid[:, :, None]          # [B, Ls, P]
     attn_mask = torch.cat([hist_mask, _chunk_mask(valid)], dim=2)     # [B, Ls, P+Ls]
-    x = params["embed"][tokens]
+    x = _embed(params, spec, tokens)
     x, cache = _run_layers(params, spec, x, cos, sin, P, cache, attn_mask,
                            hist_len=P)
     return _logits(params, spec, x[:, -1:, :])[:, 0, :], cache
@@ -527,13 +677,22 @@ def prefill_chunk_at(params, spec, tokens, valid, cache, hist_valid,
                      pos_offset, write_pos: int) -> Tuple[torch.Tensor, KVCache]:
     """One chunk ``[B, C]`` of a chunked prefill: attends the fixed
     ``[B, H]`` history window plus itself and writes its KV at
-    ``[write_pos, write_pos+C)`` in place."""
+    ``[write_pos, write_pos+C)`` in place.  Into an sp-split cache the
+    chunk is written first and then attends the whole cache through its
+    ``[B, C, S]`` mask, slice by slice (the decode chunk's sp path)."""
     H = hist_valid.shape[1]
     positions = _positions(valid, pos_offset)
     cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
     hist_mask = hist_valid[:, None, :] & valid[:, :, None]
+    x = _embed(params, spec, tokens)
+    if getattr(cache, "seq0", None) is not None:
+        B, C = tokens.shape
+        full = torch.zeros((B, C, cache.seq_total), dtype=torch.bool, device=tokens.device)
+        full[:, :, :H] = hist_mask
+        full[:, :, write_pos:write_pos + C] = _chunk_mask(valid)
+        x, cache = _run_chunk_layers(params, spec, x, cos, sin, write_pos, cache, full)
+        return _logits(params, spec, x[:, -1:, :])[:, 0, :], cache
     attn_mask = torch.cat([hist_mask, _chunk_mask(valid)], dim=2)
-    x = params["embed"][tokens]
     x, cache = _run_layers(params, spec, x, cos, sin, write_pos, cache,
                            attn_mask, hist_len=H)
     return _logits(params, spec, x[:, -1:, :])[:, 0, :], cache
@@ -560,7 +719,7 @@ def prefill_paged(params, spec, tokens, valid, cache, prefix_valid,
     cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
     hist_mask = prefix_valid[:, None, :] & valid[:, :, None]          # [B, Ls, P]
     attn_mask = torch.cat([hist_mask, _chunk_mask(valid)], dim=2)     # [B, Ls, P+Ls]
-    x = params["embed"][tokens]
+    x = _embed(params, spec, tokens)
     x, cache = _run_layers(params, spec, x, cos, sin, P, cache, attn_mask, hist_len=P)
     return _last_valid_logits(params, spec, x, valid), cache
 
@@ -577,7 +736,7 @@ def prefill_paged_chunk_at(params, spec, tokens, valid, cache, hist_valid, pos_o
     cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
     hist_mask = hist_valid[:, None, :] & valid[:, :, None]
     attn_mask = torch.cat([hist_mask, _chunk_mask(valid)], dim=2)
-    x = params["embed"][tokens]
+    x = _embed(params, spec, tokens)
     x, cache = _run_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask,
                            hist_len=H)
     logits = _last_valid_logits(params, spec, x, valid)
@@ -591,7 +750,7 @@ def decode_step(params, spec, token, write_pos: int, seq_positions, cache,
     ``[B, S]`` ``valid_mask`` slots; returns logits ``[B, V]`` f32."""
     cos, sin = rope_table(seq_positions[:, None], spec.head_dim,
                           spec.rope_theta, spec.rope_scaling)
-    x = params["embed"][token][:, None, :]
+    x = _embed(params, spec, token)[:, None, :]
     x, cache = _run_layers(params, spec, x, cos, sin, write_pos, cache, valid_mask)
     return _logits(params, spec, x)[:, 0, :], cache
 
@@ -621,9 +780,12 @@ def _chunk_mask_at(cache_valid, chunk_valid, write_pos) -> torch.Tensor:
 def _run_chunk_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask):
     if is_paged(cache[0]):
         write_pos = paged_write_index(cache[0], x.shape[1], write_pos)
+    seq0 = getattr(cache, "seq0", None)
+    if seq0 is not None:
+        attn_mask = attn_mask[..., seq0:seq0 + cache[0]["k"].shape[1]]
     for li in range(spec.num_layers):
         x, _ = _block_chunk(_layer(params, li), spec, x, cos, sin, write_pos,
-                            cache[li], attn_mask)
+                            cache[li], attn_mask, seq0=seq0)
     return x, cache
 
 
@@ -639,7 +801,7 @@ def decode_chunk(params, spec, tokens, chunk_valid, write_pos, positions, cache,
     ``[B, V]`` f32 and the cache."""
     cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
     attn_mask = _chunk_mask_at(cache_valid, chunk_valid, write_pos)
-    x = params["embed"][tokens]
+    x = _embed(params, spec, tokens)
     x, cache = _run_chunk_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask)
     last = chunk_valid.sum(dim=1) - 1                                   # [B]
     h_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[2]))
@@ -655,36 +817,45 @@ def decode_chunk_spec(params, spec, tokens, chunk_valid, row_write_pos, position
     ``[B, K1, V]`` — position j's logits score draft token j."""
     cos, sin = rope_table(positions, spec.head_dim, spec.rope_theta, spec.rope_scaling)
     attn_mask = _chunk_mask_at(cache_valid, chunk_valid, row_write_pos)
-    x = params["embed"][tokens]
+    x = _embed(params, spec, tokens)
     x, cache = _run_chunk_layers(params, spec, x, cos, sin, row_write_pos, cache, attn_mask)
     return _logits(params, spec, x), cache
 
 
-def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask):
+def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask,
+                 seq0: Optional[int] = None):
     """Chunk decode block: write the fresh K positions into the cache, then
     attend over the WHOLE cache (prior context and the chunk itself, all
     selected by ``attn_mask`` ``[B, K, S]``) through the chunk kernels'
     wrappers (a paged entry through the paged kernel's chunk form; a
-    dense int4 entry dequantized to bf16 first)."""
+    dense int4 entry dequantized to bf16 first; an sp slice of the cache,
+    ``seq0``, through the slices' merge with ``attn_mask`` its columns)."""
     B, K, D = x.shape
+    par = spec.par
     h = rms_norm(x, layer["attn_norm"], spec.rms_eps)
     route = spec.dense_route
     q, k, v = (dense(h, layer["wq"], route=route), dense(h, layer["wk"], route=route),
                dense(h, layer["wv"], route=route))
     if "bq" in layer:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    q = q.reshape(B, K, spec.num_heads, spec.head_dim)
-    k = k.reshape(B, K, spec.num_kv_heads, spec.head_dim)
-    v = v.reshape(B, K, spec.num_kv_heads, spec.head_dim)
+    q = q.reshape(B, K, -1, spec.head_dim)
+    k = k.reshape(B, K, -1, spec.head_dim)
+    v = v.reshape(B, K, -1, spec.head_dim)
     if spec.qk_norm:
         q = rms_norm(q, layer["q_norm"], spec.rms_eps)
         k = rms_norm(k, layer["k_norm"], spec.rms_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    entry = _write_cache(cache_entry, k, v, write_pos)
+    entry = _write_cache(cache_entry, k, v, write_pos, seq0)
     scale = 1.0 / math.sqrt(spec.head_dim)
-    if is_paged(entry):
+    if seq0 is not None:
+        from bcg_tpu_torch.ops.ring_attention import sp_chunk_decode_attention
+
+        sel = _kv_selector(par)
+        attn_out = sp_chunk_decode_attention(q, sel(entry["k"]), sel(entry["v"]), attn_mask,
+                                             par.mesh, scale=scale)
+    elif is_paged(entry):
         attn_out = paged_chunk_attention(q, entry, attn_mask, scale)
     elif kv_is_int4(entry):
         ck, cv = _dequant_view(entry, q.dtype)
@@ -694,12 +865,7 @@ def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask):
                                                entry["v_scale"], attn_mask, scale)
     else:
         attn_out = chunk_decode_attention(q, entry["k"], entry["v"], attn_mask, scale)
-    x = x + dense(attn_out.reshape(B, K, spec.q_size), layer["wo"], route=route)
-
-    h = rms_norm(x, layer["mlp_norm"], spec.rms_eps)
-    gate = F.silu(dense(h, layer["w_gate"], route=route))
-    x = x + dense(gate * dense(h, layer["w_up"], route=route), layer["w_down"], route=route)
-    return x, entry
+    return _block_out(layer, spec, x, attn_out), entry
 
 
 def param_count(params: TransformerParams) -> int:

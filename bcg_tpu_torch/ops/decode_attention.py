@@ -310,17 +310,23 @@ def _plan(kernel: str, layout: int, dev: int, B: int, Hkv: int, S: int, rows: in
     return plan(*first) if bs else first
 
 
-def _split_for(q, Hkv, S, M, kernel="decode_attention"):
+def _split_for(q, Hkv, S, M, kernel="decode_attention", plan=None):
     """The split plan of a call with q ``[B, H, Dh]`` (one step) or ``[B,
     Kq, H, Dh]`` on a CUDA device: rows = Kq times the group, ``M`` mask
-    rows (B3a's kernel by default)."""
+    rows (B3a's kernel by default).  ``plan``: the ``(batch, kv heads)``
+    to plan the split for, where not the call's own — a mesh rank plans
+    its rows and heads as the whole batch's, so its splits, and so its
+    outputs, are one device's bit for bit (the split count moves a
+    bf16 decode step's output by more than the sums' order does)."""
     Kq = q.shape[1] if q.dim() == 4 else 1
-    return _plan(kernel, 0, q.device.index, q.shape[0], Hkv, S, Kq * (q.shape[-2] // Hkv), M)
+    B, Hp = plan if plan is not None else (q.shape[0], Hkv)
+    return _plan(kernel, 0, q.device.index, B, Hp, S, Kq * (q.shape[-2] // Hkv), M)
 
 
-def decode_attention_cuda(q, k, v, mask, scale):
+def decode_attention_cuda(q, k, v, mask, scale, plan=None):
     """Launch ``csrc/decode_attention.cu`` on the current stream: one
-    launch, the window split as :func:`decode_split_plan` says."""
+    launch, the window split as :func:`decode_split_plan` says (for the
+    ``plan`` shape where given, :func:`_split_for`)."""
     B, H, Dh = q.shape
     m3 = _mask3(mask)
     _check(q, k, v, m3)
@@ -328,7 +334,7 @@ def decode_attention_cuda(q, k, v, mask, scale):
     fn = _build.entry("decode_attention", "bcg_decode_attention", _ARGTYPES)
     S, Hkv = k.shape[1], k.shape[2]
     M = m3.shape[1]
-    n_split, split_len = _split_for(q, Hkv, S, M)
+    n_split, split_len = _split_for(q, Hkv, S, M, plan=plan)
     part_ptr, count_ptr = split_buffers(q, Hkv, n_split, H // Hkv)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m3.data_ptr(), out.data_ptr(),
@@ -339,13 +345,13 @@ def decode_attention_cuda(q, k, v, mask, scale):
     return out
 
 
-def decode_attention(q, k, v, mask, scale):
+def decode_attention(q, k, v, mask, scale, plan=None):
     """Decode attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors (``plan``: :func:`_split_for`'s)."""
     decode_attention.calls += 1
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, mask, scale)
-    return decode_attention_cuda(q, k, v, mask, scale)
+    return decode_attention_cuda(q, k, v, mask, scale, plan)
 
 
 decode_attention.launches = 0

@@ -1,10 +1,11 @@
-"""Parallelism: the single-device game-step bodies of the fused round.
-
-The port of ``bcg_tpu/parallel/``, so far only the dense, mesh-free part
-of ``game_step.py`` that the fused mega-round runs
-(:mod:`bcg_tpu_torch.parallel.game_step`).  Meshes, weight sharding,
-multi-process initialisation and the SPMD exchange collectives are
-ROADMAP A13.
+"""Parallelism over ``torch.distributed`` — the port of
+``bcg_tpu/parallel/``: the ``("dp", "tp", "sp")`` mesh of ranks
+(:mod:`~bcg_tpu_torch.parallel.mesh`), joining and starting worlds
+(:mod:`~bcg_tpu_torch.parallel.distributed`), the collectives each mesh
+dimension needs (:mod:`~bcg_tpu_torch.parallel.collectives`), weight and
+cache layouts (:mod:`~bcg_tpu_torch.parallel.sharding`), and the game
+step's dense and SPMD forms (:mod:`~bcg_tpu_torch.parallel.game_step`).
+``bcg_tpu/parallel/compat.py`` (a JAX version shim) has no counterpart.
 """
 
 from bcg_tpu_torch.parallel.game_step import (

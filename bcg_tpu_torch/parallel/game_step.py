@@ -7,9 +7,14 @@ These are the bodies the fused mega-round program runs
 to neighbours" is a static receiver mask over the proposal vector (or
 per-receiver proposal matrix), vote counting and the consensus check
 are reductions over the agent axis.  Semantics match the host game
-exactly (tested against the JAX package).  The SPMD forms over a mesh
-(``exchange_values`` through ``shard_agents``, ``:164-391``) are ROADMAP
-A13 and are not here.
+exactly (tested against the JAX package).
+
+The SPMD forms (``exchange_values`` through ``shard_agents``,
+``:164-391``) run the same bodies over the agents' split across the
+mesh's ``dp`` ranks: each rank passes its own agents' rows (the slice
+:func:`shard_agents` gives it) and the collectives of
+:mod:`bcg_tpu_torch.parallel.collectives` supply the rest.  Without a
+mesh (or at dp = 1) they are the dense forms.
 
 Value conventions: ``value < 0`` encodes abstention (no proposal);
 votes are ints {1: stop, 0: continue, -1: abstain}.
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+
+from bcg_tpu_torch.parallel.collectives import all_gather, all_reduce, axis_rank, axis_size
 
 
 def _masked_receive(all_vals: torch.Tensor, mask_rows: torch.Tensor) -> torch.Tensor:
@@ -149,3 +156,88 @@ def check_consensus_dense(
         "consensus_value": ref,
         "agreement_pct": agreement,
     }
+
+
+# ------------------------------------------------------------ SPMD forms
+
+
+def exchange_values(
+    values: torch.Tensor,         # [n/dp] int32: this rank's agents, -1 = abstain
+    neighbor_mask: torch.Tensor,  # [n/dp, n] bool: this rank's receiver rows
+    mesh,
+    axis_name: str = "dp",
+) -> torch.Tensor:
+    """Neighbour-masked all-gather: every rank's values gathered, then
+    this rank's receiver rows masked — row i holds agent j's value if j
+    is i's neighbour AND j proposed, else -1.  Returns ``[n/dp, n]``."""
+    return _masked_receive(all_gather(values, mesh, axis_name), neighbor_mask)
+
+
+def exchange_proposals(
+    proposals: torch.Tensor,     # [n, n/dp] int32: this rank's sender columns
+    receiver_mask: torch.Tensor,  # [n/dp, n] bool: this rank's receiver rows
+    mesh,
+    axis_name: str = "dp",
+) -> torch.Tensor:
+    """Per-receiver (equivocation-capable) form of
+    :func:`exchange_values`: each rank owns its senders' COLUMNS of
+    per-receiver values; the columns are gathered and this rank's
+    receiver rows masked.  Returns ``[n/dp, n]``."""
+    full = all_gather(proposals, mesh, axis_name, dim=1)
+    rows = receiver_mask.shape[0]
+    local = full.narrow(0, axis_rank(mesh, axis_name) * rows, rows)
+    return _masked_receive_matrix(local, receiver_mask)
+
+
+def tally_votes(votes: torch.Tensor, mesh, axis_name: str = "dp") -> Dict[str, torch.Tensor]:
+    """:func:`tally_votes_dense` of every rank's votes (``[n/dp]`` here):
+    the three counts summed over ``dp``."""
+    counts = torch.stack([(votes == 1).sum(), (votes == 0).sum(), (votes == -1).sum()])
+    stop, cont, abstain = all_reduce(counts, mesh, axis_name)
+    total = stop + cont + abstain
+    return {
+        "stop": stop,
+        "continue": cont,
+        "abstain": abstain,
+        "terminate": stop * 3 >= total * 2,
+        "half_stop": stop * 2 >= total,
+    }
+
+
+def check_consensus_spmd(
+    values: torch.Tensor,          # [n/dp] int32
+    is_byzantine: torch.Tensor,    # [n/dp] bool
+    initial_values: torch.Tensor,  # [n/dp] int32
+    mesh,
+    axis_name: str = "dp",
+) -> Dict[str, torch.Tensor]:
+    """:func:`check_consensus_dense` over every rank's agents (gathered)."""
+    gathered = [all_gather(t, mesh, axis_name) for t in (values, is_byzantine, initial_values)]
+    return check_consensus_dense(*gathered)
+
+
+def spmd_round_arrays(
+    proposals: torch.Tensor,      # [n/dp] int32, -1 abstain
+    votes: torch.Tensor,          # [n/dp] int32 {1, 0, -1}
+    neighbor_mask: torch.Tensor,  # [n/dp, n] bool
+    is_byzantine: torch.Tensor,
+    initial_values: torch.Tensor,
+    mesh,
+    axis_name: str = "dp",
+) -> Tuple[torch.Tensor, Dict, Dict]:
+    """One post-decision round: exchange, tally and consensus check."""
+    received = exchange_values(proposals, neighbor_mask, mesh, axis_name)
+    tally = tally_votes(votes, mesh, axis_name)
+    consensus = check_consensus_spmd(proposals, is_byzantine, initial_values, mesh, axis_name)
+    return received, tally, consensus
+
+
+def shard_agents(n_agents: int, mesh, axis_name: str = "dp") -> slice:
+    """This rank's agents: an equal slice of ``n_agents`` along
+    ``axis_name`` (the indivisible case raises)."""
+    d = axis_size(mesh, axis_name)
+    if n_agents % d:
+        raise ValueError(f"{n_agents} agents not divisible by {axis_name}={d}")
+    per = n_agents // d
+    r = axis_rank(mesh, axis_name)
+    return slice(r * per, (r + 1) * per)

@@ -25,14 +25,17 @@ host-exchange path and the fused mega-round (``AgentConfig.megaround`` /
 ``BCG_TPU_MEGAROUND``, with the reference's warn-once lockstep fallback
 for configurations that cannot fuse), with their observability hooks
 (the round span, the per-round host-sync window, the profiler capture
-window, the game-event stream, the fleet round watermark).  The SPMD
-exchange (ROADMAP A13) is not ported yet, and configuring it raises
-``NotImplementedError`` instead of being ignored.  Game results do not
-depend on the hooks.
+window, the game-event stream, the fleet round watermark), and the SPMD
+value exchange (``NetworkConfig.spmd_exchange``): one all-gather over the
+engine mesh's ``dp`` ranks (``parallel/game_step.py``).  Under a mesh
+every rank plays the same game and rank 0 alone writes the result files,
+log, checkpoints, plots and game events.  Game results do not depend on
+the hooks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import os
 import warnings
@@ -120,11 +123,12 @@ class BCGSimulation:
             from bcg_tpu_torch.scenarios import apply_scenario
 
             self.config = apply_scenario(self.config, scenario_name)
-        if self.config.network.spmd_exchange:
-            raise NotImplementedError(
-                "spmd_exchange: the SPMD value exchange is not ported yet "
-                "(ROADMAP A13)"
-            )
+        # Every rank of a mesh plays the same game; rank 0 alone writes.
+        self._writer = obs_fleet.process_index() == 0
+        if not self._writer:
+            self.config = dataclasses.replace(self.config, metrics=dataclasses.replace(
+                self.config.metrics, save_results=False, generate_plots=False,
+                checkpoint_every_round=False))
         # Resolved adversary strategy (scenarios/strategies.py), or None
         # for the reference's single disrupt persona.
         self._strategy = None
@@ -168,6 +172,16 @@ class BCGSimulation:
         num_agents = game_cfg.num_honest + game_cfg.num_byzantine
         self.topology = build_topology(num_agents, self.config.network)
         comm_cfg = self.config.communication
+        if self.config.network.spmd_exchange and comm_cfg.protocol_type != "a2a_sim":
+            # The SPMD path exchanges values via one all_gather and never
+            # touches the host protocol — a lossy channel configured with
+            # it would be silently ignored (drops/delays never applied).
+            raise ValueError(
+                f"spmd_exchange bypasses the host protocol; "
+                f"protocol_type={comm_cfg.protocol_type!r} would have no "
+                "effect. Use the host exchange path for unreliable-channel "
+                "experiments."
+            )
         protocol = create_protocol(
             comm_cfg.protocol_type,
             num_agents=num_agents,
@@ -207,7 +221,10 @@ class BCGSimulation:
         # default path — every emission site below is one `is not None`
         # check, so the disabled round loop carries no recorder cost,
         # no sink thread, and no game.* registry entries.
-        self._recorder = obs_game_events.maybe_recorder(self)
+        self._recorder = obs_game_events.maybe_recorder(self) if self._writer else None
+        # SPMD value-exchange path (NetworkConfig.spmd_exchange): the
+        # static topology mask, built lazily.
+        self._spmd_mask_np = None
         # Host-protocol-equivalent message accounting of the exchanges
         # that bypass the host protocol (the fused round's deliveries).
         self._spmd_message_count = 0
@@ -640,76 +657,83 @@ class BCGSimulation:
                     self.logger.log(f"  {aid}: -> {int(round(new_value))}")
 
         # 2 + 3. Broadcast / Receive
-        self.logger.log("[Broadcast Phase]")
-        lo, hi = self.config.game.value_range
-        equivocating = self._equivocation_active()
-        with self.profiler.phase("broadcast"):
-            for aid, agent in self.agents.items():
-                proposed = self.game.agents[aid].proposed_value
-                if proposed is None:
-                    self.logger.log(f"  {aid}: (abstaining, no broadcast)")
-                    continue
-                reasoning = (
-                    agent.last_reasoning
-                    or f"Proposing value: {int(proposed)}"
-                )
-                if equivocating and agent.is_byzantine:
-                    # Equivocation: one 'broadcast', receiver-addressed
-                    # variants — each neighbour gets the deterministic
-                    # per-receiver spread of the base proposal (the
-                    # same arithmetic the SPMD and fused exchanges
-                    # apply), under ONE timestamp so inbox ordering and
-                    # message accounting match the honest broadcast.
-                    sender_idx = self.network.agent_id_to_index[aid]
-                    decisions = {
-                        nbr: Decision(
-                            type=DecisionType.VALUE.value,
-                            value=int(
-                                equivocation_value(
-                                    int(proposed), nbr, lo, hi
-                                )
-                            ),
+        if self.config.network.spmd_exchange:
+            self.logger.log("[Broadcast/Receive Phase - SPMD all_gather]")
+            # One collective covers both host phases; timed as a single
+            # "exchange" phase (broadcast/receive split has no meaning here).
+            with self.profiler.phase("exchange"):
+                self._broadcast_receive_spmd()
+        else:
+            self.logger.log("[Broadcast Phase]")
+            lo, hi = self.config.game.value_range
+            equivocating = self._equivocation_active()
+            with self.profiler.phase("broadcast"):
+                for aid, agent in self.agents.items():
+                    proposed = self.game.agents[aid].proposed_value
+                    if proposed is None:
+                        self.logger.log(f"  {aid}: (abstaining, no broadcast)")
+                        continue
+                    reasoning = (
+                        agent.last_reasoning
+                        or f"Proposing value: {int(proposed)}"
+                    )
+                    if equivocating and agent.is_byzantine:
+                        # Equivocation: one 'broadcast', receiver-addressed
+                        # variants — each neighbour gets the deterministic
+                        # per-receiver spread of the base proposal (the
+                        # same arithmetic the SPMD and fused exchanges
+                        # apply), under ONE timestamp so inbox ordering and
+                        # message accounting match the honest broadcast.
+                        sender_idx = self.network.agent_id_to_index[aid]
+                        decisions = {
+                            nbr: Decision(
+                                type=DecisionType.VALUE.value,
+                                value=int(
+                                    equivocation_value(
+                                        int(proposed), nbr, lo, hi
+                                    )
+                                ),
+                            )
+                            for nbr in self.topology.adjacency_list[sender_idx]
+                        }
+                        self.network.send_per_receiver(
+                            aid, round_num, phase, decisions, reasoning
                         )
-                        for nbr in self.topology.adjacency_list[sender_idx]
-                    }
-                    self.network.send_per_receiver(
-                        aid, round_num, phase, decisions, reasoning
+                        self.logger.log(
+                            f"  {aid} (Byzantine): equivocates around value "
+                            f"{int(proposed)}"
+                        )
+                        continue
+                    self.network.broadcast_message(
+                        sender_id=aid,
+                        round_num=round_num,
+                        phase=phase,
+                        decision=Decision(type=DecisionType.VALUE.value, value=int(proposed)),
+                        reasoning=reasoning,
                     )
-                    self.logger.log(
-                        f"  {aid} (Byzantine): equivocates around value "
-                        f"{int(proposed)}"
-                    )
-                    continue
-                self.network.broadcast_message(
-                    sender_id=aid,
-                    round_num=round_num,
-                    phase=phase,
-                    decision=Decision(type=DecisionType.VALUE.value, value=int(proposed)),
-                    reasoning=reasoning,
-                )
-                tag = " (Byzantine)" if agent.is_byzantine else ""
-                self.logger.log(f"  {aid}{tag}: broadcasts value {int(proposed)}")
+                    tag = " (Byzantine)" if agent.is_byzantine else ""
+                    self.logger.log(f"  {aid}{tag}: broadcasts value {int(proposed)}")
 
-        self.logger.log("[Receive Phase - Updating State]")
-        with self.profiler.phase("receive"):
-            for aid, agent in self.agents.items():
-                messages = self.network.get_messages(aid, round_num, phase)
-                proposals = [
-                    (
-                        self.network.index_to_agent_id[m.sender_id],
-                        m.decision.value,
-                        m.reasoning,
-                    )
-                    for m in messages
-                ]
-                agent.receive_proposals(proposals)
-                agent.my_value = self.game.agents[aid].proposed_value
-                if self._recorder:
-                    self._recorder.deliveries(
-                        round_num, aid, [p[0] for p in proposals],
-                        values=[int(p[1]) for p in proposals],
-                    )
-                self.logger.log(f"  {aid}: received {len(proposals)} proposals, updated state")
+            self.logger.log("[Receive Phase - Updating State]")
+            with self.profiler.phase("receive"):
+                for aid, agent in self.agents.items():
+                    messages = self.network.get_messages(aid, round_num, phase)
+                    proposals = [
+                        (
+                            self.network.index_to_agent_id[m.sender_id],
+                            m.decision.value,
+                            m.reasoning,
+                        )
+                        for m in messages
+                    ]
+                    agent.receive_proposals(proposals)
+                    agent.my_value = self.game.agents[aid].proposed_value
+                    if self._recorder:
+                        self._recorder.deliveries(
+                            round_num, aid, [p[0] for p in proposals],
+                            values=[int(p[1]) for p in proposals],
+                        )
+                    self.logger.log(f"  {aid}: received {len(proposals)} proposals, updated state")
 
         # 3.5 Round summaries + Q3 reasoning capture
         self._update_round_summaries(round_num)
@@ -819,6 +843,110 @@ class BCGSimulation:
         else:
             self._maybe_plot()  # --plots without result files still plots
         return self.game.get_statistics()
+
+    # ------------------------------------------------------------ SPMD path
+
+    def _broadcast_receive_spmd(self) -> None:
+        """Value exchange as ONE ``all_gather`` over the engine mesh's
+        ``dp`` ranks instead of the host protocol's O(n^2) per-message
+        loop (``parallel/game_step.exchange_values``; without a mesh, the
+        dense single-process form).  Each rank sends its own agents'
+        values (padded with abstaining, unconnected agents to a multiple
+        of dp) and gathers back every receiver row, so every rank applies
+        the same round.
+
+        Values ride the collective; reasoning strings (<=500 chars, the
+        A2A cap) stay host-side — they feed prompts and Q3 metrics, not
+        the consensus math.  Proposal ordering matches the A2A inbox sort
+        (by sender index), so agents see byte-identical state either way.
+        """
+        import numpy as np
+        import torch
+
+        from bcg_tpu_torch.comm.a2a_sim import truncate_reasoning
+        from bcg_tpu_torch.parallel.collectives import all_gather, axis_size
+        from bcg_tpu_torch.parallel.game_step import (
+            exchange_proposals,
+            exchange_values,
+            shard_agents,
+        )
+
+        ids = sorted(self.agents)
+        n = len(ids)
+        mesh = getattr(self.engine, "mesh", None)
+        if self._spmd_mask_np is None:
+            # Receiver view: row i holds the senders whose OUT-edges
+            # reach i — the transpose of neighbor_mask()'s mask[s, adj[s]]
+            # — matching the host protocol's broadcast_to_neighbors
+            # delivery for asymmetric custom adjacency.
+            self._spmd_mask_np = self.topology.neighbor_mask().T.copy()
+        dp = axis_size(mesh, "dp")
+        n_pad = n + (-n) % dp
+        rows = shard_agents(n_pad, mesh)
+        dev = getattr(self.engine, "device", None) if mesh is not None else None
+        mask = np.zeros((n_pad, n_pad), dtype=bool)
+        mask[:n, :n] = self._spmd_mask_np
+
+        lo = self.config.game.value_range[0]
+        encoded_np = np.full(n_pad, -1, dtype=np.int32)
+        encoded_np[:n] = [
+            (self.game.agents[a].proposed_value - lo)
+            if self.game.agents[a].proposed_value is not None
+            else -1
+            for a in ids
+        ]
+        equiv = np.zeros(n_pad, dtype=bool)
+        equiv[:n] = self._equivocators_np(ids)
+        local_mask = torch.as_tensor(mask[rows], device=dev)
+        if equiv.any():
+            # Equivocation in the ENCODED domain: with the lo-offset
+            # encoding, equivocation_value(base, i, lo, hi) becomes
+            # (enc + i) % span — receiver 0 still sees the base value
+            # and abstain columns (-1) never spread.
+            span = self.config.game.value_range[1] - lo + 1
+            matrix_np = np.where(
+                equiv[None, :] & (encoded_np[None, :] >= 0),
+                (encoded_np[None, :]
+                 + np.arange(n_pad, dtype=np.int32)[:, None]) % span,
+                np.broadcast_to(encoded_np[None, :], (n_pad, n_pad)),
+            ).astype(np.int32)
+            local = exchange_proposals(torch.as_tensor(matrix_np[:, rows], device=dev),
+                                       local_mask, mesh)
+        else:
+            local = exchange_values(torch.as_tensor(encoded_np[rows], device=dev),
+                                    local_mask, mesh)
+        received = all_gather(local, mesh, "dp").cpu().numpy()[:n, :n]
+
+        reasonings = {
+            aid: truncate_reasoning(
+                agent.last_reasoning
+                or f"Proposing value: {self.game.agents[aid].proposed_value}")
+            for aid, agent in self.agents.items()
+        }
+        mask_np = self._spmd_mask_np
+        for i, aid in enumerate(ids):
+            proposals = [
+                (ids[j], int(received[i, j]) + lo, reasonings[ids[j]])
+                for j in range(n)
+                if received[i, j] >= 0
+            ]
+            agent = self.agents[aid]
+            agent.receive_proposals(proposals)
+            agent.my_value = self.game.agents[aid].proposed_value
+            if self._recorder:
+                self._recorder.deliveries(
+                    self.game.current_round, aid, [p[0] for p in proposals],
+                    values=[p[1] for p in proposals],
+                )
+            self.logger.log(
+                f"  {aid}: received {len(proposals)} proposals (spmd), updated state"
+            )
+        # Host-protocol-equivalent accounting: one message per delivered
+        # (proposer -> neighbour) edge.
+        proposed = np.array(
+            [self.game.agents[a].proposed_value is not None for a in ids]
+        )
+        self._spmd_message_count += int((mask_np & proposed[None, :]).sum())
 
     # ------------------------------------------------------- mega-round path
 

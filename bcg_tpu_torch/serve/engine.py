@@ -47,6 +47,10 @@ class ServingEngine(InferenceEngine):
                  tenant: Optional[str] = None,
                  defer_wait_ceiling_s: Optional[float] = None,
                  **scheduler_kwargs):
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "ServingEngine over an engine on a mesh: not ported to the PyTorch "
+                "engine yet (ROADMAP A13b)")
         self._engine = engine
         self._owns_inner = owns_inner
         self._tenant = tenant

@@ -15,8 +15,8 @@ Multi-host: pass --coordinator/--num-processes/--process-id (or run
 under Cloud TPU auto-detect with --distributed) and every rank runs its
 ``jobs[rank::world]`` partition; a single-job spec instead runs
 cooperatively on the dp-across-hosts mesh.  In the PyTorch port both
-ride the process group of ``parallel/distributed.py``, which is not
-ported yet (ROADMAP A13): they raise.  ``run --device cpu`` runs the
+ride the process group of ``parallel/distributed.py``, which the sweep
+does not use yet (ROADMAP A13b): they raise.  ``run --device cpu`` runs the
 torch engines on the CPU (default: the CUDA card).
 """
 
@@ -96,7 +96,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.distributed or args.coordinator is not None:
         raise NotImplementedError(
             "--distributed/--coordinator: the multi-process group "
-            "(parallel/distributed.py) is not ported yet (ROADMAP A13)"
+            "(parallel/distributed.py) is not ported to the sweep yet (ROADMAP A13b)"
         )
     spec = sweep_spec.load_spec(args.spec)
     out_dir = args.out

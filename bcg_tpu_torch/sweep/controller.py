@@ -124,7 +124,8 @@ class SweepController:
     distinct :meth:`~bcg_tpu_torch.sweep.spec.JobSpec.engine_key` on
     ``device`` (the torch device; ``None`` means CUDA) and owned (shut
     down) by the controller.  The cooperative single-job mode rides the
-    multi-process mesh, which is not ported yet (ROADMAP A13): it raises.
+    multi-process mesh, which the sweep does not use yet (ROADMAP A13b): it
+    raises.
     """
 
     def __init__(
@@ -170,7 +171,7 @@ class SweepController:
         if self.cooperative:
             raise NotImplementedError(
                 "cooperative sweep: one game across ranks rides the "
-                "multi-process mesh, which is not ported yet (ROADMAP A13)"
+                "multi-process mesh, which is not ported yet (ROADMAP A13b)"
             )
         self._man_lock = threading.Lock()
         self._engines_lock = threading.Lock()

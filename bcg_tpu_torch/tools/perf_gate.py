@@ -29,8 +29,8 @@ Where the port measures a metric another way, the scenario says so:
 * ``hlo`` runs :mod:`bcg_tpu_torch.tools.census_gate` in a subprocess.
 
 The fleet scenario and its ``straggler-off`` injection are not here: its
-worker joins a two-process cluster, which needs the port's
-``parallel/distributed.py`` (ROADMAP A13).
+worker joins a two-process cluster through the port's
+``parallel/distributed.py``; it waits for ROADMAP A13b.
 
 Exit status: 0 green, 2 findings (a metric outside its band, a measured
 metric with no entry, a stale entry), 1 usage.  The baseline is

@@ -19,7 +19,7 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    then the same with int8 and int4 weights over a bf16 cache (int4
    through B5, held to the CPU run with bf16 leaves).
 4. Nine game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers
-   (P8 and P9: 12), random weights made once on the card from a seed and
+   (P2-P9: 12), random weights made once on the card from a seed and
    shared by every engine through ``TorchEngine(params=...)``), each a
    full 8 honest + 2 Byzantine game through
    ``BCGSimulation(config, engine=TorchEngine(...))``.
@@ -49,9 +49,9 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    * P9: int4 weights (W4A16 through B5), bf16 cache, plain loop, 1
      round, timed, then profiled with B5's inputs captured in the
      profiled round.
-   P8 and P9 quantize their own copies of the shared bf16 weights, cut
-   to their first 12 of 36 layers (the script's time limit; their lines
-   print ``layers``).
+   P8 and P9 quantize their own copies of the shared bf16 weights.  P2,
+   P5, P8 and P9 run the first 12 of 36 layers (the script's time limit;
+   their lines print ``layers``).
    The paged paths' lines add the pool's block counts and prefix hit
    rate and the private KV bytes of the largest batch; every line has the
    KV bytes of its largest batch (P1's: the dense cache at the same game).
@@ -209,7 +209,40 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    and B2 calls captured and held in the kernel phase as
    ``flash_prefill@P12``, ``decode_attention@P12`` and
    ``guided_sampler@P12`` (``game P12:``).
-11. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+11. P14 (after P12, before the kernel phase): tensor, sequence and data
+   parallelism (ROADMAP A13a) on the one card, as three worlds of two
+   ranks, both ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on
+   one device; every gloo collective of a CUDA tensor is staged through
+   pinned host memory), each started by
+   ``parallel.distributed.spawn_world`` with a wall limit: ``tp=2`` (mesh
+   1x2x1), ``sp=2`` (1x1x2) and ``dp=2`` (2x1x1, ``spmd_exchange`` on).
+   Each rank draws bench-8b's weights through
+   ``loader.init_random_params_sharded`` (seed 0, its slices only) and
+   keeps 12 of 36 layers (``cut_depth``'s cut); each rank's leaves must
+   checksum to the slices of the parent's shared weights.  The reference
+   is the parent's own default engine over ``cut_depth(params, 12)``: it
+   plays one greedy round of P1's 8H+2B game, and its tokens are kept.
+   Each arm plays the same round fed those tokens (teacher-forced: each
+   sampler call still runs B2 on the arm's own logits, then takes the
+   reference's token), so a near tie flipped by another order of sums
+   cannot change what follows.  Every rank's game must equal the
+   reference's (decisions, votes, the statistics), with no failed row;
+   the logits of the prefill and of decode steps 1, 2, 4, ..., 256 of each
+   guided loop (gathered over the vocabulary under tp; each rank's rows
+   under dp) must lie within ``P14_LOGIT_TOL`` relative L2 a row of the
+   reference's (the live rows whose own greedy token differed are
+   counted and printed as ``flips``).
+   Rank 0 of the tp arm
+   captures B1, B3a and B2 at the sharded shapes (16 q and 4 kv heads a
+   rank; B2 over the gathered ``[10, 151936]`` logits), held in the
+   kernel phase as ``flash_prefill@P14``, ``decode_attention@P14`` and
+   ``guided_sampler@P14``.  Prints ``game P14 <arm>:`` (failed rows,
+   the logits' spread by held call, flips, launches per rank of B1, B3a
+   and B2, a steady decode step's
+   collectives by kind, how many were staged and its time, peak memory
+   per rank, the arm's wall).  A rank's failure or a world past its limit
+   fails the run with the rank's output.
+12. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
 
@@ -737,21 +770,22 @@ def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
 # the counted game (or with ``capture_in_profile`` in the profiled round;
 # ``capture_forms``: the ones captured, if not all; ``capture=False``:
 # none; ``depth``: the layers kept, if not all).  P1 and P2 play one
-# round, P5 two (its second extends the first's radix chains); P8 and P9
-# run a third of the layers: the script's time limit is shared by all
-# twelve paths.
+# round, P5 two (its second extends the first's radix chains).  P8 and P9
+# run a third of the layers, and so do P2 and P5, the costliest of the
+# rest (100-124 s each at 36 layers), since P14 joined: the script's time
+# limit is shared by all its paths.
 PATHS = {
     "P1": dict(engine={}, rounds=1, timed=True,
                kernels=("flash_prefill", "decode_attention", "guided_sampler")),
     "P2": dict(engine=dict(kv_cache_dtype="int8", decode_fast_forward=True,
-                           guided_compact_json=True), rounds=1, timed=True,
+                           guided_compact_json=True), rounds=1, timed=True, depth=12,
                kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
     "P3": dict(engine=dict(spec_decode=True), rounds=1, timed=False,
                kernels=("flash_prefill", "chunk_decode_attention", "guided_sampler")),
     "P4": dict(engine=dict(kv_cache_dtype="int8"), rounds=1, timed=False,
                kernels=("flash_prefill", "decode_attention_int8", "guided_sampler")),
     "P5": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS), rounds=2,
-               timed=True,
+               timed=True, depth=12,
                kernels=("flash_prefill", "paged_decode_attention_bf16", "guided_sampler")),
     "P6": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS,
                            kv_cache_dtype="int4", decode_fast_forward=True,
@@ -1926,6 +1960,337 @@ def phase_p12(params):
     return counts, cap.inputs()
 
 
+# P14: the three meshes, the depth kept, the logits' limit (relative L2
+# per row against the one-rank engine, teacher-forced: every arm is fed
+# the reference's tokens), the sampler calls of each guided loop whose
+# logits are held to it (0: the prefill's), the decode step whose time and
+# collectives are printed, and a world's wall limit.  The limit is fixed,
+# 2.6 times the one-rank engine's own spread under a change of summation
+# order alone: fed its own tokens with B3a's split planned for half the
+# kv heads, it moves 0.0112-0.0117 a row at every held decode step, 0 at
+# the prefills (``python -m bcg_tpu_torch.tools.mesh_floor`` on an H100
+# 80GB HBM3 at 700 W; PERF.md).  A fault (a wrong head, a lost cache
+# write) moves a row by 0.1 or more.
+P14_ARMS = {"tp": dict(tensor_parallel_size=2), "sp": dict(sequence_parallel_size=2),
+            "dp": dict(data_parallel_size=2)}
+P14_DEPTH = 12
+P14_LOGIT_TOL = 0.03
+P14_CHECK_STEPS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256)
+P14_TIMED_STEP = 5
+P14_WORLD_LIMIT_S = 300
+P14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "p14")
+
+
+def leaf_checksums(params, chunk: int = 1 << 26):
+    """Per leaf, an exact order-free checksum of its bf16 bits (the sum of
+    the 16-bit patterns, and the sum weighted by position), computed in
+    int64 on the card ``chunk`` elements at a time."""
+    import torch
+
+    out = {}
+    for name, t in params.items():
+        flat = t.contiguous().view(torch.int16).flatten()
+        total = weighted = 0
+        for i in range(0, flat.numel(), chunk):
+            bits = flat[i:i + chunk].to(torch.int64)
+            w = (torch.arange(i, i + bits.numel(), device=bits.device, dtype=torch.int64)
+                 % 65521 + 1)
+            total += int(bits.sum())
+            weighted += int((bits * w).sum())
+        out[name] = [total, weighted]
+    return out
+
+
+class TeacherForcing:
+    """Wraps the engine's ``make_fused_sampler`` (each guided loop's
+    sampler) and ``decode_step``.  Keeps, per loop, each sampler call's
+    tokens and, at ``P14_CHECK_STEPS``, its logits (on the host), and the
+    ``engine.collective.*`` counts and time of the ``P14_TIMED_STEP``-th
+    decode step.  Given ``forced`` (another run's ``tokens``), every
+    sampler call still samples the logits it is given (B2 launches as it
+    would), then returns the forced tokens (rows ``dp_rank`` of ``dp``) and
+    the grammar states they lead to; ``flips`` counts the live rows whose
+    own greedy token differed."""
+
+    def __init__(self, forced=None, dp_rank=0):
+        from bcg_tpu_torch.engine import torch_engine as te
+
+        self.forced, self.dp_rank = forced, dp_rank
+        self.tokens, self.logits = [], []
+        self.flips = 0
+        self.steps = 0
+        self.collectives, self.step_ms = {}, None
+        self._te = te
+        self._orig = (te.make_fused_sampler, te.decode_step)
+        te.make_fused_sampler, te.decode_step = self._make_sampler, self._decode_step
+
+    def restore(self):
+        self._te.make_fused_sampler, self._te.decode_step = self._orig
+        self.tokens = [[t.cpu() for t in loop] for loop in self.tokens]
+        self.flips = int(self.flips)
+
+    def _make_sampler(self, eos_id, top_p):
+        import torch
+
+        real = self._orig[0](eos_id, top_p)
+        loop = len(self.tokens)
+        self.tokens.append([])
+        self.logits.append({})
+
+        def sample(logits, states, generator, emitted, tables, accepting, min_budget,
+                   dfa_ids, row_temp, row_budget, **kw):
+            tok, nxt = real(logits, states, generator, emitted, tables, accepting,
+                            min_budget, dfa_ids, row_temp, row_budget, **kw)
+            step = len(self.tokens[loop])
+            if step in P14_CHECK_STEPS:
+                self.logits[loop][step] = logits.float().cpu()
+            if self.forced is not None:
+                n = tok.shape[0]
+                want = self.forced[loop][step][self.dp_rank * n:(self.dp_rank + 1) * n]
+                want = want.to(tok.device)
+                self.flips = self.flips + ((tok != want) & (states >= 0)).sum()
+                # The sampler's own rule for the next grammar state.
+                nxt = tables[dfa_ids.long(), states.clamp(min=0).long(),
+                             want.long().clamp(max=logits.shape[1] - 1)]
+                nxt = torch.where(want == eos_id, torch.full_like(want, -1), nxt.to(torch.int32))
+                tok = want
+            self.tokens[loop].append(tok)
+            return tok, nxt
+
+        return sample
+
+    def _decode_step(self, *args, **kwargs):
+        import torch
+
+        from bcg_tpu_torch.obs import counters
+
+        self.steps += 1
+        if self.steps != P14_TIMED_STEP:
+            return self._orig[1](*args, **kwargs)
+        before = counters.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._orig[1](*args, **kwargs)
+        torch.cuda.synchronize()
+        self.step_ms = (time.perf_counter() - t0) * 1e3
+        self.collectives = {k.split(".", 2)[2]: v - before.get(k, 0)
+                            for k, v in counters.snapshot().items()
+                            if k.startswith("engine.collective.") and v - before.get(k, 0)}
+        return out
+
+
+def p14_rank(arm, out, forced):
+    """One rank of a P14 world (``parallel.distributed.spawn_world``): its
+    sharded weights, one greedy round of P1's game over the arm's mesh,
+    fed the reference's tokens (``forced``: a ``TeacherForcing.tokens``
+    file), and its results under ``out``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from bcg_tpu_torch.config import NetworkConfig
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.loader import init_random_params_sharded
+    from bcg_tpu_torch.parallel import distributed
+    from bcg_tpu_torch.parallel.mesh import mesh_from_engine_config
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = game_config(1, greedy=True, **P14_ARMS[arm])
+    if arm == "dp":
+        cfg = dataclasses.replace(cfg, network=NetworkConfig(spmd_exchange=True))
+    mesh = mesh_from_engine_config(cfg.engine)
+    dev = distributed.device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    full = init_random_params_sharded(spec_for_model(MODEL), gen, mesh, dev)
+    spec, params = cut_depth(full, P14_DEPTH)
+    del full
+    torch.cuda.empty_cache()   # the dropped layers go back to the card the ranks share
+    sums = leaf_checksums(params)
+    engine = TorchEngine(cfg.engine, device=dev, params=params, spec=spec, mesh=mesh)
+    del params
+    cap = Capture(("flash_prefill", "decode_attention", "guided_sampler")) \
+        if arm == "tp" and rank == 0 else None
+    rec = TeacherForcing(torch.load(forced), dp_rank=engine.spec.par.dp_rank)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+        if cap is not None:
+            cap.restore()
+    counts = launch_counts()
+    line = dict(rank=rank, failed_rows=engine.failed_rows, total_rows=engine.total_rows,
+                decode_steps=engine.total_decode_steps, peak_bytes=torch.cuda.max_memory_allocated(),
+                launches={k: counts[k] for k in ("flash_prefill", "decode_attention",
+                                                 "guided_sampler")},
+                counts=counts, step_collectives=rec.collectives, step_ms=rec.step_ms,
+                flips=rec.flips, sampler_calls=[len(loop) for loop in rec.tokens],
+                sp_bypasses=engine.sp_bypasses, dp_bypasses=engine.dp_bypasses,
+                dp_rank=engine.spec.par.dp_rank, checksums=sums,
+                game=json.loads(json.dumps(dict(stats=stats, decisions=decisions, votes=votes),
+                                           sort_keys=True, default=str)))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(line, f)
+    torch.save(rec.logits, os.path.join(out, f"logits{rank}.pt"))
+    if cap is not None:
+        torch.save(move_inputs({"P14": cap.inputs()}, "cpu")["P14"],
+                   os.path.join(out, "captured.pt"))
+    engine.shutdown()
+
+
+def phase_p14(params):
+    """P14 (see the module docstring): the parent's reference game, then the
+    three two-rank worlds, each fed its tokens and held to it.  Returns
+    rank 0 of the tp arm's launch counts and its captured kernel inputs."""
+    import shutil
+
+    import torch
+
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.parallel import distributed
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec, ref_params = cut_depth(params, P14_DEPTH)
+    cfg = game_config(1, greedy=True)
+    engine = TorchEngine(cfg.engine, device=DEVICE, params=ref_params, spec=spec)
+    rec = TeacherForcing()
+    t0 = time.perf_counter()
+    try:
+        stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
+    finally:
+        rec.restore()
+    wall = time.perf_counter() - t0
+    ref_game = json.loads(json.dumps(dict(stats=stats, decisions=decisions, votes=votes),
+                                     sort_keys=True, default=str))
+    if engine.failed_rows:
+        fail(f"P14 reference: {engine.failed_rows} rows failed")
+    print("game P14 reference: " + json.dumps(dict(
+        layers=P14_DEPTH, failed_rows=engine.failed_rows, decode_steps=engine.total_decode_steps,
+        sampler_calls=[len(loop) for loop in rec.tokens], game_seconds=wall,
+        step_ms=rec.step_ms, logit_tol=P14_LOGIT_TOL)), flush=True)
+    engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+    shutil.rmtree(P14_DIR, ignore_errors=True)
+    os.makedirs(P14_DIR)
+    forced = os.path.join(P14_DIR, "reference_tokens.pt")
+    torch.save(rec.tokens, forced)
+    counts, inputs = None, None
+    for arm, sizes in P14_ARMS.items():
+        out = os.path.join(P14_DIR, arm)
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        try:
+            distributed.spawn_world("chip_smoke:p14_rank", 2, timeout_s=P14_WORLD_LIMIT_S,
+                                    args=dict(arm=arm, out=out, forced=forced),
+                                    sys_path=[root], device_ids=[0, 0])
+        except distributed.WorldFailed as exc:
+            fail(f"P14 {arm}: {exc}")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        errors = []
+        # The weights: each rank's leaves are the slices of the shared ones.
+        tp = sizes.get("tensor_parallel_size", 1)
+        for r, res in enumerate(ranks):
+            want = leaf_checksums({n: _p14_slice(n, t, spec, tp, r)
+                                   for n, t in ref_params.items()})
+            bad = sorted(n for n in want if want[n] != res["checksums"].get(n))
+            if bad or set(res["checksums"]) != set(want):
+                errors.append(f"rank {r}: {len(bad)} leaves differ from the shared weights' "
+                              f"slices (first {bad[:3]})")
+        # The game, fed the reference's tokens: the reference's on every
+        # rank (the exchange, the tally and the statistics), every row parsed.
+        for r, res in enumerate(ranks):
+            if res["game"] != ref_game:
+                errors.append(f"rank {r}: the game differs from the reference's "
+                              f"({_game_changes(res['game'], ref_game)})")
+            if res["failed_rows"]:
+                errors.append(f"rank {r}: {res['failed_rows']} failed rows")
+        # The logits of every held sampler call, per row, against the
+        # reference's on the same tokens.
+        worst, by_step = 0.0, {}
+        for r, res in enumerate(ranks):
+            got = torch.load(os.path.join(out, f"logits{r}.pt"))
+            for loop, steps in enumerate(got):
+                for step, logits in steps.items():
+                    n = logits.shape[0]
+                    want = rec.logits[loop][step][res["dp_rank"] * n:(res["dp_rank"] + 1) * n]
+                    rel = _rel_rows(logits, want)
+                    key = f"{loop}.{step}"
+                    by_step[key] = max(by_step.get(key, 0.0), rel)
+                    worst = max(worst, rel)
+            if not got or not all(0 in steps and 1 in steps for steps in got):
+                errors.append(f"rank {r}: a loop's prefill or first decode step was not held")
+        if worst > P14_LOGIT_TOL:
+            errors.append(f"logits: relative L2 {worst:.4g} a row (limit {P14_LOGIT_TOL}; "
+                          f"by loop.step: {by_step})")
+        for name in ("flash_prefill", "decode_attention", "guided_sampler"):
+            if arm == "sp" and name != "guided_sampler":
+                continue   # under sp the ring and the slices' merge take their place
+            if any(res["launches"][name] <= 0 for res in ranks):
+                errors.append(f"kernel {name} was never launched on a rank")
+        line = dict(
+            mesh={"dp": sizes.get("data_parallel_size", 1), "tp": tp,
+                  "sp": sizes.get("sequence_parallel_size", 1)},
+            layers=P14_DEPTH, failed_rows=sum(res["failed_rows"] for res in ranks),
+            game_equal=all(res["game"] == ref_game for res in ranks),
+            rel_l2=worst, rel_l2_by_step=by_step, logit_tol=P14_LOGIT_TOL,
+            flips_per_rank=[res["flips"] for res in ranks],
+            sampler_calls_per_rank=[res["sampler_calls"] for res in ranks],
+            launches_per_rank=[res["launches"] for res in ranks],
+            step_collectives=ranks[0]["step_collectives"], step_ms=ranks[0]["step_ms"],
+            decode_steps=[res["decode_steps"] for res in ranks],
+            peak_bytes_per_rank=[res["peak_bytes"] for res in ranks],
+            sp_bypasses=ranks[0]["sp_bypasses"], dp_bypasses=ranks[0]["dp_bypasses"],
+            wall_seconds=wall)
+        print(f"game P14 {arm}: " + json.dumps(line), flush=True)
+        if errors:
+            fail(f"P14 {arm}: " + "; ".join(errors))
+        if arm == "tp":
+            counts = ranks[0]["counts"]
+            inputs = torch.load(os.path.join(out, "captured.pt"))
+            inputs = {name: tuple(keep(a, DEVICE) for a in args) for name, args in inputs.items()}
+    return counts, inputs
+
+
+def _rel_rows(got, want) -> float:
+    """The largest relative L2 distance of a row of ``got`` from ``want``'s."""
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+def _game_changes(game, ref):
+    """The decisions and votes of ``game`` that differ from ``ref``'s."""
+    out = {}
+    for kind in ("decisions", "votes"):
+        n = 0
+        for (_, got), (_, want) in zip(game[kind], ref[kind]):
+            n += sum(got.get(a) != v for a, v in want.items())
+        out[kind] = n
+    return out
+
+
+def _p14_slice(name, t, spec, tp, r):
+    """Rank ``r``'s slice of one shared leaf under ``tp``."""
+    from bcg_tpu_torch.parallel.sharding import leaf_dim
+
+    dim = leaf_dim(name, spec, tp)
+    if dim is None:
+        return t
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n)
+
+
 def per_row(fn, *args):
     """Apply ``fn`` row by row (batch axis 0 of every tensor argument):
     the plain attention versions materialise [H, T, S] scores, which at
@@ -2205,15 +2570,17 @@ def phase_kernels(inputs, counts):
                     live_pairs=live)
 
     def decode(path="P1"):
-        q, k, v, mask, scale = inputs[path]["decode_attention"]
+        # A mesh rank's call carries the split plan's shape (P14).
+        q, k, v, mask, scale, *plan = inputs[path]["decode_attention"]
+        plan = plan[0] if plan else None
         B, H, Dh = q.shape
         S, Hkv = k.shape[1], k.shape[2]
         m3 = mask if mask.dim() == 3 else mask[:, None]
-        split = list(da._split_for(q, Hkv, S, m3.shape[1]))
+        split = list(da._split_for(q, Hkv, S, m3.shape[1], plan=plan))
         # B * Hkv blocks filling two an SM leave nothing to split.
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        one_split = B * Hkv >= 2 * sms
-        out = da.decode_attention_cuda(q, k, v, mask, scale)
+        one_split = (plan[0] * plan[1] if plan else B * Hkv) >= 2 * sms
+        out = da.decode_attention_cuda(q, k, v, mask, scale, plan)
         torch.cuda.synchronize()
         ref = da.decode_attention_plain(q, k, v, mask, scale)
         dropped = da.decode_attention_plain(q, k, v, drop_live_keys(mask), scale)
@@ -2225,8 +2592,8 @@ def phase_kernels(inputs, counts):
         # calls (the event-timed single call counts the wrapper's host
         # time), and SDPA the same way.  K and V of the captured window
         # (100+ MB each) exceed the L2, so each call reads them cold.
-        ms = graph_ms([lambda: da.decode_attention_cuda(q, k, v, mask, scale)])
-        event_ms = time_ms(lambda: da.decode_attention_cuda(q, k, v, mask, scale), reps=50)
+        ms = graph_ms([lambda: da.decode_attention_cuda(q, k, v, mask, scale, plan)])
+        event_ms = time_ms(lambda: da.decode_attention_cuda(q, k, v, mask, scale, plan), reps=50)
         plain_ms = time_ms(lambda: da.decode_attention_plain(q, k, v, mask, scale))
         group = H // Hkv
         m2 = mask if mask.dim() == 2 else mask[:, 0]
@@ -2472,7 +2839,7 @@ def phase_kernels(inputs, counts):
                   lambda: int8_forms("chunk_decode_attention_int8", "P2"),
                   *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
                     for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16,
-                  *[lambda f=f, p=p: f(p) for p in ("P11", "P12", "P13")
+                  *[lambda f=f, p=p: f(p) for p in ("P11", "P12", "P13", "P14")
                     for f in (flash, decode, sampler) if p in inputs]):
         results.append(phase())
         torch.cuda.empty_cache()
@@ -2608,6 +2975,12 @@ def main() -> int:
     t0 = time.perf_counter()
     counts["P12"], inputs["P12"] = phase_p12(params)
     print(f"phase P12: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    # The captured inputs wait in host memory while P14's ranks share the card.
+    inputs = move_inputs(inputs, "cpu")
+    counts["P14"], inputs["P14"] = phase_p14(params)
+    inputs = move_inputs(inputs, DEVICE)
+    print(f"phase P14: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.save_sampler_inputs:
         save_sampler_inputs(inputs["P1"]["guided_sampler"], args.save_sampler_inputs)
     t0 = time.perf_counter()

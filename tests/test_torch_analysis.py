@@ -77,7 +77,8 @@ FIXTURE_ROOTS = [
     CaptureRoot(f"{FIX_REL}/xmod/entry.py", "fused_scale"),
 ]
 
-# The JAX package's rules the port leaves out until it has a mesh (A13).
+# The JAX package's rules the port leaves out until they are retargeted to its
+# mesh code (A13b).
 MESH_RULES = {"BCG-JIT-OUTSHARD", "BCG-JIT-DONATE", "BCG-SHARD-AXIS",
               "BCG-SHARD-DIVISOR"}
 CAPTURE_RULES = {"BCG-HOST-SYNC", "BCG-JIT-NP", "BCG-JIT-BRANCH"}

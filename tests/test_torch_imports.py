@@ -181,18 +181,24 @@ def test_engine_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(paged_kv=True, quantization="int8", tensor_parallel_size=2), "A13"),
-    (dict(quantization="int8", data_parallel_size=2), "A13"),
-    (dict(quantization="int4", sequence_parallel_size=2), "A13"),
-    (dict(kv_cache_dtype="int4", quantization="int4", tensor_parallel_size=2), "A13"),
-    (dict(paged_kv=True, tensor_parallel_size=2), "A13"),
-    (dict(kv_cache_dtype="int4", paged_kv=True, data_parallel_size=2), "A13"),
-    (dict(tensor_parallel_size=2), "A13"),
-    (dict(data_parallel_size=2), "A13"),
-    (dict(sequence_parallel_size=2), "A13"),
+    (dict(paged_kv=True, quantization="int8", tensor_parallel_size=2), "A13b"),
+    (dict(quantization="int8", data_parallel_size=2), "A13b"),
+    (dict(quantization="int4", sequence_parallel_size=2), "A13b"),
+    (dict(kv_cache_dtype="int4", quantization="int4", tensor_parallel_size=2), "A13b"),
+    (dict(paged_kv=True, tensor_parallel_size=2), "A13b"),
+    (dict(kv_cache_dtype="int4", paged_kv=True, data_parallel_size=2), "A13b"),
+    # The default engine over a mesh is ported (A13a): without a world of
+    # the mesh's size it says so.
+    (dict(tensor_parallel_size=2), None),
+    (dict(data_parallel_size=2), None),
+    (dict(sequence_parallel_size=2), None),
 ])
 def test_unported_knobs_raise(knob, item):
     cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test", **knob)
+    if item is None:
+        with pytest.raises(ValueError, match="needs a world of 2 ranks, have 1"):
+            TorchEngine(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         TorchEngine(cfg, device="cpu")
 
@@ -263,13 +269,37 @@ def test_env_overrides_are_not_ignored(monkeypatch):
     assert TorchEngine(cfg, device="cpu").spec_decode
 
 
-def test_orchestrator_rejects_unported_round_paths():
-    from bcg_tpu_torch.config import BCGConfig, MetricsConfig, NetworkConfig
+@pytest.mark.parametrize("topology", ["fully_connected", "ring"])
+def test_orchestrator_rejects_unported_round_paths(topology):
+    """The SPMD exchange is ported (A13a): over an engine with no mesh it
+    is the one-device exchange, and the game equals the host exchange's
+    (as ``tests/test_parallel.py::TestSPMDExchangeIntegration`` holds the
+    JAX package's); it still refuses a lossy channel it would bypass."""
+    from bcg_tpu_torch.config import (BCGConfig, CommunicationConfig, EngineConfig, GameConfig,
+                                      MetricsConfig, NetworkConfig)
     from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
 
     base = BCGConfig(metrics=MetricsConfig(save_results=False))
-    with pytest.raises(NotImplementedError, match="A13"):
-        BCGSimulation(base.replace(network=NetworkConfig(spmd_exchange=True)), engine=object())
+    with pytest.raises(ValueError, match="spmd_exchange bypasses the host protocol"):
+        BCGSimulation(base.replace(network=NetworkConfig(spmd_exchange=True),
+                                   communication=CommunicationConfig(protocol_type="lossy_sim")),
+                      engine=object())
+
+    def play(spmd):
+        cfg = base.replace(
+            game=GameConfig(num_honest=6, num_byzantine=2, max_rounds=6, seed=3),
+            network=NetworkConfig(topology_type=topology, spmd_exchange=spmd),
+            engine=EngineConfig(backend="fake"))
+        sim = BCGSimulation(config=cfg)
+        try:
+            while not sim.game.game_over:
+                sim.run_round()
+            return (sim.game.get_statistics(),
+                    sim.network.protocol.get_total_message_count() + sim._spmd_message_count)
+        finally:
+            sim.close()
+
+    assert play(True) == play(False)
 
 
 def test_create_engine_serves_torch_only():
@@ -313,16 +343,26 @@ def test_cli_builds_a_torch_config_on_cuda_by_default():
     assert (cfg.game.num_honest, cfg.game.num_byzantine) == (2, 1)
 
 
-@pytest.mark.parametrize("flag", [
-    "--tensor-parallel=2", "--sequence-parallel=2", "--data-parallel=2",
-    "--scan-layers", "--spmd-exchange",
+@pytest.mark.parametrize("flag,field", [
+    # The mesh flags and the SPMD exchange are ported (A13a): they reach
+    # the config; scan-over-layers has no counterpart in the port.
+    ("--tensor-parallel=2", ("engine", "tensor_parallel_size", 2)),
+    ("--sequence-parallel=2", ("engine", "sequence_parallel_size", 2)),
+    ("--data-parallel=2", ("engine", "data_parallel_size", 2)),
+    ("--scan-layers", None),
+    ("--spmd-exchange", ("network", "spmd_exchange", True)),
 ])
-def test_cli_offers_no_flag_of_an_unported_path(flag, capsys):
-    from bcg_tpu_torch.cli import build_parser
+def test_cli_offers_no_flag_of_an_unported_path(flag, field, capsys):
+    from bcg_tpu_torch.cli import build_parser, config_from_args
 
-    with pytest.raises(SystemExit):
-        build_parser().parse_args([flag])
-    assert "unrecognized arguments" in capsys.readouterr().err
+    if field is None:
+        with pytest.raises(SystemExit):
+            build_parser().parse_args([flag])
+        assert "unrecognized arguments" in capsys.readouterr().err
+        return
+    cfg = config_from_args(build_parser().parse_args([flag]))
+    section, name, value = field
+    assert getattr(getattr(cfg, section), name) == value
 
 
 def _serves(capsys):

@@ -87,13 +87,14 @@ def _jax_state():
 # Module -> the functions, methods and docstrings where the port's copy
 # may differ from its original: the sweep builds its engines on a torch
 # device and its cooperative and multi-process arms ride
-# parallel/distributed.py (A13).  The fake engine is held whole.
+# parallel/distributed.py (A13b); the serving proxy refuses an engine on
+# a mesh (A13b).  The fake engine is held whole.
 COPIES = {
     "engine/fault.py": (),
     "engine/fake.py": (),
     "engine/collective.py": (),
     "serve/__init__.py": (),
-    "serve/engine.py": (),
+    "serve/engine.py": ("ServingEngine.__init__",),
     "serve/scheduler.py": (),
     "sweep/__init__.py": (),
     "sweep/spec.py": (),

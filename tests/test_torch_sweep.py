@@ -10,7 +10,7 @@ package's.
   the JAX package prints, ``run --device cpu`` builds its engines on that
   device, and the arms that ride the multi-process group
   (``--distributed``, ``--coordinator``, the cooperative single-job mode)
-  raise, naming ROADMAP A13.
+  raise, naming ROADMAP A13b.
 * One greedy ``bcg-tpu/tiny-test`` job on an injected
   ``TorchEngine(device="cpu")`` completes.
 """
@@ -127,7 +127,7 @@ def test_sweep_cli_run_builds_engines_on_the_named_device(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flags", [["--distributed"], ["--coordinator", "localhost:1234"]])
 def test_sweep_cli_multi_process_arms_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13b"):
         t_main.main(["run", "smoke", "--out", str(tmp_path), *flags])
 
 
@@ -136,7 +136,7 @@ def test_cooperative_single_job_sweep_raises(tmp_path):
 
     fleet.set_process_provider(lambda: (0, 2))
     try:
-        with pytest.raises(NotImplementedError, match="A13"):
+        with pytest.raises(NotImplementedError, match="A13b"):
             t_controller.run_sweep({"name": "one", "base": {"agents": 3}}, str(tmp_path))
         # Several jobs over two ranks stay a strided partition.
         ctl = t_controller.SweepController(SPEC, str(tmp_path))
