@@ -48,7 +48,9 @@ def run_simulation(
 ) -> dict:
     """Run a single simulation for batch experiments; no files written.
     ``device`` is the torch device of an internally created engine
-    (``None`` means CUDA)."""
+    (``None`` means CUDA).  Served (``BCG_TPU_SERVE``) over an engine on a
+    mesh of ranks, the game plays on rank 0; the other ranks follow its
+    dispatches and return ``{"metrics": None}``."""
     from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
 
     base = config or BCGConfig()
@@ -73,14 +75,26 @@ def run_simulation(
             # Serving-stack path: the internally created engine is
             # fronted by the continuous-batching scheduler proxy
             # (bcg_tpu_torch/serve) — same results, arrival-driven dispatch.
-            from bcg_tpu_torch.serve import ServingEngine
+            from bcg_tpu_torch.serve import ServingEngine, mesh as mesh_serving
 
+            def factory():
+                return create_engine(engine_cfg, device=device)
+
+            inner = create_engine(engine_cfg, device=device)
+            if mesh_serving.spans_world(inner) and not mesh_serving.is_leader():
+                # Over a mesh of ranks the game plays on rank 0; this rank
+                # makes its dispatches' engine calls and has no metrics.
+                try:
+                    mesh_serving.follow(inner, factory)
+                finally:
+                    inner.shutdown()
+                return {"metrics": None}
             run_engine = ServingEngine(
-                create_engine(engine_cfg, device=device), owns_inner=True,
+                inner, owns_inner=True,
                 # Supervisor rebuild hook (BCG_TPU_SERVE_WATCHDOG_S):
                 # the wrap site owns the config, so a hung engine can
                 # be rebooted from it, on the same device.
-                engine_factory=lambda: create_engine(engine_cfg, device=device),
+                engine_factory=factory,
             )
         else:
             run_engine = create_engine(engine_cfg, device=device)

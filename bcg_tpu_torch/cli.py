@@ -276,16 +276,25 @@ def main(argv: Optional[list] = None) -> int:
     from bcg_tpu_torch.runtime import envflags
 
     if args.serve or envflags.get_bool("BCG_TPU_SERVE"):
-        from bcg_tpu_torch.serve import ServingEngine
+        from bcg_tpu_torch.serve import ServingEngine, mesh as mesh_serving
 
+        def factory():
+            return create_engine(config.engine, device=device)
+
+        if mesh_serving.spans_world(sim.engine) and not mesh_serving.is_leader():
+            # Under torchrun the game plays on rank 0, whose scheduler
+            # leads; this rank makes each of its dispatches' engine calls.
+            try:
+                mesh_serving.follow(sim.engine, factory)
+            finally:
+                sim.engine.shutdown()
+                sim.close()
+            return 0
         # Front the engine with the continuous-batching scheduler; it
         # owns the inner engine so one shutdown() releases both.  The
         # factory lets the supervisor reboot a hung engine from the
         # same config, on the same device (BCG_TPU_SERVE_WATCHDOG_S).
-        serving = ServingEngine(
-            sim.engine, owns_inner=True,
-            engine_factory=lambda: create_engine(config.engine, device=device),
-        )
+        serving = ServingEngine(sim.engine, owns_inner=True, engine_factory=factory)
         sim.set_engine(serving)
     try:
         from bcg_tpu_torch.runtime.profiler import torch_trace

@@ -38,7 +38,9 @@ same calls leave both engines with the same resident, free and hit
 counts, and the same ``kvpool.*`` telemetry.  Four things differ:
 
 * the pool is allocated by the port's ``init_block_pool`` on the
-  engine's device (one buffer per kind, per-layer views);
+  engine's device (one buffer per kind, per-layer views; under a mesh
+  the rank's kv heads, and every row's writes under ``dp``:
+  :class:`PagedCache`);
 * :meth:`PagedKV.entries` hands every layer the pool plus ONE ``[B,
   nblk]`` int32 table tensor (the JAX per-layer copies exist only to
   avoid aliasing under buffer donation);
@@ -69,6 +71,22 @@ from bcg_tpu_torch.runtime import resilience
 class PoolExhausted(RuntimeError):
     """Allocation failed even after evicting every unpinned block —
     the pinned working set plus the request exceeds the pool."""
+
+
+class PagedCache(list):
+    """A model call's paged entries (one per layer).  ``dp_split``: the
+    rows are this rank's share of a batch split over ``dp``; the pool
+    replicates over ``dp`` (kv heads alone split, over ``tp``), so each
+    write gathers every ``dp`` rank's rows and every rank's pool takes
+    them all — the pools, their allocators and radix trees stay equal, as
+    GSPMD keeps one replicated pool (``models/transformer._paged_index``).
+    The host side stays whole-batch on every rank: each rank assembles
+    the whole batch's tables, so the allocations, the radix hits and the
+    ``kvpool.*`` telemetry are the JAX pool's."""
+
+    def __init__(self, entries, dp_split: bool = False):
+        super().__init__(entries)
+        self.dp_split = dp_split
 
 
 class _Node:
@@ -134,12 +152,14 @@ class PagedKV:
         total = sum(t.numel() * t.element_size() for e in self.pool for t in e.values())
         return max(1, total // self.num_blocks)
 
-    def entries(self, tbl: np.ndarray):
+    def entries(self, tbl: np.ndarray, dp_split: bool = False) -> "PagedCache":
         """Paged cache entries for a model call: the pool plus the block
         table, one ``[B, nblk]`` int32 tensor on the pool's device shared
-        by every layer."""
+        by every layer.  ``dp_split``: the table holds this rank's rows of
+        a batch split over ``dp``, whose writes every rank's pool takes
+        (:class:`PagedCache`)."""
         t = torch.as_tensor(np.asarray(tbl, dtype=np.int32), device=self.device)
-        return [{**e, "tbl": t} for e in self.pool]
+        return PagedCache([{**e, "tbl": t} for e in self.pool], dp_split)
 
     def invalidate(self) -> None:
         """Engine-failure recovery: a call that raised mid-write leaves

@@ -247,7 +247,15 @@ def spec_decode_loop(params, model_spec, cache, first_logits, valid_mask, prompt
     every row finished change nothing.  ``census``: the launch census's
     step recorder (``obs/hlo.py``), or None.  Returns ``(out [B, max_new] int32, steps, drafted
     [B], accepted [B])``, all on the device — ``steps`` counts the
-    iterations the JAX loop runs."""
+    iterations the JAX loop runs.
+
+    Under a mesh every rank of a tp or sp group runs this loop on the same
+    rows: the drafts, acceptances and done polls read the sampler's
+    tokens and the verify's logits after their collectives, which are the
+    same on every rank, so the ranks take the same branches and make the
+    same collectives.  A dp rank runs its own rows (``all_done`` polls
+    every dp rank's rows where each step writes to every rank's paged
+    pool)."""
     from bcg_tpu_torch.models.transformer import decode_chunk_spec
 
     masked_logits = make_masked_logits(eos_id, top_p)

@@ -66,24 +66,33 @@ Serving design, as in the JAX engine:
   readback.  Dense engines only, as in the JAX package.
 
 * Tensor, sequence and data parallelism (``tensor_/sequence_/
-  data_parallel_size``) for the default engine — bf16 weights, a dense
-  bf16 cache, the plain loop — over a ``("dp", "tp", "sp")`` mesh of ranks
-  (``parallel/``; one process and device a rank, every rank running the
-  same game).  Each rank holds its slices of the weights
-  (``parallel/sharding.py``) and of the caches: kv heads over ``tp``, the
+  data_parallel_size``) for every engine the port serves on one device —
+  bf16, int8 or int4 weights, a dense bf16, int8 or int4 cache or a paged
+  pool, the plain, fast-forward and speculative loops — over a ``("dp",
+  "tp", "sp")`` mesh of ranks (``parallel/``; one process and device a
+  rank, every rank running the same game).  As in the JAX engine a dense
+  int4 cache or a paged pool with ``sp`` raises ``ValueError``.  Each rank
+  holds its slices of the weights (``parallel/sharding.py``; quantized
+  whole, then sliced) and of the caches: kv heads over ``tp``, the
   sequence over ``sp`` (caches aligned to ``sp``; a full prefill goes round
   the ring, a prefix-cached suffix and the decode steps merge the slices),
   batch rows over ``dp`` (the batch padded to a multiple of ``dp``; each
   ``dp`` rank prefills and decodes its rows, then the outputs are gathered
   so every rank parses the same rows).  The kernels run at the local
   shapes; the sampler runs on the gathered logits with the same generator
-  on every rank, so every rank samples the same tokens.
+  on every rank, so every rank samples the same tokens, and every branch
+  of a loop (drafts, acceptances, done polls) reads values that are the
+  same on every rank of a tp or sp group.  A paged pool splits its kv
+  heads over ``tp`` and replicates over ``dp``: each dp rank assembles the
+  whole batch's tables and writes every row's k/v (gathered over ``dp``),
+  and its done polls read every rank's rows, so the ranks' pools stay
+  equal and their loops take the same steps.
 
 Ported: bf16, int8 and int4 weights, a dense or paged bf16, int8 or int4
 KV cache, the plain, fast-forward and speculative loops, the fused
-mega-round, and the mesh above.  Every knob outside that raises
-``NotImplementedError`` naming the ROADMAP item that brings it (a mesh
-with any other knob: A13b); none is ignored.
+mega-round, and the mesh above (the fused round on one device only).
+Every knob outside that raises ``NotImplementedError`` naming the
+ROADMAP item that brings it; none is ignored.
 """
 
 from __future__ import annotations
@@ -212,6 +221,27 @@ def _rank_device(asked: torch.device, rank_dev: torch.device) -> torch.device:
         raise ValueError(f"TorchEngine: device {asked} asked for, but this rank's "
                          f"torch.distributed world runs it on {rank_dev}")
     return rank_dev
+
+
+def _check_sp(kv_dtype: str, paged: bool, sp: int) -> None:
+    """The JAX engine's two refusals under sequence parallelism, in its
+    order and words: a dense int4 cache (the ring's slices dequantize int8
+    scales only) and a paged pool (its blocks are shared across rows, so
+    the sequence cannot split)."""
+    if sp <= 1:
+        return
+    if kv_dtype == "int4":
+        raise ValueError(
+            "kv_cache_dtype='int4' does not compose with sequence "
+            f"parallelism (sp={sp}): the sp ring decode "
+            "kernels dequantize unpacked int8 scales only"
+        )
+    if paged:
+        raise ValueError(
+            "paged_kv does not compose with sequence parallelism "
+            f"(sp={sp}) yet: pool blocks are shared "
+            "across rows so the sequence dim cannot shard"
+        )
 
 
 def _resolve_paged_impl(raw: str, device: torch.device) -> str:
@@ -431,6 +461,9 @@ class TorchEngine(InferenceEngine):
             )
         if self.paged_kv:
             self._init_paged(config)
+        # A paged batch split over dp: every rank assembles the whole
+        # batch's tables and takes every row's writes (PagedCache).
+        self._dp_paged = self._paged is not None and self._dp > 1
         # Telemetry endpoint (BCG_TPU_METRICS_PORT) + fleet metric-shard
         # flusher (BCG_TPU_METRICS_SHARD_DIR): idempotent, off by default.
         from bcg_tpu_torch.obs import export as obs_export, fleet as obs_fleet
@@ -464,22 +497,9 @@ class TorchEngine(InferenceEngine):
                 f"quantization={config.quantization!r}: expected None, "
                 "'int8' or 'int4'"
             )
-        sizes = TorchEngine._mesh_sizes(config)
-        if any(sizes):
-            # A13a: the default engine over a mesh; every other knob with it
-            # is A13b.
-            others = [knob for knob, on in (
-                (f"quantization={config.quantization!r}", config.quantization is not None),
-                (f"kv_cache_dtype={kv_raw!r}", kv_raw != "bfloat16"),
-                ("paged_kv", bool(getattr(config, "paged_kv", False))
-                 or env_flag("BCG_TPU_PAGED_KV")),
-                ("decode_fast_forward", bool(getattr(config, "decode_fast_forward", False))),
-                ("spec_decode", bool(getattr(config, "spec_decode", False))
-                 or env_flag("BCG_TPU_SPEC")),
-            ) if on]
-            if others:
-                mesh_knobs = ", ".join(sizes)
-                raise _not_ported(f"{', '.join(others)} with {mesh_knobs}", "A13b")
+        _check_sp(kv_raw, bool(getattr(config, "paged_kv", False))
+                  or env_flag("BCG_TPU_PAGED_KV"),
+                  int(getattr(config, "sequence_parallel_size", 1) or 1))
         # The port always runs its hand-written kernels: the plain
         # versions serve CPU tensors only, never a CUDA batch.
         if config.attention_impl not in ("auto", "pallas"):
@@ -507,24 +527,26 @@ class TorchEngine(InferenceEngine):
 
     def _load_params(self, params):
         """The served weight tree (the JAX engine's boot section, without
-        scan-over-layers and meshes).  An owned tree of a ``bcg-tpu/*``
-        preset is made on the device from seed 0; any other model loads
-        its local checkpoint (``self._ckpt_dir``): a pre-quantized
-        artifact (``models/artifact.py``, whose mode must be this
-        engine's), else HF safetensors (``models/loader.py``).  Made or
-        loaded, an owned tree is quantized leaf by leaf as it arrives when
-        ``quantization`` is set.  A shared tree (``params=``) must be bf16
-        or already in this engine's mode: a bf16 one is quantized into a
-        new dict, leaving the donor's copy whole; a quantized one of
-        another mode, or any quantized one under ``quantization=None``,
-        raises."""
+        scan-over-layers).  An owned tree of a ``bcg-tpu/*`` preset is
+        made on the device from seed 0; any other model loads its local
+        checkpoint (``self._ckpt_dir``): a pre-quantized artifact
+        (``models/artifact.py``, whose mode must be this engine's), else
+        HF safetensors (``models/loader.py``).  Made or loaded, an owned
+        tree is quantized leaf by leaf as it arrives when ``quantization``
+        is set.  A shared tree (``params=``) must be bf16 or already in
+        this engine's mode: a bf16 one is quantized into a new dict,
+        leaving the donor's copy whole; a quantized one of another mode,
+        or any quantized one under ``quantization=None``, raises.  Under a
+        mesh every path gives the rank its slices of the one-device tree
+        (the sharded quantizer quantizes each full leaf before slicing it,
+        as the JAX engine quantizes before it shards)."""
         from bcg_tpu_torch.models.quantize import (
-            ensure_quantized_head, is_int4, is_quantized, quantize_leaf_transform,
+            weight_quantizer, ensure_quantized_head, is_int4, is_quantized, quantize_leaf_transform,
             quantize_params,
         )
 
         mode = self.quantization
-        transform = quantize_leaf_transform(self.spec, mode) if mode else None
+        transform = quantize_leaf_transform(self.spec, mode, mesh=self.mesh) if mode else None
         if params is None and self._ckpt_dir is None:
             from bcg_tpu_torch.models.loader import init_random_params_sharded
 
@@ -537,18 +559,12 @@ class TorchEngine(InferenceEngine):
             from bcg_tpu_torch.models.loader import load_checkpoint_params
 
             if artifact.artifact_mode(self._ckpt_dir) is not None:
-                if self.mesh is not None:
-                    raise _not_ported("a pre-quantized artifact under a mesh", "A13b")
                 params = artifact.load_quantized_artifact(
-                    self.spec, self._ckpt_dir, mode, self.device)
+                    self.spec, self._ckpt_dir, mode, self.device, mesh=self.mesh)
             else:
                 params = load_checkpoint_params(
                     self.spec, self.config.model_name, self.device,
                     leaf_transform=transform, ckpt_dir=self._ckpt_dir, mesh=self.mesh)
-        elif self.mesh is not None:
-            from bcg_tpu_torch.parallel.sharding import shard_params
-
-            params = shard_params(params, self.spec, self.mesh)
         else:
             wq = params["layers.0.wq"]
             tree_mode = ("int4" if is_int4(wq) else "int8") if is_quantized(wq) else None
@@ -557,7 +573,12 @@ class TorchEngine(InferenceEngine):
                     f"constructor params are {tree_mode}-format but "
                     f"config.quantization={mode!r}; share weights only between "
                     "engines of the same mode")
-            if mode is not None and tree_mode is None:
+            quantize = weight_quantizer(mode) if mode is not None and tree_mode is None else None
+            if self.mesh is not None:
+                from bcg_tpu_torch.parallel.sharding import shard_params
+
+                params = shard_params(params, self.spec, self.mesh, quantize=quantize)
+            elif quantize is not None:
                 params = quantize_params(params, self.spec, consume=False, mode=mode)
         if mode is not None:
             ensure_quantized_head(params, self.spec, mode)
@@ -612,6 +633,16 @@ class TorchEngine(InferenceEngine):
         obs_hostsync.note("done_poll", entry=entry)
         with obs_hostsync.expected():
             return bool(done.all())
+
+    def _done_poll(self, done: torch.Tensor, entry: str) -> bool:
+        """The loops' done poll.  A paged batch split over ``dp`` writes
+        every rank's rows at every step (a collective a layer), so its
+        ranks must run the same steps: they poll whether every row of
+        EVERY rank is done (one max over ``dp`` of a live flag)."""
+        if not self._dp_paged:
+            return self._all_done(done, entry)
+        live = (~done).any().to(torch.int32).reshape(1)
+        return self._all_done(all_reduce(live, self.mesh, "dp", op="max") == 0, entry)
 
     @staticmethod
     def _read_back(site: str, entry: str, t: torch.Tensor, n: int = 1) -> np.ndarray:
@@ -1022,14 +1053,18 @@ class TorchEngine(InferenceEngine):
             )
             self._prefix_fallback_warned = True
 
-    def _prepare_paged_batch(self, parts, budgets: List[int], decode_slots: int):
+    def _prepare_paged_batch(self, parts, budgets: List[int], decode_slots: int,
+                             dp_rows: Optional[slice] = None):
         """Assemble a batch over the block pool: per-row block tables of
         radix-shared prefix blocks (padded with the null block to a
         bucketed prefix region) plus freshly allocated private blocks for
         the suffix window and the decode tail.  Radix-cached prefixes
         when the batch qualifies (the dense prefix cache's conditions),
         else the whole prompt as suffix over private blocks — a paged
-        engine never falls back to dense slabs."""
+        engine never falls back to dense slabs.  ``dp_rows``: this ``dp``
+        rank's rows, whose arrays and tables are returned after the whole
+        batch was assembled (every rank's allocator and radix tree take
+        the same calls)."""
         mgr = self._paged
         bs = mgr.block_size
         B = len(parts)
@@ -1117,7 +1152,10 @@ class TorchEngine(InferenceEngine):
             else:
                 prefix_toks.append(np.zeros(0, dtype=np.int32))
             tbl[i, P // bs:] = priv[i * n_priv:(i + 1) * n_priv]
-        cache = mgr.entries(tbl)
+        if dp_rows is not None:
+            tbl, tokens, valid, prefix_valid, prefix_lens, prefix_toks = (
+                a[dp_rows] for a in (tbl, tokens, valid, prefix_valid, prefix_lens, prefix_toks))
+        cache = mgr.entries(tbl, dp_split=dp_rows is not None)
         return (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P, S)
 
     # -------------------------------------------------------------- prefill
@@ -1284,7 +1322,7 @@ class TorchEngine(InferenceEngine):
             # Position max_new-1 is the last output slot, written by step
             # max_new-2.  Steps taken after every row finished only write
             # EOS over EOS; `steps` counts the ones the JAX loop runs.
-            if poll and i % _DONE_CHECK == 0 and self._all_done(done, entry):
+            if poll and i % _DONE_CHECK == 0 and self._done_poll(done, entry):
                 break
             if census is not None:
                 census.begin(i)
@@ -1340,7 +1378,7 @@ class TorchEngine(InferenceEngine):
         steps = torch.zeros((), dtype=torch.int32, device=dev)
         logits = first_logits
         for i in range(max_new):
-            if i % _DONE_CHECK == 0 and self._all_done(done, entry):
+            if i % _DONE_CHECK == 0 and self._done_poll(done, entry):
                 break
             if census is not None:
                 census.begin(i)
@@ -1393,7 +1431,7 @@ class TorchEngine(InferenceEngine):
             self._dev(np.asarray(temps, np.float32)), self._dev(np.asarray(budgets, np.int32)),
             self._dev(hist), self._gen, sampler=make_fused_sampler(eos, top_p), eos_id=eos,
             top_p=top_p, max_new=max_new, k=self.spec_k, n=self.spec_ngram,
-            done_check=_DONE_CHECK, all_done=lambda done: self._all_done(done, entry),
+            done_check=_DONE_CHECK, all_done=lambda done: self._done_poll(done, entry),
             census=obs_hlo.step_census(entry, self.device),
         )
 
@@ -1441,11 +1479,18 @@ class TorchEngine(InferenceEngine):
         permissive automaton has no forced chains.  Traced as the
         ``engine.prefill`` and ``engine.decode`` spans; the batch's KV
         bytes are charged to the ledger until the call ends.  ``dp_rows``:
-        ``parts`` are this rank's rows of the padded batch, whose outputs
-        are gathered over ``dp`` after the loop (``real_B`` counts the
-        whole batch's real rows)."""
-        B = len(parts)
+        this rank's rows of the padded batch (``parts``, ``temps`` and
+        ``budgets`` are the whole batch's, ``batch`` the rank's rows), whose
+        outputs are gathered over ``dp`` after the loop (``real_B`` counts
+        the whole batch's real rows).  The decode window is the whole
+        batch's, so every dp rank runs one shape, as one device does; a
+        paged engine assembles the whole batch on every rank and keeps its
+        rows (``PagedCache.dp_split``)."""
         max_new = max(budgets)
+        all_parts, all_budgets = parts, budgets
+        if dp_rows is not None:
+            parts, temps, budgets = parts[dp_rows], temps[dp_rows], budgets[dp_rows]
+        B = len(parts)
         use_spec = self.spec_decode
         use_ff = not use_spec and self.fast_forward and not free
         if use_spec:
@@ -1454,15 +1499,14 @@ class TorchEngine(InferenceEngine):
             decode_slots = _ff_decode_slots(max_new)
         else:
             decode_slots = max_new + 1
-        self._check_kv_budget(B * (self._dp if dp_rows is not None else 1), budgets,
-                              decode_slots)
+        self._check_kv_budget(len(all_parts), all_budgets, decode_slots)
         t0 = time.perf_counter()
         paged = self._paged is not None
         with obs_tracer.span("engine.prefill", args={"rows": B}):
             prepped = None
             if paged:
                 (tokens, valid, Ls, cache, prefix_valid, prefix_lens, prefix_toks, P,
-                 S) = self._prepare_paged_batch(parts, budgets, decode_slots)
+                 S) = self._prepare_paged_batch(all_parts, all_budgets, decode_slots, dp_rows)
                 self._paged_dirty = True
                 first_logits, cache = self._prefill_paged_possibly_chunked(
                     tokens, valid, Ls, cache, prefix_valid, prefix_lens)
@@ -1472,9 +1516,10 @@ class TorchEngine(InferenceEngine):
                 valid_mask[:, :P] = prefix_valid
                 valid_mask[:, P:L] = valid
                 prompt_lens = (prefix_lens + valid.sum(axis=1)).astype(np.int32)
-                # Private blocks only: the radix-shared prefix is the
-                # prefix account's.
-                kv_bytes = B * ((S - P) // self._paged.block_size) * self._paged.block_bytes_dev
+                # Private blocks only (every row's: the pool takes them all
+                # under dp): the radix-shared prefix is the prefix account's.
+                kv_bytes = (len(all_parts) * ((S - P) // self._paged.block_size)
+                            * self._paged.block_bytes_dev)
             elif self.prefix_caching and self._prefix_safe and all(p for p, _, _ in parts):
                 prepped = self._prepare_prefixed_batch(parts, budgets, decode_slots)
                 if prepped is None:
@@ -1645,7 +1690,7 @@ class TorchEngine(InferenceEngine):
         )
         rows = self._dp_rows(B) if mult > 1 else None
         if rows is not None:
-            parts, schemas, temps, budgets = parts[rows], schemas[rows], temps[rows], budgets[rows]
+            schemas = schemas[rows]
         guides = [
             compile_schema(
                 s, self._token_bytes, vocab_id=self.tokenizer.vocab_id,
@@ -1679,9 +1724,8 @@ class TorchEngine(InferenceEngine):
             return out
         real_B, B, parts, temps, budgets = _pad_rows(parts, temps, budgets, multiple=mult)
         rows = self._dp_rows(B) if mult > 1 else None
-        if rows is not None:
-            parts, temps, budgets = parts[rows], temps[rows], budgets[rows]
-        batch = GuidedBatch.permissive(len(parts), self.spec.vocab_size, device=self.device)
+        n_rows = B // mult
+        batch = GuidedBatch.permissive(n_rows, self.spec.vocab_size, device=self.device)
         texts = self._decode_padded(parts, batch, real_B, temps, budgets, top_p, free=True,
                                     dp_rows=rows)
         return [t.strip() for t in texts]
@@ -1760,6 +1804,8 @@ class TorchEngine(InferenceEngine):
         usable pool over the ``ceil(S / bs)`` blocks a row needs (a
         static floor: shared prefix blocks make the real need smaller)."""
         if self._paged is not None:
+            # The pool holds the rank's kv heads (tp) and every row (it
+            # replicates over dp), so the cap is the pool's alone.
             blocks_per_row = -(-S // self._paged.block_size)
             return max(1, self._paged_usable_blocks() // blocks_per_row)
         budget = self._kv_row_budget()
@@ -1771,14 +1817,24 @@ class TorchEngine(InferenceEngine):
 
     def _kv_bytes_per_device(self, B: int, S: int) -> int:
         """Bytes one rank holds of a dense ``[B, S]`` cache: divided only
-        by the mesh axes that engage (``parallel/sharding.py``)."""
+        by the mesh axes that engage (``parallel/sharding.py``), in the
+        cache's own layout (a quantized cache's values and scales)."""
         if self.mesh is None:
             return B * S * self._kv_slot_bytes * self.spec.num_layers
         from bcg_tpu_torch.parallel.sharding import kv_cache_bytes_per_device
 
-        shape = (B, S, self.spec.num_kv_heads, self.spec.head_dim)
-        return kv_cache_bytes_per_device(
-            self.mesh, [(shape, self.kv_dtype)] * (2 * self.spec.num_layers))
+        Hkv, Dh = self.spec.num_kv_heads, self.spec.head_dim
+        if self.kv_quantized:
+            dh, scale_dtype = Dh, torch.float32
+            if self.kv_quantized == "int4":
+                from bcg_tpu_torch.models.quantize import kv_int4_layout
+
+                dh, scale_dtype = kv_int4_layout(Dh)
+            leaves = [((B, Hkv, S, dh), torch.int8), ((B, Hkv, S), scale_dtype)]
+        else:
+            leaves = [((B, S, Hkv, Dh), self.kv_dtype)]
+        return kv_cache_bytes_per_device(self.mesh, leaves * (2 * self.spec.num_layers),
+                                         quantized=bool(self.kv_quantized))
 
     def _provisioned_row_cap(self, parts, budgets: List[int]) -> Optional[int]:
         """``hbm_utilization`` as a row provisioner: caps the decoded rows

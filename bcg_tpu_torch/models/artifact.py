@@ -23,7 +23,9 @@ writes them row-major and a load lays them out again
 Convert a local HF checkpoint from the command line (CPU works)::
 
     python -m bcg_tpu_torch.models.artifact --model <name-or-dir> \\
-        --mode int8 --out /path/to/artifact [--device cuda]
+        --mode int8 --out /path/to/artifact [--device cpu]
+
+It quantizes on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -117,9 +119,13 @@ def artifact_mode(ckpt_dir: Optional[str]) -> Optional[str]:
         return json.load(f).get("mode")
 
 
-def load_quantized_artifact(spec: ModelSpec, ckpt_dir: str, mode: str, device="cuda") -> Dict:
+def load_quantized_artifact(spec: ModelSpec, ckpt_dir: str, mode: str, device="cuda",
+                            mesh=None) -> Dict:
     """Load a pre-quantized artifact into the engine's param dict on
-    ``device``, one tensor at a time.
+    ``device``, one tensor at a time.  Under a ``mesh`` each leaf is read
+    and then cut to this rank's slice (``parallel.sharding.shard_leaf``:
+    a row-parallel int4 weight's contiguous rows repacked), as the JAX
+    loader places each leaf with its sharding.
 
     Raises ``ValueError`` when the artifact's mode, model name, or any
     model dimension doesn't match what the caller configured — a
@@ -155,6 +161,8 @@ def load_quantized_artifact(spec: ModelSpec, ckpt_dir: str, mode: str, device="c
     from bcg_tpu_torch.models.safetensors_np import SafetensorsFile
     from bcg_tpu_torch.models.transformer import param_plan
 
+    from bcg_tpu_torch.parallel.sharding import shard_leaf
+
     dtypes = manifest["dtypes"]
     plan = {name: shape for name, _, shape in param_plan(spec)}
     # A tied-embedding model's quantized head rides along.
@@ -178,9 +186,11 @@ def load_quantized_artifact(spec: ModelSpec, ckpt_dir: str, mode: str, device="c
                 if part in ("q", "scale", "q4", "gscale"):
                     leaves.setdefault(base, {})[part] = restore(f, name)
                 else:
-                    params[name] = dense_leaf(name, restore(f, name), plan[name], device, None)
+                    leaf = dense_leaf(name, restore(f, name), plan[name], device, None)
+                    params[name] = shard_leaf(name, leaf, spec, mesh, plan[name])
             for base, parts in leaves.items():
-                params[base] = quantized_leaf(base, parts, plan[base], device)
+                leaf = quantized_leaf(base, parts, plan[base], device)
+                params[base] = shard_leaf(base, leaf, spec, mesh, plan[base])
 
     read_file(os.path.join(ckpt_dir, "top.safetensors"))
     for i in range(spec.num_layers):
@@ -203,7 +213,7 @@ _SIDECAR_FILES = (
 )
 
 
-def convert_checkpoint(model: str, mode: str, out_dir: str, device="cpu") -> None:
+def convert_checkpoint(model: str, mode: str, out_dir: str, device="cuda") -> None:
     """HF safetensors checkpoint -> pre-quantized artifact (streamed:
     each weight is quantized on ``device`` as it loads, so the bf16 tree
     never exists whole — the same discipline as engine boot).  Tokenizer
@@ -239,8 +249,8 @@ def main(argv=None) -> None:
     p.add_argument("--model", required=True, help="model name or checkpoint dir")
     p.add_argument("--mode", default="int8", choices=["int8", "int4"])
     p.add_argument("--out", required=True, help="artifact output directory")
-    p.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
-                   help="device the weights are quantized on")
+    p.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
+                   help="device the weights are quantized on (default: the card)")
     args = p.parse_args(argv)
     convert_checkpoint(args.model, args.mode, args.out, args.device)
     print(f"saved {args.mode} artifact for {args.model} at {args.out}")

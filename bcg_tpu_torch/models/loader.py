@@ -13,7 +13,8 @@ on the card.  The names, the transposes and the tied-embedding,
 
 There is no network, so checkpoints must exist on local disk (the HF
 cache layout or a flat directory of ``*.safetensors``).  Under a mesh a
-load reads only the rank's slice of each tensor out of the mapping.
+load reads only the rank's slice of each tensor out of the mapping (the
+whole tensor where the sharded quantizer must see it whole).
 
 A ``bcg-tpu/*`` preset's random weights come from
 :func:`bcg_tpu_torch.models.convert.init_params`, or under a mesh from
@@ -107,20 +108,29 @@ def hf_name(logical: str) -> str:
     return _TOP_MAP[logical]
 
 
-def _no_sharded_quantizer(mesh, leaf_transform) -> None:
+def _full_leaves(mesh, leaf_transform) -> bool:
+    """Whether a load under ``mesh`` hands ``leaf_transform`` each FULL
+    leaf (a sharding transform: the sharded quantizer) rather than the
+    rank's slice.  A transform that does not shard cannot run under a
+    ``tp`` split: quantizing a slice would not give the slice of the
+    quantized leaf."""
     from bcg_tpu_torch.parallel.mesh import mesh_shape
 
-    if leaf_transform is not None and mesh_shape(mesh)["tp"] > 1:
-        raise NotImplementedError(
-            "quantized weights under a tp mesh: not ported to the PyTorch engine yet "
-            "(ROADMAP A13b)")
+    if leaf_transform is None or mesh_shape(mesh)["tp"] == 1:
+        return False
+    if not getattr(leaf_transform, "shards", False):
+        raise ValueError("a leaf transform under a tp mesh must take full leaves and "
+                         "shard them (models.quantize.quantize_leaf_transform(..., mesh=))")
+    return True
 
 
 def init_random_params_sharded(spec: ModelSpec, generator: torch.Generator, mesh=None,
                                device="cuda", dtype=torch.bfloat16,
                                leaf_transform=None) -> Dict:
     """:func:`~bcg_tpu_torch.models.convert.init_params`'s weights, this
-    rank's slices only (``parallel.sharding.shard_leaf``).  The leaves are
+    rank's slices only (``parallel.sharding.shard_leaf``; a sharding
+    ``leaf_transform``, the sharded quantizer, takes each full leaf and
+    slices it itself).  The leaves are
     drawn one after another from one generator, so each full leaf is drawn
     on the device (the same values, leaf for leaf, as ``init_params`` for
     the same generator and seed), its slice kept and the rest freed: peak
@@ -132,7 +142,7 @@ def init_random_params_sharded(spec: ModelSpec, generator: torch.Generator, mesh
 
     if mesh is None:
         return init_params(spec, generator, device, dtype, leaf_transform)
-    _no_sharded_quantizer(mesh, leaf_transform)
+    full_leaves = _full_leaves(mesh, leaf_transform)
     params = {}
     for name, kind, shape in param_plan(spec):
         if kind == "dense":
@@ -143,8 +153,12 @@ def init_random_params_sharded(spec: ModelSpec, generator: torch.Generator, mesh
         else:
             fill = torch.ones if kind == "ones" else torch.zeros
             leaf = fill(shape, dtype=dtype, device=device)
-        leaf = shard_leaf(name, leaf, spec, mesh, shape)
-        params[name] = leaf_transform(name, leaf) if leaf_transform and kind == "dense" else leaf
+        if full_leaves:
+            params[name] = leaf_transform(name, leaf)
+        else:
+            leaf = shard_leaf(name, leaf, spec, mesh, shape)
+            params[name] = (leaf_transform(name, leaf) if leaf_transform and kind == "dense"
+                            else leaf)
         del leaf
     return params
 
@@ -163,8 +177,6 @@ def boot_peak_report(spec: ModelSpec, mesh=None, quantization: Optional[str] = N
     from bcg_tpu_torch.parallel.mesh import mesh_shape
     from bcg_tpu_torch.parallel.sharding import leaf_dim
 
-    if quantization is not None:
-        _no_sharded_quantizer(mesh, quantization)
     tp = mesh_shape(mesh)["tp"]
     itemsize = torch.empty((), dtype=dtype).element_size()
     parts_bytes = {"q": 1, "scale": 4, "q4": 1, "gscale": 2}
@@ -185,6 +197,10 @@ def boot_peak_report(spec: ModelSpec, mesh=None, quantization: Optional[str] = N
         else:
             out_b = shard(name, shape, itemsize)
         transient = full * (4 + itemsize) if kind == "dense" else full * itemsize
+        if kind == "dense" and quantization is not None and tp > 1:
+            # The sharded quantizer quantizes the whole leaf before slicing it.
+            transient += sum(int(np.prod(shp, dtype=np.int64)) * parts_bytes[p]
+                             for p, shp in _quantized_shapes(parts, shape).items())
         init_peak = max(init_peak, done + transient + out_b)
         if transient > max_transient:
             max_transient, max_leaf = transient, name
@@ -239,7 +255,8 @@ def load_checkpoint_params(
     A checkpoint without ``lm_head.weight`` loads without the head (the
     JAX loader's rule).  Under a ``mesh`` each leaf is this rank's
     ``tp`` slice (``parallel.sharding``), read out of the file's mapping
-    without the rest of the tensor.
+    without the rest of the tensor — or, for a sharding ``leaf_transform``
+    (the sharded quantizer), read whole and handed to it.
     """
     from bcg_tpu_torch.models.convert import dense_leaf
     from bcg_tpu_torch.models.safetensors_np import SafetensorsFile
@@ -247,7 +264,7 @@ def load_checkpoint_params(
     from bcg_tpu_torch.parallel.mesh import mesh_shape
     from bcg_tpu_torch.parallel.sharding import leaf_dim
 
-    _no_sharded_quantizer(mesh, leaf_transform)
+    full_leaves = _full_leaves(mesh, leaf_transform)
     tp = mesh_shape(mesh)["tp"]
     r = mesh.get_local_rank("tp") if tp > 1 else 0
 
@@ -278,7 +295,9 @@ def load_checkpoint_params(
             if path not in open_files:
                 open_files[path] = SafetensorsFile(path)
             transposed = logical.split(".")[-1] in _TRANSPOSED
-            dim = leaf_dim(logical, spec, tp)
+            # A sharding transform takes the full leaf (quantized whole,
+            # then sliced); otherwise only the rank's slice is read.
+            dim = None if full_leaves else leaf_dim(logical, spec, tp)
             t = _read_slice(open_files[path], name, transposed, dim, tp, r, device)
             if transposed:
                 t = t.t()

@@ -1,6 +1,5 @@
 """int8 (W8A8) and grouped int4 (W4A16) weight quantization, and the
-packed-int4 KV-cache quantizer — the port of ``bcg_tpu/models/quantize.py``
-(the tensor-parallel quantizer waits for ROADMAP A13b).
+packed-int4 KV-cache quantizer — the port of ``bcg_tpu/models/quantize.py``.
 
 **Weights.** ``quantization="int8"`` stores every dense matmul weight of a
 block (``wq wk wv wo w_gate w_up w_down``) and the LM head as int8 with a
@@ -30,6 +29,19 @@ the product splits into ``x[:, :in/2]`` against the low nibbles and
 rows.  Both quantized weights are stored output-major (the int8 ``q`` for
 cuBLAS's int8 kernel, the packed ``q4`` for B5's loads): the same values
 as the JAX package's, in another layout.
+
+**Under a mesh** (the JAX ``_sharded_quantizer``'s global semantics):
+each dense weight is quantized WHOLE and then sliced
+(:func:`quantize_leaf_transform` with ``mesh``,
+``parallel/sharding.shard_leaf``), so every rank's parts are slices of
+the one-device quantized tree — a row-parallel int8 scale is the absmax
+over all input rows, a row-parallel int4 weight the contiguous slice of
+its unpacked rows repacked locally, with the gscale rows of its groups.
+A row-parallel product (:func:`dense_row_parallel`) then sums its
+partials over ``tp``: W8A8 quantizes the activation with the whole row's
+absmax (a max over ``tp``) and sums the int32 partial products exactly,
+then scales once, which is one device's product bit for bit; W8A16 and
+W4A16 sum f32 partials.
 
 **KV cache.** Packing contract of the int4 KV entries, identical to the
 JAX package's: symmetric absmax over the head dim (the last axis), range
@@ -194,7 +206,8 @@ def dense(x: torch.Tensor, w: DenseWeight, out_dtype=None,
     return (acc.float() * a_scale * w["scale"]).to(out_dtype)
 
 
-def _quantizer(mode: str):
+def weight_quantizer(mode: str):
+    """The one-device weight quantizer of ``mode`` (``"int8"`` or ``"int4"``)."""
     if mode == "int8":
         return quantize_weight
     if mode == "int4":
@@ -202,7 +215,7 @@ def _quantizer(mode: str):
     raise ValueError(f"quantization mode {mode!r}: expected 'int8' or 'int4'")
 
 
-def _is_quant_leaf(logical: str) -> bool:
+def is_quant_leaf(logical: str) -> bool:
     return logical == "lm_head" or (logical.startswith("layers.")
                                     and logical.rsplit(".", 1)[-1] in _QUANT_LEAVES)
 
@@ -216,10 +229,10 @@ def quantize_params(params: Dict, spec: ModelSpec, consume: bool = False,
     source leaf from ``params`` as it is quantized, so the peak is the
     quantized model plus one full-precision leaf — only for a dict the
     caller owns."""
-    quantize = _quantizer(mode)
+    quantize = weight_quantizer(mode)
     out = {}
     for name in list(params):
-        if _is_quant_leaf(name):
+        if is_quant_leaf(name):
             out[name] = quantize(params[name])
             if consume:
                 del params[name]
@@ -230,23 +243,83 @@ def quantize_params(params: Dict, spec: ModelSpec, consume: bool = False,
     return out
 
 
-def quantize_leaf_transform(spec: ModelSpec, mode: str = "int8"):
+def quantize_leaf_transform(spec: ModelSpec, mode: str = "int8", mesh=None):
     """``transform(logical, tensor)`` for :func:`~bcg_tpu_torch.models.
     convert.init_params`: quantizes each dense weight as it is made, so
-    the full-precision model never exists whole."""
-    quantize = _quantizer(mode)
+    the full-precision model never exists whole.
 
-    def transform(logical: str, tensor):
-        return quantize(tensor) if _is_quant_leaf(logical) else tensor
+    With a ``mesh`` whose ``tp`` exceeds 1 the transform takes each FULL
+    leaf and returns this rank's slice of it, quantized first where it is
+    a dense weight (the sharded quantizer, see the module docstring); its
+    ``shards`` attribute tells the loaders to hand it full leaves."""
+    from bcg_tpu_torch.parallel.mesh import mesh_shape
 
-    return transform
+    quantize = weight_quantizer(mode)
+    if mesh_shape(mesh)["tp"] == 1:
+        def transform(logical: str, tensor):
+            return quantize(tensor) if is_quant_leaf(logical) else tensor
+
+        transform.shards = False
+        return transform
+    from bcg_tpu_torch.parallel.sharding import shard_leaf
+
+    def sharded(logical: str, tensor):
+        full_shape = tuple(tensor.shape)
+        leaf = quantize(tensor) if is_quant_leaf(logical) else tensor
+        return shard_leaf(logical, leaf, spec, mesh, full_shape)
+
+    sharded.shards = True
+    return sharded
+
+
+def bf16_product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of bf16 operands as its f32 accumulator, before the bf16
+    rounding (a row-parallel partial, summed over tp and rounded once)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    part = (torch.mm(x2, w, out_dtype=torch.float32) if x.is_cuda
+            else x2.float() @ w.float())
+    return part.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def dense_row_parallel(x: torch.Tensor, w: DenseWeight, mesh,
+                       route: DenseRoute = DenseRoute()) -> torch.Tensor:
+    """The f32 product of a row-parallel layer: ``x`` and ``w`` are this
+    rank's slices of the contraction dim, and the partials are summed over
+    ``tp`` (a quantized ``w``; the bf16 form is the transformer's).  W8A8
+    takes the activation scale from the whole row (the max over ``tp`` of
+    the local absmax) and sums the exact int32 partial products before
+    scaling once; W8A16 (``route.w8a16_rows``) sums its bf16 products'
+    f32 accumulators and rounds once, as one device rounds its product;
+    W4A16 sums f32 partials."""
+    from bcg_tpu_torch.parallel.collectives import all_reduce
+
+    rows = x.numel() // x.shape[-1]
+    if "q" not in w:
+        return all_reduce(dense(x, w, torch.float32, route=route), mesh, "tp")
+    if 0 < route.w8a16_rows <= rows:
+        # One device rounds its bf16 product once: the partials' f32 sum,
+        # rounded once.
+        w_bf = (w["q"].float() * w["scale"]).to(torch.bfloat16)
+        part = bf16_product_f32(x.to(torch.bfloat16), w_bf)
+        return all_reduce(part, mesh, "tp").to(torch.bfloat16).float()
+    x32 = x.float()
+    absmax = all_reduce(x32.abs().amax(dim=-1, keepdim=True), mesh, "tp", op="max")
+    a_scale = torch.clamp_min(absmax, 1e-12) * _INV127
+    xq = torch.clamp(torch.round(x32 / a_scale), -127, 127).to(torch.int8)
+    acc = _int8_product(xq.reshape(rows, x.shape[-1]), w["q"])
+    acc = all_reduce(acc, mesh, "tp")
+    acc = acc.reshape(*x.shape[:-1], acc.shape[-1])
+    return acc.float() * a_scale * w["scale"]
 
 
 def ensure_quantized_head(params: Dict, spec: ModelSpec, mode: str = "int8") -> Dict:
     """Give a tied-embedding model its quantized ``lm_head`` (in place)
-    when a leaf transform built the rest of the tree."""
+    when a leaf transform built the rest of the tree.  Under a mesh the
+    rank's ``embed`` rows are its vocabulary slice, so ``embed.T`` is its
+    slice of the head's columns, whose quantization (per output column,
+    over the whole hidden dim) is the one-device head's slice."""
     if "lm_head" not in params and spec.tie_embeddings:
-        params["lm_head"] = _quantizer(mode)(params["embed"].T)
+        params["lm_head"] = weight_quantizer(mode)(params["embed"].T)
     return params
 
 

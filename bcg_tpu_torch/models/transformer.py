@@ -287,6 +287,7 @@ def init_kv_cache(spec: ModelSpec, batch: int, max_len: int,
         return KVCache(
             torch.zeros((L, 2, batch, Hkv, max_len, dh_store), dtype=torch.int8, device=device),
             torch.ones((L, 2, batch, Hkv, max_len), dtype=scale_dtype, device=device),
+            seq0=seq0, seq_total=total,
         )
     shape = (batch, max_len, Hkv, Dh)
     return KVCache(torch.zeros((L, 2) + shape, dtype=dtype, device=device), seq0=seq0,
@@ -337,13 +338,15 @@ def _write_cache(entry: Dict, k, v, pos, seq0: Optional[int] = None) -> Dict:
     per-row slots (:func:`_write_cache_rows`).  A paged entry writes
     through its block table (:func:`~bcg_tpu_torch.ops.paged_attention.paged_write`).
     ``seq0``: the entry is an sp slice holding slots ``[seq0, seq0 +
-    S_local)`` (a Python-int ``pos`` only): only the slots it owns are
-    written."""
+    S_local)``: only the slots it owns are written (a device position
+    through :func:`_write_cache_owned`, with no host read)."""
     if is_paged(entry):
         return paged_write(entry, k, v, pos)
+    if seq0 is not None and isinstance(pos, torch.Tensor):
+        return _write_cache_owned(entry, k, v, pos, seq0)
     if seq0 is not None:
         lo = max(pos, seq0)
-        hi = min(pos + k.shape[1], seq0 + entry["k"].shape[1])
+        hi = min(pos + k.shape[1], seq0 + _cache_len(entry))
         if hi <= lo:
             return entry
         k, v, pos = k[:, lo - pos:hi - pos], v[:, lo - pos:hi - pos], lo - seq0
@@ -369,6 +372,42 @@ def _write_cache(entry: Dict, k, v, pos, seq0: Optional[int] = None) -> Dict:
     else:
         for dst, src in writes:
             dst.narrow(dim, pos, T).copy_(src)
+    return entry
+
+
+def _write_cache_owned(entry: Dict, k, v, pos, seq0: int) -> Dict:
+    """Write a ``[B, T]`` chunk at the device position ``pos`` (0-d: the
+    fast-forward loop's; ``[B]``: the speculative loop's per-row slots)
+    into an sp slice holding slots ``[seq0, seq0 + S_local)``, keeping only
+    the slots it owns.  Every chunk slot maps to a distinct local slot
+    (its offset modulo ``S_local``; ``T <= S_local``), where a slot the
+    rank does not own is rewritten with its own old value: one gather and
+    one write, and the position never goes to the host."""
+    B, T = k.shape[0], k.shape[1]
+    S = _cache_len(entry)
+    if T > S:
+        raise ValueError(f"a {T}-slot write into an sp slice of {S} slots")
+    j = torch.arange(T, device=k.device)
+    rel = (pos.long() - seq0)
+    sidx = (rel[:, None] if rel.ndim == 1 else rel[None, None]) + j[None, :]
+    sidx = sidx.expand(B, T)
+    own = (sidx >= 0) & (sidx < S)
+    sidx = sidx.remainder(S)
+    bidx = torch.arange(B, device=k.device)[:, None]
+    if "k_scale" in entry:
+        quant = _kv_quantizer(entry)
+        kq, ksc = quant(k)
+        vq, vsc = quant(v)
+        # [B, Hkv, S, *] indexed on dims (0, 2): the region is [B, T, Hkv, *].
+        for name, new in (("k", kq), ("v", vq), ("k_scale", ksc), ("v_scale", vsc)):
+            dst = entry[name]
+            keep = own.view(B, T, *([1] * (new.dim() - 2)))
+            dst[bidx, :, sidx] = torch.where(keep, new, dst[bidx, :, sidx])
+    else:
+        for name, new in (("k", k), ("v", v)):
+            dst = entry[name]
+            dst[bidx, sidx] = torch.where(own[..., None, None], new.to(dst.dtype),
+                                          dst[bidx, sidx])
     return entry
 
 
@@ -400,16 +439,16 @@ def _cache_attention(q, entry: Dict, mask, scale, plan=None):
     wrappers: a paged entry through the paged kernel; a dense int4 entry
     dequantized whole to bf16 (as the JAX package does: it has no dense
     int4 kernel) and through the bf16 kernel.  q: [B, 1, H, Dh]; mask:
-    [B, S]; ``plan``: the bf16 kernel's split plan shape under a mesh
+    [B, S]; ``plan``: the kernels' split plan shape under a mesh
     (``ModelParallel.decode_plan``)."""
     if is_paged(entry):
-        return paged_decode_attention(q, entry, mask, scale)
+        return paged_decode_attention(q, entry, mask, scale, plan)
     if kv_is_int4(entry):
         k, v = _dequant_view(entry, q.dtype)
-        return decode_attention(q[:, 0], k, v, mask, scale)[:, None]
+        return decode_attention(q[:, 0], k, v, mask, scale, plan)[:, None]
     if "k_scale" in entry:
         return decode_attention_int8(q[:, 0], entry["k"], entry["v"], entry["k_scale"],
-                                     entry["v_scale"], mask, scale)[:, None]
+                                     entry["v_scale"], mask, scale, plan)[:, None]
     return decode_attention(q[:, 0], entry["k"], entry["v"], mask, scale, plan)[:, None]
 
 
@@ -455,6 +494,8 @@ def _block(
     ring: Optional[str] = None,  # "prefill": x is this rank's block of the
                                  # prompt; "cache": decode over an sp slice
     kv_valid: Optional[torch.Tensor] = None,  # [B, T] of the block (ring prefill)
+    dp_write: bool = False,      # a paged write of dp-split rows: every rank's
+                                 # rows' k/v go into every rank's pool
 ) -> Tuple[torch.Tensor, Dict]:
     B, T, D = x.shape
     par = spec.par
@@ -478,6 +519,9 @@ def _block(
         # The whole prompt's k/v, for the owners of its slots.
         kw, vw = (all_gather(t, par.mesh, "sp", dim=1) for t in (k, v))
         entry = _write_cache(cache_entry, kw, vw, kv_write_pos, seq0)
+    elif dp_write:
+        entry = _write_cache(cache_entry, *(all_gather(t, par.mesh, "dp") for t in (k, v)),
+                             kv_write_pos)
     else:
         entry = _write_cache(cache_entry, k, v, kv_write_pos, seq0)
     sel = _kv_selector(par)
@@ -494,8 +538,9 @@ def _block(
                              "or prefill_chunk_at")
         from bcg_tpu_torch.ops.ring_attention import sp_decode_attention
 
-        attn_out = sp_decode_attention(q[:, 0], sel(entry["k"]), sel(entry["v"]), attn_mask,
-                                       par.mesh, scale=scale)[:, None]
+        ck, cv, scales = _sp_slice_kv(par, entry)
+        attn_out = sp_decode_attention(q[:, 0], ck, cv, attn_mask, par.mesh, scale=scale,
+                                       **scales)[:, None]
     elif T > 1 and hist_len > 0:
         # Suffix prefill: the chunk attends over the cached prefix KV plus
         # itself.  When the chunk was just written right behind the
@@ -514,8 +559,7 @@ def _block(
         # Full prefill attends over the FRESH chunk only.
         attn_out = attention(q, sel(k), sel(v), attn_mask, scale)
     else:
-        entry_q = entry if par is None else {"k": sel(entry["k"]), "v": sel(entry["v"])}
-        attn_out = _cache_attention(q, entry_q, attn_mask, scale,
+        attn_out = _cache_attention(q, _local_entry(par, entry), attn_mask, scale,
                                     par.decode_plan(B) if par is not None else None)
     return _block_out(layer, spec, x, attn_out), entry
 
@@ -524,15 +568,21 @@ def _row_parallel(x: torch.Tensor, w, spec, split: bool) -> torch.Tensor:
     """``dense(x, w)`` of a row-parallel weight.  Where ``tp`` splits it,
     each rank's partial product is taken in f32, summed over ``tp`` in
     f32 and rounded once to the product's type — as one device's product
-    is rounded once."""
+    is rounded once; a quantized weight goes through
+    :func:`~bcg_tpu_torch.models.quantize.dense_row_parallel` (W8A8: the
+    whole row's activation scale and an exact int32 sum)."""
     par = spec.par
     if par is None or not split:
         return dense(x, w, route=spec.dense_route)
+    if isinstance(w, dict):
+        from bcg_tpu_torch.models.quantize import dense_row_parallel
+
+        return dense_row_parallel(x, w, par.mesh, route=spec.dense_route).to(x.dtype)
     if x.dtype == w.dtype == torch.bfloat16:
         # The bf16 product's f32 accumulator itself, not its bf16 rounding.
-        x2 = x.reshape(-1, x.shape[-1])
-        part = (torch.mm(x2, w, out_dtype=torch.float32) if x.is_cuda
-                else x2.float() @ w.float()).reshape(*x.shape[:-1], w.shape[-1])
+        from bcg_tpu_torch.models.quantize import bf16_product_f32
+
+        part = bf16_product_f32(x, w)
     else:
         part = dense(x, w, torch.float32, route=spec.dense_route)
     return all_reduce(part, par.mesh, "tp").to(x.dtype)
@@ -560,6 +610,30 @@ def _kv_selector(par):
     return par.select_kv
 
 
+def _local_entry(par, entry: Dict) -> Dict:
+    """A cache entry (dense or paged, any layout) narrowed to the kv heads
+    this rank's q heads read: heads are dim 2 of bf16 k/v and dim 1 of
+    quantized k/v and their scales."""
+    if par is None or par.kv_sel is None:
+        return entry
+    out = dict(entry)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in entry:
+            out[name] = par.select_kv(entry[name], 1 if "k_scale" in entry else 2)
+    return out
+
+
+def _sp_slice_kv(par, entry: Dict):
+    """``(k, v, scales)`` of an sp slice for the slices' merge
+    (``ops/ring_attention``): bf16 ``[B, S/sp, Hkv, Dh]``, or int8 ``[B,
+    Hkv, S/sp, Dh]`` with its ``k_scale``/``v_scale`` (dequantized in the
+    merge, on the rank)."""
+    e = _local_entry(par, entry)
+    if "k_scale" in e:
+        return e["k"], e["v"], {"k_scale": e["k_scale"], "v_scale": e["v_scale"]}
+    return e["k"], e["v"], {}
+
+
 def _run_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask,
                 hist_len: int = 0, ring: Optional[str] = None, kv_valid=None):
     """Apply every decoder block in order (a Python loop: PyTorch runs
@@ -567,18 +641,34 @@ def _run_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask,
     cache's write index is worked out once for all layers; over an
     sp-split cache a decode step attends its slice (``ring="cache"``),
     through the slice's columns of ``attn_mask``."""
-    if is_paged(cache[0]):
-        write_pos = paged_write_index(cache[0], x.shape[1], write_pos)
+    write_pos, dp_write = _paged_index(spec, cache, x.shape[1], write_pos)
     seq0 = getattr(cache, "seq0", None)
     if ring is None and seq0 is not None:
         ring = "cache"
-        attn_mask = attn_mask[..., seq0:seq0 + cache[0]["k"].shape[1]]
+        attn_mask = attn_mask[..., seq0:seq0 + _cache_len(cache[0])]
     for li in range(spec.num_layers):
         x, _ = _block(
             _layer(params, li), spec, x, cos, sin, write_pos, cache[li],
             attn_mask, hist_len=hist_len, seq0=seq0, ring=ring, kv_valid=kv_valid,
+            dp_write=dp_write,
         )
     return x, cache
+
+
+def _paged_index(spec, cache, T: int, write_pos):
+    """A paged cache's write index, worked out once for every layer, and
+    whether its writes gather the rows of every ``dp`` rank (a paged
+    batch split over ``dp``, ``PagedCache.dp_split``: the pool replicates
+    over ``dp``, so every rank writes every row, as GSPMD writes a
+    replicated pool from dp-sharded rows).  A dense cache's position is
+    returned as it is."""
+    if not is_paged(cache[0]):
+        return write_pos, False
+    idx = paged_write_index(cache[0], T, write_pos)
+    if not getattr(cache, "dp_split", False):
+        return idx, False
+    mesh = spec.par.mesh
+    return type(idx)(*(all_gather(t, mesh, "dp") for t in idx)), True
 
 
 def _embed(params, spec, tokens: torch.Tensor) -> torch.Tensor:
@@ -778,14 +868,13 @@ def _chunk_mask_at(cache_valid, chunk_valid, write_pos) -> torch.Tensor:
 
 
 def _run_chunk_layers(params, spec, x, cos, sin, write_pos, cache, attn_mask):
-    if is_paged(cache[0]):
-        write_pos = paged_write_index(cache[0], x.shape[1], write_pos)
+    write_pos, dp_write = _paged_index(spec, cache, x.shape[1], write_pos)
     seq0 = getattr(cache, "seq0", None)
     if seq0 is not None:
-        attn_mask = attn_mask[..., seq0:seq0 + cache[0]["k"].shape[1]]
+        attn_mask = attn_mask[..., seq0:seq0 + _cache_len(cache[0])]
     for li in range(spec.num_layers):
         x, _ = _block_chunk(_layer(params, li), spec, x, cos, sin, write_pos,
-                            cache[li], attn_mask, seq0=seq0)
+                            cache[li], attn_mask, seq0=seq0, dp_write=dp_write)
     return x, cache
 
 
@@ -823,7 +912,7 @@ def decode_chunk_spec(params, spec, tokens, chunk_valid, row_write_pos, position
 
 
 def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask,
-                 seq0: Optional[int] = None):
+                 seq0: Optional[int] = None, dp_write: bool = False):
     """Chunk decode block: write the fresh K positions into the cache, then
     attend over the WHOLE cache (prior context and the chunk itself, all
     selected by ``attn_mask`` ``[B, K, S]``) through the chunk kernels'
@@ -847,24 +936,29 @@ def _block_chunk(layer, spec, x, cos, sin, write_pos, cache_entry, attn_mask,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    if dp_write:
+        k, v = (all_gather(t, par.mesh, "dp") for t in (k, v))
     entry = _write_cache(cache_entry, k, v, write_pos, seq0)
     scale = 1.0 / math.sqrt(spec.head_dim)
+    plan = par.decode_plan(B) if par is not None else None
     if seq0 is not None:
         from bcg_tpu_torch.ops.ring_attention import sp_chunk_decode_attention
 
-        sel = _kv_selector(par)
-        attn_out = sp_chunk_decode_attention(q, sel(entry["k"]), sel(entry["v"]), attn_mask,
-                                             par.mesh, scale=scale)
-    elif is_paged(entry):
-        attn_out = paged_chunk_attention(q, entry, attn_mask, scale)
-    elif kv_is_int4(entry):
-        ck, cv = _dequant_view(entry, q.dtype)
-        attn_out = chunk_decode_attention(q, ck, cv, attn_mask, scale)
-    elif "k_scale" in entry:
-        attn_out = chunk_decode_attention_int8(q, entry["k"], entry["v"], entry["k_scale"],
-                                               entry["v_scale"], attn_mask, scale)
+        ck, cv, scales = _sp_slice_kv(par, entry)
+        attn_out = sp_chunk_decode_attention(q, ck, cv, attn_mask, par.mesh, scale=scale,
+                                             **scales)
+        return _block_out(layer, spec, x, attn_out), entry
+    e = _local_entry(par, entry)
+    if is_paged(e):
+        attn_out = paged_chunk_attention(q, e, attn_mask, scale, plan)
+    elif kv_is_int4(e):
+        ck, cv = _dequant_view(e, q.dtype)
+        attn_out = chunk_decode_attention(q, ck, cv, attn_mask, scale, plan)
+    elif "k_scale" in e:
+        attn_out = chunk_decode_attention_int8(q, e["k"], e["v"], e["k_scale"],
+                                               e["v_scale"], attn_mask, scale, plan)
     else:
-        attn_out = chunk_decode_attention(q, entry["k"], entry["v"], attn_mask, scale)
+        attn_out = chunk_decode_attention(q, e["k"], e["v"], attn_mask, scale, plan)
     return _block_out(layer, spec, x, attn_out), entry
 
 

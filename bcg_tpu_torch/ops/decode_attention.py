@@ -438,18 +438,18 @@ def _check_tile(q, k, v, mask, S, Hkv, int8, scales=()):
                              f"contiguous, got {t.dtype} {tuple(t.shape)} {t.stride()}")
 
 
-def chunk_split_plan(q, k, mask):
+def chunk_split_plan(q, k, mask, plan=None):
     """``(n_split, split_len)`` of the bf16 chunk kernel's call on these
     wrapper inputs (q ``[B, K, H, Dh]``, k ``[B, S, Hkv, Dh]``, mask
-    ``[B, K, S]``)."""
+    ``[B, K, S]``; ``plan``: :func:`_split_for`'s)."""
     return _split_for(q, k.shape[2], k.shape[1], _mask3(mask).shape[1],
-                      kernel="chunk_decode_attention")
+                      kernel="chunk_decode_attention", plan=plan)
 
 
-def chunk_decode_attention_cuda(q, k, v, mask, scale):
+def chunk_decode_attention_cuda(q, k, v, mask, scale, plan=None):
     """Launch ``csrc/chunk_decode_attention.cu`` on the current stream: one
     launch, the window split as :func:`decode_split_plan` says at the
-    kernel's occupancy."""
+    kernel's occupancy (for the ``plan`` shape where given)."""
     B, Kq, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     _check_tile(q, k, v, mask, S, Hkv, int8=False)
@@ -458,8 +458,7 @@ def chunk_decode_attention_cuda(q, k, v, mask, scale):
     fn = _build.entry("chunk_decode_attention", "bcg_chunk_decode_attention",
                       _CHUNK_ARGTYPES)
     rows = Kq * (H // Hkv)
-    n_split, split_len = _plan("chunk_decode_attention", 0, q.device.index, B, Hkv, S, rows,
-                               Mk)
+    n_split, split_len = _split_for(q, Hkv, S, Mk, kernel="chunk_decode_attention", plan=plan)
     part_ptr, count_ptr = split_buffers(q, Hkv, n_split, rows)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
@@ -470,16 +469,16 @@ def chunk_decode_attention_cuda(q, k, v, mask, scale):
     return out
 
 
-def int8_split_plan(q, k, mask):
+def int8_split_plan(q, k, mask, plan=None):
     """``(n_split, split_len)`` of the int8 kernel's call on these wrapper
     inputs (q ``[B, H, Dh]`` with mask ``[B, S]``, or q ``[B, K, H,
-    Dh]`` with mask ``[B, K, S]``)."""
+    Dh]`` with mask ``[B, K, S]``; ``plan``: :func:`_split_for`'s)."""
     q4 = q[:, None] if q.dim() == 3 else q
     return _split_for(q4, k.shape[1], k.shape[2], _mask3(mask).shape[1],
-                      kernel="decode_attention_int8")
+                      kernel="decode_attention_int8", plan=plan)
 
 
-def _int8_launch(q4, k, v, k_scale, v_scale, m3, scale):
+def _int8_launch(q4, k, v, k_scale, v_scale, m3, scale, plan=None):
     """Launch ``csrc/decode_attention_int8.cu``; q4 ``[B, Kq, H, Dh]``,
     m3 ``[B, 1 | Kq, S]`` or ``[B, S]`` (one row)."""
     B, Kq, H, Dh = q4.shape
@@ -489,8 +488,7 @@ def _int8_launch(q4, k, v, k_scale, v_scale, m3, scale):
     Mk = m3.shape[1] if m3.dim() == 3 else 1
     fn = _build.entry("decode_attention_int8", "bcg_decode_attention_int8", _INT8_ARGTYPES)
     rows = Kq * (H // Hkv)
-    n_split, split_len = _plan("decode_attention_int8", 0, q4.device.index, B, Hkv, S, rows,
-                               Mk)
+    n_split, split_len = _split_for(q4, Hkv, S, Mk, kernel="decode_attention_int8", plan=plan)
     part_ptr, count_ptr = split_buffers(q4, Hkv, n_split, rows)
     out = torch.empty_like(q4)
     err = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
@@ -502,49 +500,50 @@ def _int8_launch(q4, k, v, k_scale, v_scale, m3, scale):
     return out
 
 
-def decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale):
+def decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale, plan=None):
     """Launch ``csrc/decode_attention_int8.cu`` for one step (rows = the
     GQA group, one mask row shared by all of them)."""
     if mask.dim() != 2:
         raise ValueError(f"decode_attention_int8 takes a [B, S] mask, got {tuple(mask.shape)}")
-    out = _int8_launch(q[:, None], k, v, k_scale, v_scale, mask, scale)
+    out = _int8_launch(q[:, None], k, v, k_scale, v_scale, mask, scale, plan)
     decode_attention_int8.launches += 1
     return out[:, 0]
 
 
-def chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale):
+def chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale, plan=None):
     """Launch ``csrc/decode_attention_int8.cu`` for a chunk (rows = K x
     the GQA group, mask ``[B, K, S]``)."""
-    out = _int8_launch(q, k, v, k_scale, v_scale, mask, scale)
+    out = _int8_launch(q, k, v, k_scale, v_scale, mask, scale, plan)
     chunk_decode_attention_int8.launches += 1
     return out
 
 
-def chunk_decode_attention(q, k, v, mask, scale):
+def chunk_decode_attention(q, k, v, mask, scale, plan=None):
     """bf16 chunk decode attention: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors (``plan``: :func:`_split_for`'s)."""
     chunk_decode_attention.calls += 1
     if q.device.type == "cpu":
         return chunk_decode_attention_plain(q, k, v, mask, scale)
-    return chunk_decode_attention_cuda(q, k, v, mask, scale)
+    return chunk_decode_attention_cuda(q, k, v, mask, scale, plan)
 
 
-def decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale):
+def decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale, plan=None):
     """int8-cache decode step: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors (``plan``: :func:`_split_for`'s)."""
     decode_attention_int8.calls += 1
     if q.device.type == "cpu":
         return decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale)
-    return decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale)
+    return decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale, plan)
 
 
-def chunk_decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale):
+def chunk_decode_attention_int8(q, k, v, k_scale, v_scale, mask, scale, plan=None):
     """int8-cache chunk decode attention: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors (``plan``:
+    :func:`_split_for`'s)."""
     chunk_decode_attention_int8.calls += 1
     if q.device.type == "cpu":
         return chunk_decode_attention_int8_plain(q, k, v, k_scale, v_scale, mask, scale)
-    return chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale)
+    return chunk_decode_attention_int8_cuda(q, k, v, k_scale, v_scale, mask, scale, plan)
 
 
 chunk_decode_attention.launches = 0

@@ -91,7 +91,11 @@ def init_block_pool(spec, num_blocks: int, block_size: int, quantized=False,
     dicts, all views of one buffer per kind.  ``quantized`` is False,
     True / ``"int8"`` or ``"int4"``.  Block 0 is the null block by
     convention (the allocator never hands it out)."""
-    L, Hkv, Dh = spec.num_layers, spec.num_kv_heads, spec.head_dim
+    L, Dh = spec.num_layers, spec.head_dim
+    # Under a mesh the rank's kv heads (``parallel.sharding.paged_pool_layout``:
+    # heads over tp, blocks and table replicated).
+    par = getattr(spec, "par", None)
+    Hkv = par.kv_heads if par is not None else spec.num_kv_heads
     if quantized == "int4":
         from bcg_tpu_torch.models.quantize import kv_int4_layout
 
@@ -272,23 +276,26 @@ def _check(q, entry, mask):
     return lay, bs, Hkv
 
 
-def _plan_for(q4, lay, bs, Hkv, nblk, Mk):
-    """The split plan of a call (see :func:`split_plan`)."""
+def _plan_for(q4, lay, bs, Hkv, nblk, Mk, plan=None):
+    """The split plan of a call (see :func:`split_plan`); ``plan``: the
+    ``(batch, kv heads)`` to plan for where not the call's own (a mesh
+    rank plans the whole mesh's, as ``decode_attention._split_for``)."""
     rows = q4.shape[1] * (q4.shape[2] // Hkv)
-    return _plan("paged_attention", LAYOUTS.index(lay), q4.device.index, q4.shape[0], Hkv,
+    B, Hp = plan if plan is not None else (q4.shape[0], Hkv)
+    return _plan("paged_attention", LAYOUTS.index(lay), q4.device.index, B, Hp,
                  nblk * bs, rows, Mk, bs, MAX_SPLIT_BLOCKS * bs - SPLIT_ITER)
 
 
-def split_plan(q4, entry: Dict, m3):
+def split_plan(q4, entry: Dict, m3, plan=None):
     """``(n_split, split_len)`` of the kernel's call with q4 ``[B, Kq, H,
     Dh]`` and a ``[B, 1 | Kq, S]`` mask on a CUDA device: every split a
     whole number of pool blocks, at most :data:`MAX_SPLIT_BLOCKS` of
     them."""
     return _plan_for(q4, layout(entry), block_size(entry), num_kv_heads(entry),
-                     entry["tbl"].shape[1], m3.shape[1] if m3.dim() == 3 else 1)
+                     entry["tbl"].shape[1], m3.shape[1] if m3.dim() == 3 else 1, plan)
 
 
-def _launch(q4, entry, m3, scale):
+def _launch(q4, entry, m3, scale, plan=None):
     """Launch ``csrc/paged_attention.cu`` on the current stream; q4
     ``[B, Kq, H, Dh]``, m3 ``[B, 1 | Kq, S]`` or ``[B, S]`` (one row).
     Returns the layout."""
@@ -309,7 +316,7 @@ def _launch(q4, entry, m3, scale):
         sc_blk, sc_h = ks.stride(0), ks.stride(1)
     fn = _build.entry("paged_attention", "bcg_paged_attention", _ARGTYPES)
     nblk = tbl.shape[1]
-    n_split, split_len = _plan_for(q4, lay, bs, Hkv, nblk, Mk)
+    n_split, split_len = _plan_for(q4, lay, bs, Hkv, nblk, Mk, plan)
     part_ptr, count_ptr = split_buffers(q4, Hkv, n_split, Kq * (H // Hkv))
     out = torch.empty_like(q4)
     err = fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr, tbl.data_ptr(),
@@ -320,38 +327,38 @@ def _launch(q4, entry, m3, scale):
     return out, lay
 
 
-def paged_decode_attention_cuda(q, entry: Dict, mask, scale):
+def paged_decode_attention_cuda(q, entry: Dict, mask, scale, plan=None):
     """Launch the kernel for one step (rows = the GQA group, one mask row
     shared by all of them)."""
     if mask.dim() != 2:
         raise ValueError(f"paged_decode_attention takes a [B, S] mask, got {tuple(mask.shape)}")
-    out, lay = _launch(q, entry, mask, scale)
+    out, lay = _launch(q, entry, mask, scale, plan)
     paged_decode_attention.launches[lay] += 1
     return out
 
 
-def paged_chunk_attention_cuda(q, entry: Dict, mask, scale):
+def paged_chunk_attention_cuda(q, entry: Dict, mask, scale, plan=None):
     """Launch the kernel for a chunk (rows = K x the GQA group, mask
     ``[B, K, S]``)."""
-    out, lay = _launch(q, entry, mask, scale)
+    out, lay = _launch(q, entry, mask, scale, plan)
     paged_chunk_attention.launches[lay] += 1
     return out
 
 
 # ---------------------------------------------------------------- wrappers
 
-def paged_decode_attention(q, entry: Dict, mask, scale):
+def paged_decode_attention(q, entry: Dict, mask, scale, plan=None):
     """Single-token decode attention over a paged cache: q ``[B, 1, H,
     Dh]``, mask ``[B, S]`` attendable logical slots; returns ``[B, 1, H,
-    Dh]``.  The CUDA kernel for CUDA tensors, the gather oracle for CPU
-    tensors."""
+    Dh]``.  The CUDA kernel for CUDA tensors (``plan``: :func:`_plan_for`'s),
+    the gather oracle for CPU tensors."""
     paged_decode_attention.calls += 1
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, entry, mask, scale)
-    return paged_decode_attention_cuda(q, entry, mask, scale)
+    return paged_decode_attention_cuda(q, entry, mask, scale, plan)
 
 
-def paged_chunk_attention(q, entry: Dict, mask, scale):
+def paged_chunk_attention(q, entry: Dict, mask, scale, plan=None):
     """Chunk decode attention over a paged cache (the fast-forward and
     speculative-verify windows): q ``[B, K, H, Dh]``, mask ``[B, K, S]``;
     returns ``[B, K, H, Dh]``.  The CUDA kernel for CUDA tensors, the
@@ -359,7 +366,7 @@ def paged_chunk_attention(q, entry: Dict, mask, scale):
     paged_chunk_attention.calls += 1
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(q, entry, mask, scale)
-    return paged_chunk_attention_cuda(q, entry, mask, scale)
+    return paged_chunk_attention_cuda(q, entry, mask, scale, plan)
 
 
 paged_decode_attention.launches = dict.fromkeys(LAYOUTS, 0)

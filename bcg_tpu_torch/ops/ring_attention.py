@@ -117,7 +117,11 @@ def sp_chunk_decode_attention(q, k, v, mask, mesh, axis_name: str = "sp",
     ``v_scale`` ``[B, Hkv, S/sp]``, dequantized here, locally), ``mask``
     ``[B, K, S/sp]`` the attendable slots of the slice.  The slices'
     partials merge in f32: one max and two sum ``all_reduce``s of
-    ``[B, K, Hkv, G]``-sized statistics; the cache never moves."""
+    ``[B, K, Hkv, G]``-sized statistics; the cache never moves.  The
+    mask carries where the chunk was written (the fast-forward loop's
+    0-d device position, the speculative verify's per-row positions:
+    ``transformer._chunk_mask_at``), so every decode loop attends through
+    this one form."""
     B, K, H, Dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     if k_scale is not None:

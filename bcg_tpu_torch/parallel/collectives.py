@@ -1,11 +1,14 @@
 """The collectives each mesh dimension needs, over that dimension's process
 group — what XLA inserts from sharding annotations in the JAX package.
 
-* :func:`all_reduce` (sum or max), :func:`all_gather` along a tensor
+* :func:`all_reduce` (sum or max; an int32 sum is exact, which the
+  W8A8 row-parallel product needs), :func:`all_gather` along a tensor
   dimension, :func:`broadcast` from a group-local rank and
   :func:`ring_shift` (every rank sends to its successor on the axis and
   receives from its predecessor: the ring attention's neighbour exchange,
   ``batch_isend_irecv``).
+* :func:`broadcast_object`: a picklable object of one rank on every rank
+  of the world (the serving tier's dispatches, led from rank 0).
 * A size-1 axis (or no mesh) returns its input untouched and launches
   nothing.
 * Where an axis's group is gloo and a tensor lies on CUDA (ranks sharing
@@ -119,3 +122,16 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh, axis: str) -> List[torch.T
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [o.to(t.device) for o, t in zip(outs, tensors)] if staged else outs
+
+
+def broadcast_object(obj, src: int = 0):
+    """``obj`` of global rank ``src`` on every rank of the world (pickled,
+    over the world's default group, whose object collectives go through
+    host memory on gloo); ``obj`` is ignored on the other ranks.  Without
+    a world, ``obj`` itself."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return obj
+    obs_counters.inc("engine.collective.broadcast_object")
+    box = [obj if dist.get_rank() == src else None]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]

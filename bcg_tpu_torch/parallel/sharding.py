@@ -14,9 +14,20 @@ layout implies (``models/transformer.py``).
   head its vocabulary columns; norms replicate.
 * Guards, as in the JAX package: heads that do not divide ``tp``
   replicate (q heads: wq/wo/bq; kv heads: wk/wv/bk/bv); an int8 ``scale``
-  follows its weight's output dim; an int4 ``gscale`` replicates its group
-  dim.  Where XLA would pad an indivisible dim, the port replicates the
-  leaf instead (the vocabulary and the MLP's inner dim).
+  follows its weight's output dim (replicated for a row-parallel parent:
+  its absmax runs over ALL input rows, as one device's does).  Where XLA
+  would pad an indivisible dim, the port replicates the leaf instead (the
+  vocabulary and the MLP's inner dim).
+* Quantized leaves keep the one-device tree's values (GSPMD's global
+  semantics): each rank's parts are slices of the one-device quantized
+  leaf.  A column-parallel int4 parent slices its output columns.  A
+  row-parallel one (``wo``, ``w_down``) takes the CONTIGUOUS slice of the
+  unpacked input rows its activations hold, repacked locally (local rows
+  ``i`` and ``i + K_local/2`` in one byte, :func:`repack_int4_rows`) —
+  where XLA splits the packed rows, which would hand a rank global rows
+  ``i`` and ``i + K/2`` — and the ``gscale`` rows of exactly its groups
+  (the group is the full leaf's; a group that straddles two ranks, at the
+  tiny widths, is repeated to smaller groups of the same scale).
 * KV caches: batch over ``dp``, sequence over ``sp``, kv heads over
   ``tp``, each axis only where it divides (else replicated); a paged
   pool splits kv heads only, and its block table replicates.
@@ -27,6 +38,7 @@ layout implies (``models/transformer.py``).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,8 +92,9 @@ def leaf_dim(logical_name: str, spec: ModelSpec, tp: int) -> Optional[int]:
         # parent, replicated with a row-parallel one.
         return 0 if dim == out_dim else None
     if quant == "gscale":
-        # [in/group, out]: the group dim always replicates.
-        return 1 if dim == out_dim else None
+        # [in/group, out]: a column-parallel parent's output columns, a
+        # row-parallel parent's own groups.
+        return 1 if dim == out_dim else 0
     return dim
 
 
@@ -113,8 +126,16 @@ def shard_leaf(name: str, leaf, spec: ModelSpec, mesh, full_shape: Tuple[int, ..
         out = {}
         for part, t in leaf.items():
             dim = leaf_dim(f"{name}.{part}", spec, tp)
-            full = None if dim is None else _part_extent(part, dim, full_shape)
-            out[part] = _owned(_slice(t, dim, tp, r, full), t) if dim is not None else t
+            if dim is None:
+                out[part] = t
+                continue
+            full = _part_extent(part, dim, full_shape)
+            if part == "q4" and dim == 0:
+                out[part] = _row_slice_int4(t, tp, r, full)
+            elif part == "gscale" and dim == 0:
+                out[part] = _row_slice_groups(t, tp, r, full, full_shape[0])
+            else:
+                out[part] = _owned(_slice(t, dim, tp, r, full), t)
         return out
     dim = leaf_dim(name, spec, tp)
     if dim is None:
@@ -122,28 +143,84 @@ def shard_leaf(name: str, leaf, spec: ModelSpec, mesh, full_shape: Tuple[int, ..
     return _owned(_slice(leaf, dim, tp, r, full_shape[dim]), leaf)
 
 
+def repack_int4_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Unpacked int4 values ``[K, N]`` (int8 in [-8, 7]) packed two a byte
+    along the contraction axis, rows ``i`` and ``i + K/2`` in one byte
+    (``models/quantize.py``'s packing), output-major as the B5 kernel
+    takes them."""
+    half = rows.shape[0] // 2
+    packed = ((rows[:half] & 0x0F) | (rows[half:] << 4)).to(torch.int8)
+    return packed.t().contiguous().t()
+
+
+def _row_slice_int4(q4: torch.Tensor, tp: int, r: int, full: int) -> torch.Tensor:
+    """Rank ``r``'s contiguous ``1/tp`` of a row-parallel int4 weight's
+    unpacked input rows, repacked locally; a leaf already at the local
+    extent is kept (idempotent)."""
+    from bcg_tpu_torch.ops.w4_matmul import unpack_int4
+
+    if q4.shape[0] != full:
+        return q4
+    rows = unpack_int4(q4)
+    n = rows.shape[0] // tp
+    if n % 2:
+        raise ValueError(f"int4 row-parallel slice of {n} rows cannot be packed in pairs")
+    return repack_int4_rows(rows.narrow(0, r * n, n))
+
+
+def _row_slice_groups(gscale: torch.Tensor, tp: int, r: int, groups: int,
+                      d_in: int) -> torch.Tensor:
+    """The scales of rank ``r``'s contiguous ``d_in / tp`` input rows of a
+    row-parallel int4 weight of ``groups`` groups: its own group rows when
+    the groups divide its rows, else each group row repeated to groups of
+    ``gcd(group, d_in / tp)`` rows (a group straddling two ranks), so that
+    every local row reads its own scale.  A leaf already at the local
+    extent is kept."""
+    if gscale.shape[0] != groups:
+        return gscale
+    g, n = d_in // groups, d_in // tp
+    g_loc = math.gcd(g, n)
+    if g_loc != g:
+        gscale = gscale.repeat_interleave(g // g_loc, dim=0)
+    per = n // g_loc
+    return gscale.narrow(0, r * per, per).contiguous()
+
+
 def _part_extent(part: str, dim: int, full_shape) -> int:
     """The unsharded extent of a quantized part's split dim: ``q``/``q4``
-    and ``gscale`` split their parent's dim (``q4`` packs the input dim,
-    which never splits here: row-parallel int4 parents are split on the
-    packed rows, as XLA splits them), ``scale`` its output."""
+    split their parent's dim (``q4``'s input dim in packed rows),
+    ``scale`` its output, ``gscale`` its parent's output or (row-parallel)
+    the full leaf's groups, whose group divides this rank's rows."""
     d_in, d_out = full_shape
     if part == "scale":
         return d_out
     if part == "q4" and dim == 0:
         return d_in // 2
+    if part == "gscale" and dim == 0:
+        from bcg_tpu_torch.models.quantize import int4_group_for
+
+        return d_in // int4_group_for(d_in)
     return (d_in, d_out)[dim]
 
 
-def shard_params(params: Dict, spec: ModelSpec, mesh) -> Dict:
+def shard_params(params: Dict, spec: ModelSpec, mesh, quantize=None) -> Dict:
     """This rank's slice of every leaf of a flat parameter dict (full or
-    already sharded leaves; a size-1 ``tp`` keeps everything)."""
+    already sharded leaves; a size-1 ``tp`` keeps everything).
+    ``quantize(full leaf) -> quantized dict``: applied to each full bf16
+    dense weight BEFORE it is sliced (the sharded quantizer's order, so
+    the slices are the one-device quantized tree's), one leaf at a time."""
+    from bcg_tpu_torch.models.quantize import is_quant_leaf
     from bcg_tpu_torch.models.transformer import param_plan
 
     plan = {n: tuple(shape) for n, _, shape in param_plan(spec)}
     if spec.tie_embeddings and "lm_head" in params:
         plan["lm_head"] = (spec.hidden_size, spec.vocab_size)
-    return {n: shard_leaf(n, leaf, spec, mesh, plan[n]) for n, leaf in params.items()}
+    out = {}
+    for n, leaf in params.items():
+        if quantize is not None and is_quant_leaf(n) and not isinstance(leaf, dict):
+            leaf = quantize(leaf)
+        out[n] = shard_leaf(n, leaf, spec, mesh, plan[n])
+    return out
 
 
 def local_heads(spec: ModelSpec, tp: int) -> Tuple[int, int]:
@@ -211,7 +288,7 @@ def kv_cache_bytes_per_device(mesh, cache_shapes, quantized=False) -> int:
 
 def tree_bytes_per_device(tree) -> int:
     """Bytes of a rank's (sharded) parameter dict: its local tensors,
-    which are the shards."""
+    which are the shards (a quantized leaf's parts summed)."""
     total = 0
     for leaf in tree.values():
         for t in (leaf.values() if isinstance(leaf, dict) else (leaf,)):

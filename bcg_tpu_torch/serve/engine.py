@@ -47,10 +47,20 @@ class ServingEngine(InferenceEngine):
                  tenant: Optional[str] = None,
                  defer_wait_ceiling_s: Optional[float] = None,
                  **scheduler_kwargs):
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                "ServingEngine over an engine on a mesh: not ported to the PyTorch "
-                "engine yet (ROADMAP A13b)")
+        # Over an engine on a mesh of ranks, rank 0 leads: its scheduler's
+        # every engine call goes to the other ranks first, which follow
+        # (serve/mesh.py); shutdown() ends their loops.
+        from bcg_tpu_torch.serve import mesh as mesh_serving
+
+        self.leader = None
+        if mesh_serving.spans_world(engine):
+            if not mesh_serving.is_leader():
+                raise ValueError(
+                    "ServingEngine over a mesh engine runs on rank 0; the other ranks "
+                    "follow its dispatches (bcg_tpu_torch.serve.mesh.follow)")
+            engine = self.leader = mesh_serving.MeshLeader(engine)
+            scheduler_kwargs["engine_factory"] = self.leader.wrap_factory(
+                scheduler_kwargs.get("engine_factory"))
         self._engine = engine
         self._owns_inner = owns_inner
         self._tenant = tenant
@@ -147,6 +157,8 @@ class ServingEngine(InferenceEngine):
 
     def shutdown(self) -> None:
         self.scheduler.close()
+        if self.leader is not None:
+            self.leader.close()
         if self._owns_inner:
             # The scheduler's CURRENT engine, not the construction-time
             # handle: the supervisor may have swapped in a rebuilt
@@ -187,7 +199,16 @@ def run_serving_simulations(
     Pass a pre-built ``serving`` proxy to share/inspect its scheduler;
     it then stays OPEN after the call (caller-owned), whereas an
     internally built one is closed on return.
+
+    Over an engine on a mesh of ranks the games play on rank 0; every
+    other rank follows its dispatches (``serve/mesh.follow``) until rank 0
+    closes, and returns ``None`` for each run.
     """
+    from bcg_tpu_torch.serve import mesh as mesh_serving
+
+    if serving is None and mesh_serving.spans_world(engine) and not mesh_serving.is_leader():
+        mesh_serving.follow(engine, scheduler_kwargs.get("engine_factory"))
+        return [None] * len(run_fns)
     caller_owned = serving is not None
     if serving is None:
         serving = ServingEngine(engine, **scheduler_kwargs)
@@ -217,6 +238,9 @@ def run_serving_simulations(
     for t in threads:
         t.join()
     if not caller_owned:
-        # The inner engine stays caller-owned; only the scheduler closes.
+        # The inner engine stays caller-owned; only the scheduler (and a
+        # mesh's followers) close.
         serving.scheduler.close()
+        if serving.leader is not None:
+            serving.leader.close()
     return results

@@ -1,12 +1,13 @@
 """The one-rank engine's own spread: the floor under ``chip_smoke.py``'s
-P14 logits limit.
+mesh paths' (P14, P15) logits limit.
 
 Run from the repository root on a machine with one CUDA card:
 
     python -m bcg_tpu_torch.tools.mesh_floor
 
 Makes ``bcg-tpu/bench-8b``'s random weights on the card (seed 0, as
-``chip_smoke.py`` does), keeps 12 of 36 layers, and plays P14's reference
+``chip_smoke.py`` does), keeps ``--depth`` of 36 layers (default the mesh
+paths' ``chip_smoke.MESH_DEPTH``), and plays P14's reference
 round on the default one-rank engine: one greedy round of the 8 honest +
 2 Byzantine game, its tokens and the logits of the sampler calls that P14
 holds kept (``chip_smoke.TeacherForcing``).  Then the same round twice
@@ -28,7 +29,10 @@ import sys
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--depth", type=int, default=None,
+                        help="layers kept (default: chip_smoke.MESH_DEPTH, the mesh paths')")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -36,6 +40,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
+
+    args.depth = args.depth or cs.MESH_DEPTH
     from bcg_tpu_torch.engine.torch_engine import TorchEngine
     from bcg_tpu_torch.models.configs import spec_for_model
     from bcg_tpu_torch.models.convert import init_params
@@ -48,7 +54,7 @@ def main() -> int:
     gen = torch.Generator(device=cs.DEVICE)
     gen.manual_seed(0)
     spec, params = cs.cut_depth(init_params(spec_for_model(cs.MODEL), gen, cs.DEVICE),
-                                cs.P14_DEPTH)
+                                args.depth)
     cfg = cs.game_config(1, greedy=True)
     split_for = da._split_for
 
@@ -78,7 +84,7 @@ def main() -> int:
         by_step = {f"{loop}.{step}": cs._rel_rows(logits, ref.logits[loop][step])
                    for loop, steps in enumerate(rec.logits) for step, logits in steps.items()}
         print(f"mesh_floor {name}: " + json.dumps(dict(
-            model=cs.MODEL, layers=cs.P14_DEPTH, rel_l2=max(by_step.values()),
+            model=cs.MODEL, layers=args.depth, rel_l2=max(by_step.values()),
             rel_l2_by_step=by_step, flips=rec.flips, game_equal=game == ref_game,
             sampler_calls=[len(loop) for loop in rec.tokens])), flush=True)
     return 0

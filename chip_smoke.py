@@ -19,7 +19,8 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    then the same with int8 and int4 weights over a bf16 cache (int4
    through B5, held to the CPU run with bf16 leaves).
 4. Nine game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers
-   (P2-P9: 12), random weights made once on the card from a seed and
+   (P2, P5, P9: 12; P3, P4, P6-P8: 4), random weights made once on the
+   card from a seed and
    shared by every engine through ``TorchEngine(params=...)``), each a
    full 8 honest + 2 Byzantine game through
    ``BCGSimulation(config, engine=TorchEngine(...))``.
@@ -50,8 +51,8 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
      round, timed, then profiled with B5's inputs captured in the
      profiled round.
    P8 and P9 quantize their own copies of the shared bf16 weights.  P2,
-   P5, P8 and P9 run the first 12 of 36 layers (the script's time limit;
-   their lines print ``layers``).
+   P5 and P9 run the first 12 of 36 layers, P3, P4, P6, P7 and P8 the
+   first 4 (the script's time limit; their lines print ``layers``).
    The paged paths' lines add the pool's block counts and prefix hit
    rate and the private KV bytes of the largest batch; every line has the
    KV bytes of its largest batch (P1's: the dense cache at the same game).
@@ -209,39 +210,62 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    and B2 calls captured and held in the kernel phase as
    ``flash_prefill@P12``, ``decode_attention@P12`` and
    ``guided_sampler@P12`` (``game P12:``).
-11. P14 (after P12, before the kernel phase): tensor, sequence and data
-   parallelism (ROADMAP A13a) on the one card, as three worlds of two
-   ranks, both ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on
-   one device; every gloo collective of a CUDA tensor is staged through
-   pinned host memory), each started by
-   ``parallel.distributed.spawn_world`` with a wall limit: ``tp=2`` (mesh
-   1x2x1), ``sp=2`` (1x1x2) and ``dp=2`` (2x1x1, ``spmd_exchange`` on).
+11. The mesh paths, P14 and P15 (after P12, before the kernel phase), on
+   the one card as three worlds of two ranks, one a mesh shape, both
+   ranks on ``cuda:0`` over gloo (NCCL refuses two ranks on one device;
+   every gloo collective of a CUDA tensor is staged through pinned host
+   memory), each started once by ``parallel.distributed.spawn_world``
+   with a wall limit: ``tp=2`` (mesh 1x2x1), ``sp=2`` (1x1x2) and
+   ``dp=2`` (2x1x1).  Each world runs its arms one after another
+   (``MESH_WORLDS``):
+
+   * P14 (A13a), the default engine: ``P14 tp``, ``P14 sp`` and ``P14 dp``
+     (``spmd_exchange`` on);
+   * P15 (A13b items 1-5), every other engine the port serves on one
+     device, each the engine of the path it mirrors: ``tp-w8-ff`` (P8:
+     W8A8 weights, int8 cache, fast-forward, compact JSON), ``tp-w4-paged-
+     spec`` (P9 x P7: W4A16 weights through B5, a paged int8 pool,
+     speculative), ``sp-int8-ff`` (P2), ``sp-spec`` (P3), ``dp-paged``
+     (P5, two rounds) and ``served`` (P1's engine behind
+     ``ServingEngine``: rank 0 leads, rank 1 follows; two greedy games).
+
    Each rank draws bench-8b's weights through
-   ``loader.init_random_params_sharded`` (seed 0, its slices only) and
-   keeps 12 of 36 layers (``cut_depth``'s cut); each rank's leaves must
-   checksum to the slices of the parent's shared weights.  The reference
-   is the parent's own default engine over ``cut_depth(params, 12)``: it
-   plays one greedy round of P1's 8H+2B game, and its tokens are kept.
-   Each arm plays the same round fed those tokens (teacher-forced: each
-   sampler call still runs B2 on the arm's own logits, then takes the
-   reference's token), so a near tie flipped by another order of sums
-   cannot change what follows.  Every rank's game must equal the
-   reference's (decisions, votes, the statistics), with no failed row;
-   the logits of the prefill and of decode steps 1, 2, 4, ..., 256 of each
-   guided loop (gathered over the vocabulary under tp; each rank's rows
-   under dp) must lie within ``P14_LOGIT_TOL`` relative L2 a row of the
-   reference's (the live rows whose own greedy token differed are
-   counted and printed as ``flips``).
-   Rank 0 of the tp arm
-   captures B1, B3a and B2 at the sharded shapes (16 q and 4 kv heads a
-   rank; B2 over the gathered ``[10, 151936]`` logits), held in the
-   kernel phase as ``flash_prefill@P14``, ``decode_attention@P14`` and
-   ``guided_sampler@P14``.  Prints ``game P14 <arm>:`` (failed rows,
-   the logits' spread by held call, flips, launches per rank of B1, B3a
-   and B2, a steady decode step's
-   collectives by kind, how many were staged and its time, peak memory
-   per rank, the arm's wall).  A rank's failure or a world past its limit
-   fails the run with the rank's output.
+   ``loader.init_random_params_sharded`` (seed 0, its slices only; the
+   quantized arms through the sharded quantizer, each full leaf quantized
+   and then sliced) and keeps ``MESH_DEPTH`` (4) of 36 layers; each
+   rank's leaf parts must checksum to the slices of the parent's shared
+   weights (quantized whole first).  Each arm's reference is the
+   parent's one-rank engine of its config (P14's arms share P1's) over
+   the same layers: it plays one greedy round of the 8H+2B game, and its
+   tokens and the speculative verify's accepted counts are kept.  Each
+   arm plays the same round fed them (teacher-forced: each sampler call
+   still runs B2 on the arm's own logits, then takes the reference's
+   token; each verify takes the reference's count), so a near tie
+   flipped by another order of sums cannot change what follows.  Every
+   rank's game must equal the reference's (decisions, votes, the
+   statistics), with no failed row; the logits of the prefill and of
+   decode steps 1, 2, 4, ..., 256 of each guided loop (gathered over the
+   vocabulary under tp; each rank's rows under dp) must lie within
+   ``P14_LOGIT_TOL`` relative L2 a row of the reference's (the live rows
+   whose own greedy token or accepted count differed are counted as
+   ``flips``); each kernel the arm reaches must launch on every rank; a
+   dp arm's two paged pools must be equal byte for byte.  The served arm
+   is held the other way round: no failed row, a dispatch merging both
+   games' rows split over the ranks, both ranks' outputs identical, and
+   rank 0's dispatches replayed through the one-rank engine fed the
+   arm's tokens, its logits held to the arm's as above.  Rank 0 of the tp
+   world captures B1, B3a and B2 in ``P14 tp`` (16 q and 4 kv heads a
+   rank; B2 over the gathered ``[10, 151936]`` logits), and B5 (its LM
+   head at N 75,968 and each layer shape, w_down at K 6144), B3b-chunk
+   and B4 int8 chunk at 4 kv heads in the tp P15 arms, held in the
+   kernel phase as ``flash_prefill@P14``, ``decode_attention@P14``,
+   ``guided_sampler@P14``, ``w4a16_matmul@P15``,
+   ``chunk_decode_attention_int8@P15`` and ``paged_chunk_attention_int8@P15``.
+   Prints ``game P14 <arm>:`` / ``game P15 <arm>:`` (failed rows, the
+   logits' spread by held call, flips, launches per rank, a steady step's
+   collectives by kind, how many were staged and its time, peak memory and
+   weight bytes per rank, the arm's wall).  A rank's failure or a world
+   past its limit fails the run with the rank's output.
 12. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
@@ -770,29 +794,32 @@ def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
 # the counted game (or with ``capture_in_profile`` in the profiled round;
 # ``capture_forms``: the ones captured, if not all; ``capture=False``:
 # none; ``depth``: the layers kept, if not all).  P1 and P2 play one
-# round, P5 two (its second extends the first's radix chains).  P8 and P9
-# run a third of the layers, and so do P2 and P5, the costliest of the
-# rest (100-124 s each at 36 layers), since P14 joined: the script's time
-# limit is shared by all its paths.
+# round, P5 two (its second extends the first's radix chains).  P9 runs a
+# third of the layers, and so do P2 and P5, the costliest of the rest
+# (100-124 s each at 36 layers), since P14 joined; P3, P4, P6 and P7 (the
+# untimed paths: their kernels' calls have the same shapes at any depth)
+# and P8 run 4 since P15 joined: the script's time limit is shared by all
+# its paths.
 PATHS = {
     "P1": dict(engine={}, rounds=1, timed=True,
                kernels=("flash_prefill", "decode_attention", "guided_sampler")),
     "P2": dict(engine=dict(kv_cache_dtype="int8", decode_fast_forward=True,
                            guided_compact_json=True), rounds=1, timed=True, depth=12,
                kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
-    "P3": dict(engine=dict(spec_decode=True), rounds=1, timed=False,
+    "P3": dict(engine=dict(spec_decode=True), rounds=1, timed=False, depth=4,
                kernels=("flash_prefill", "chunk_decode_attention", "guided_sampler")),
-    "P4": dict(engine=dict(kv_cache_dtype="int8"), rounds=1, timed=False,
+    "P4": dict(engine=dict(kv_cache_dtype="int8"), rounds=1, timed=False, depth=4,
                kernels=("flash_prefill", "decode_attention_int8", "guided_sampler")),
     "P5": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS), rounds=2,
                timed=True, depth=12,
                kernels=("flash_prefill", "paged_decode_attention_bf16", "guided_sampler")),
     "P6": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS,
                            kv_cache_dtype="int4", decode_fast_forward=True,
-                           guided_compact_json=True), rounds=1, timed=False,
+                           guided_compact_json=True), rounds=1, timed=False, depth=4,
                kernels=("flash_prefill", "paged_chunk_attention_int4", "guided_sampler")),
     "P7": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS,
                            kv_cache_dtype="int8", spec_decode=True), rounds=1, timed=False,
+               depth=4,
                kernels=("flash_prefill", "paged_chunk_attention_int8", "guided_sampler")),
     # The weight-quantized paths: each engine quantizes its own copy of the
     # shared bf16 weights.  P8 is the JAX bench's default 8B path (int8
@@ -801,7 +828,7 @@ PATHS = {
     # profiled, B5's inputs captured.
     "P8": dict(engine=dict(quantization="int8", kv_cache_dtype="int8",
                            decode_fast_forward=True, guided_compact_json=True), rounds=1,
-               timed=True, capture=False, depth=12,
+               timed=True, capture=False, depth=4,
                kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
     "P9": dict(engine=dict(quantization="int4"), rounds=1, timed=True, depth=12,
                capture_forms=("w4a16_matmul",), capture_in_profile=True,
@@ -1960,74 +1987,131 @@ def phase_p12(params):
     return counts, cap.inputs()
 
 
-# P14: the three meshes, the depth kept, the logits' limit (relative L2
-# per row against the one-rank engine, teacher-forced: every arm is fed
-# the reference's tokens), the sampler calls of each guided loop whose
-# logits are held to it (0: the prefill's), the decode step whose time and
-# collectives are printed, and a world's wall limit.  The limit is fixed,
-# 2.6 times the one-rank engine's own spread under a change of summation
-# order alone: fed its own tokens with B3a's split planned for half the
-# kv heads, it moves 0.0112-0.0117 a row at every held decode step, 0 at
-# the prefills (``python -m bcg_tpu_torch.tools.mesh_floor`` on an H100
-# 80GB HBM3 at 700 W; PERF.md).  A fault (a wrong head, a lost cache
-# write) moves a row by 0.1 or more.
-P14_ARMS = {"tp": dict(tensor_parallel_size=2), "sp": dict(sequence_parallel_size=2),
-            "dp": dict(data_parallel_size=2)}
-P14_DEPTH = 12
+# The mesh paths, P14 and P15: the depth kept, the logits' limit
+# (relative L2 per row against the one-rank engine, teacher-forced: every
+# arm is fed its reference's tokens), the sampler calls of each guided
+# loop whose logits are held to it (0: the prefill's), the step whose time
+# and collectives are printed, and a world's wall limit.  The limit is
+# fixed, 2.6 times the one-rank engine's own spread under a change of
+# summation order alone: fed its own tokens with B3a's split planned for
+# half the kv heads, it moves 0.0112-0.0117 a row at every held decode
+# step at 12 layers, 0 at the prefills (``python -m
+# bcg_tpu_torch.tools.mesh_floor --depth 12`` on an H100 80GB HBM3 at
+# 700 W; PERF.md).  A fault (a wrong head, a lost cache write) moves a row
+# by 0.1 or more.
+MESH_DEPTH = 4
 P14_LOGIT_TOL = 0.03
 P14_CHECK_STEPS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256)
 P14_TIMED_STEP = 5
-P14_WORLD_LIMIT_S = 300
-P14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "p14")
+MESH_WORLD_LIMIT_S = 480
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh")
+# One world a mesh shape, its arms one after another (a world starts
+# once).  P14: the default engine under tp, sp and dp (A13a).  P15: every
+# other engine the port serves on one device (A13b items 1-5), each arm
+# the engine of the one-device path it mirrors.
+MESH_WORLDS = {
+    "tp": (dict(tensor_parallel_size=2), ("p14-tp", "tp-w8-ff", "tp-w4-paged-spec")),
+    "sp": (dict(sequence_parallel_size=2), ("p14-sp", "sp-int8-ff", "sp-spec")),
+    "dp": (dict(data_parallel_size=2), ("p14-dp", "dp-paged", "served")),
+}
+_P1_KERNELS = ("flash_prefill", "decode_attention", "guided_sampler")
+# Each arm: its path, engine knobs, the kernels it must launch on every
+# rank (under sp the ring and the slices' merge take attention's place),
+# the forms rank 0 of the tp world captures in it, and its reference (the
+# P14 arms share one: P1's engine at the same depth).
+MESH_ARMS = {
+    "p14-tp": dict(path="P14", engine={}, kernels=_P1_KERNELS, capture=_P1_KERNELS,
+                   reference="p14"),
+    "p14-sp": dict(path="P14", engine={}, kernels=("guided_sampler",), reference="p14"),
+    "p14-dp": dict(path="P14", engine={}, spmd_exchange=True, kernels=_P1_KERNELS,
+                   reference="p14"),
+    # P8: int8 weights (W8A8), int8 cache, fast-forward, compact JSON.
+    "tp-w8-ff": dict(path="P15", engine=dict(quantization="int8", kv_cache_dtype="int8",
+                                             decode_fast_forward=True,
+                                             guided_compact_json=True),
+                     kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler"),
+                     capture=("chunk_decode_attention_int8",)),
+    # P9 x P7: int4 weights (W4A16), a paged int8 pool, speculative.
+    "tp-w4-paged-spec": dict(path="P15", engine=dict(quantization="int4", paged_kv=True,
+                                                     kv_pool_blocks=PAGED_POOL_BLOCKS,
+                                                     kv_cache_dtype="int8", spec_decode=True),
+                             kernels=("flash_prefill", "paged_chunk_attention_int8",
+                                      "guided_sampler", "w4a16_matmul"),
+                             capture=("w4a16_matmul", "paged_chunk_attention_int8")),
+    # P2: int8 cache, fast-forward, compact JSON.
+    "sp-int8-ff": dict(path="P15", engine=dict(kv_cache_dtype="int8", decode_fast_forward=True,
+                                               guided_compact_json=True),
+                       kernels=("guided_sampler",)),
+    # P3: bf16 cache, speculative.
+    "sp-spec": dict(path="P15", engine=dict(spec_decode=True), kernels=("guided_sampler",)),
+    # P5: a paged bf16 pool, the plain loop; two rounds (the second's
+    # prompts extend the first's radix chains).
+    "dp-paged": dict(path="P15", engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS),
+                     rounds=2, kernels=("flash_prefill", "paged_decode_attention_bf16",
+                                        "guided_sampler")),
+    # P1's engine behind ServingEngine: two greedy games, default linger.
+    "served": dict(path="P15", engine={}, kernels=_P1_KERNELS),
+}
+P15_SERVED_SEEDS = (0, 1)
 
 
-def leaf_checksums(params, chunk: int = 1 << 26):
-    """Per leaf, an exact order-free checksum of its bf16 bits (the sum of
-    the 16-bit patterns, and the sum weighted by position), computed in
-    int64 on the card ``chunk`` elements at a time."""
-    import torch
-
-    out = {}
-    for name, t in params.items():
-        flat = t.contiguous().view(torch.int16).flatten()
-        total = weighted = 0
-        for i in range(0, flat.numel(), chunk):
-            bits = flat[i:i + chunk].to(torch.int64)
-            w = (torch.arange(i, i + bits.numel(), device=bits.device, dtype=torch.int64)
-                 % 65521 + 1)
-            total += int(bits.sum())
-            weighted += int((bits * w).sum())
-        out[name] = [total, weighted]
-    return out
+def _arm_label(arm: str) -> str:
+    """The arm's line name: ``P14 tp`` or ``P15 tp-w8-ff``."""
+    conf = MESH_ARMS[arm]
+    return f"{conf['path']} {arm[4:] if arm.startswith('p14-') else arm}"
 
 
 class TeacherForcing:
     """Wraps the engine's ``make_fused_sampler`` (each guided loop's
-    sampler) and ``decode_step``.  Keeps, per loop, each sampler call's
-    tokens and, at ``P14_CHECK_STEPS``, its logits (on the host), and the
+    sampler), the speculative verify's acceptance (``accept_draft``) and
+    each loop's step (``decode_step``, the fast-forward ``decode_chunk``,
+    the verify's ``decode_chunk_spec``).  Keeps, per loop, each sampler
+    call's tokens, each verify's accepted counts and, at
+    ``P14_CHECK_STEPS``, the sampler's logits (on the host), and the
     ``engine.collective.*`` counts and time of the ``P14_TIMED_STEP``-th
-    decode step.  Given ``forced`` (another run's ``tokens``), every
-    sampler call still samples the logits it is given (B2 launches as it
-    would), then returns the forced tokens (rows ``dp_rank`` of ``dp``) and
-    the grammar states they lead to; ``flips`` counts the live rows whose
-    own greedy token differed."""
+    step.  Given ``forced`` (another run's :meth:`record`, or its
+    ``tokens`` alone), every sampler call still samples the logits it is
+    given (B2 launches as it would), then returns the forced tokens (rows
+    ``dp_rank`` of ``dp``) and the grammar states they lead to, and every
+    verify takes the forced accepted counts; ``flips`` counts the live
+    rows whose own greedy token (or accepted count) differed."""
 
     def __init__(self, forced=None, dp_rank=0):
-        from bcg_tpu_torch.engine import torch_engine as te
+        from bcg_tpu_torch.engine import speculative, torch_engine as te
+        from bcg_tpu_torch.models import transformer
 
-        self.forced, self.dp_rank = forced, dp_rank
-        self.tokens, self.logits = [], []
+        if isinstance(forced, dict):
+            self.forced, self.forced_acc = forced["tokens"], forced["accepts"]
+        else:
+            self.forced, self.forced_acc = forced, None
+        self.dp_rank = dp_rank
+        self.tokens, self.accepts, self.logits = [], [], []
         self.flips = 0
         self.steps = 0
         self.collectives, self.step_ms = {}, None
-        self._te = te
-        self._orig = (te.make_fused_sampler, te.decode_step)
-        te.make_fused_sampler, te.decode_step = self._make_sampler, self._decode_step
+        self._mods = (te, speculative, transformer)
+        self._orig = (te.make_fused_sampler, te.decode_step, te.decode_chunk,
+                      speculative.accept_draft, transformer.decode_chunk_spec)
+        te.make_fused_sampler = self._make_sampler
+        te.decode_step = self._timed(self._orig[1])
+        te.decode_chunk = self._timed(self._orig[2])
+        speculative.accept_draft = self._accept
+        transformer.decode_chunk_spec = self._timed(self._orig[4])
 
     def restore(self):
-        self._te.make_fused_sampler, self._te.decode_step = self._orig
+        te, speculative, transformer = self._mods
+        (te.make_fused_sampler, te.decode_step, te.decode_chunk, speculative.accept_draft,
+         transformer.decode_chunk_spec) = self._orig
         self.tokens = [[t.cpu() for t in loop] for loop in self.tokens]
+        self.accepts = [[a.cpu() for a in loop] for loop in self.accepts]
         self.flips = int(self.flips)
+
+    def record(self):
+        """What another run is forced with (after :meth:`restore`)."""
+        return {"tokens": self.tokens, "accepts": self.accepts}
+
+    def _rows(self, t, n):
+        return t[self.dp_rank * n:(self.dp_rank + 1) * n]
 
     def _make_sampler(self, eos_id, top_p):
         import torch
@@ -2035,6 +2119,7 @@ class TeacherForcing:
         real = self._orig[0](eos_id, top_p)
         loop = len(self.tokens)
         self.tokens.append([])
+        self.accepts.append([])
         self.logits.append({})
 
         def sample(logits, states, generator, emitted, tables, accepting, min_budget,
@@ -2045,9 +2130,7 @@ class TeacherForcing:
             if step in P14_CHECK_STEPS:
                 self.logits[loop][step] = logits.float().cpu()
             if self.forced is not None:
-                n = tok.shape[0]
-                want = self.forced[loop][step][self.dp_rank * n:(self.dp_rank + 1) * n]
-                want = want.to(tok.device)
+                want = self._rows(self.forced[loop][step], tok.shape[0]).to(tok.device)
                 self.flips = self.flips + ((tok != want) & (states >= 0)).sum()
                 # The sampler's own rule for the next grammar state.
                 nxt = tables[dfa_ids.long(), states.clamp(min=0).long(),
@@ -2059,209 +2142,46 @@ class TeacherForcing:
 
         return sample
 
-    def _decode_step(self, *args, **kwargs):
+    def _accept(self, logits_all, draft, draft_mask, *args, **kwargs):
         import torch
 
-        from bcg_tpu_torch.obs import counters
+        acc, forbid, nxt = self._orig[3](logits_all, draft, draft_mask, *args, **kwargs)
+        loop = len(self.accepts) - 1
+        if self.forced_acc is not None:
+            B, K1, V = logits_all.shape
+            want = self._rows(self.forced_acc[loop][len(self.accepts[loop])], B)
+            want = want.to(acc.device)
+            self.flips = self.flips + (acc != want).sum()
+            acc = want
+            rejected = torch.gather(draft, 1, acc.clamp(0, K1 - 2)[:, None].long())[:, 0]
+            forbid = torch.where(acc < draft_mask.sum(dim=1), rejected,
+                                 torch.full_like(rejected, -1))
+            nxt = torch.gather(logits_all, 1, acc[:, None, None].long().expand(B, 1, V))[:, 0]
+        self.accepts[loop].append(acc)
+        return acc, forbid, nxt
 
-        self.steps += 1
-        if self.steps != P14_TIMED_STEP:
-            return self._orig[1](*args, **kwargs)
-        before = counters.snapshot()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = self._orig[1](*args, **kwargs)
-        torch.cuda.synchronize()
-        self.step_ms = (time.perf_counter() - t0) * 1e3
-        self.collectives = {k.split(".", 2)[2]: v - before.get(k, 0)
-                            for k, v in counters.snapshot().items()
-                            if k.startswith("engine.collective.") and v - before.get(k, 0)}
-        return out
+    def _timed(self, step_fn):
+        def step(*args, **kwargs):
+            import torch
 
+            from bcg_tpu_torch.obs import counters
 
-def p14_rank(arm, out, forced):
-    """One rank of a P14 world (``parallel.distributed.spawn_world``): its
-    sharded weights, one greedy round of P1's game over the arm's mesh,
-    fed the reference's tokens (``forced``: a ``TeacherForcing.tokens``
-    file), and its results under ``out``."""
-    import dataclasses
+            self.steps += 1
+            if self.steps != P14_TIMED_STEP:
+                return step_fn(*args, **kwargs)
+            before = counters.snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.step_ms = (time.perf_counter() - t0) * 1e3
+            self.collectives = {k.split(".", 2)[2]: v - before.get(k, 0)
+                                for k, v in counters.snapshot().items()
+                                if k.startswith("engine.collective.")
+                                and v - before.get(k, 0)}
+            return out
 
-    import torch
-    import torch.distributed as dist
-
-    from bcg_tpu_torch.config import NetworkConfig
-    from bcg_tpu_torch.engine.torch_engine import TorchEngine
-    from bcg_tpu_torch.models.configs import spec_for_model
-    from bcg_tpu_torch.models.loader import init_random_params_sharded
-    from bcg_tpu_torch.parallel import distributed
-    from bcg_tpu_torch.parallel.mesh import mesh_from_engine_config
-    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
-
-    rank = dist.get_rank()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = game_config(1, greedy=True, **P14_ARMS[arm])
-    if arm == "dp":
-        cfg = dataclasses.replace(cfg, network=NetworkConfig(spmd_exchange=True))
-    mesh = mesh_from_engine_config(cfg.engine)
-    dev = distributed.device()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    full = init_random_params_sharded(spec_for_model(MODEL), gen, mesh, dev)
-    spec, params = cut_depth(full, P14_DEPTH)
-    del full
-    torch.cuda.empty_cache()   # the dropped layers go back to the card the ranks share
-    sums = leaf_checksums(params)
-    engine = TorchEngine(cfg.engine, device=dev, params=params, spec=spec, mesh=mesh)
-    del params
-    cap = Capture(("flash_prefill", "decode_attention", "guided_sampler")) \
-        if arm == "tp" and rank == 0 else None
-    rec = TeacherForcing(torch.load(forced), dp_rank=engine.spec.par.dp_rank)
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    try:
-        stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
-        torch.cuda.synchronize()
-    finally:
-        rec.restore()
-        if cap is not None:
-            cap.restore()
-    counts = launch_counts()
-    line = dict(rank=rank, failed_rows=engine.failed_rows, total_rows=engine.total_rows,
-                decode_steps=engine.total_decode_steps, peak_bytes=torch.cuda.max_memory_allocated(),
-                launches={k: counts[k] for k in ("flash_prefill", "decode_attention",
-                                                 "guided_sampler")},
-                counts=counts, step_collectives=rec.collectives, step_ms=rec.step_ms,
-                flips=rec.flips, sampler_calls=[len(loop) for loop in rec.tokens],
-                sp_bypasses=engine.sp_bypasses, dp_bypasses=engine.dp_bypasses,
-                dp_rank=engine.spec.par.dp_rank, checksums=sums,
-                game=json.loads(json.dumps(dict(stats=stats, decisions=decisions, votes=votes),
-                                           sort_keys=True, default=str)))
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-        json.dump(line, f)
-    torch.save(rec.logits, os.path.join(out, f"logits{rank}.pt"))
-    if cap is not None:
-        torch.save(move_inputs({"P14": cap.inputs()}, "cpu")["P14"],
-                   os.path.join(out, "captured.pt"))
-    engine.shutdown()
-
-
-def phase_p14(params):
-    """P14 (see the module docstring): the parent's reference game, then the
-    three two-rank worlds, each fed its tokens and held to it.  Returns
-    rank 0 of the tp arm's launch counts and its captured kernel inputs."""
-    import shutil
-
-    import torch
-
-    from bcg_tpu_torch.engine.torch_engine import TorchEngine
-    from bcg_tpu_torch.parallel import distributed
-    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    spec, ref_params = cut_depth(params, P14_DEPTH)
-    cfg = game_config(1, greedy=True)
-    engine = TorchEngine(cfg.engine, device=DEVICE, params=ref_params, spec=spec)
-    rec = TeacherForcing()
-    t0 = time.perf_counter()
-    try:
-        stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
-    finally:
-        rec.restore()
-    wall = time.perf_counter() - t0
-    ref_game = json.loads(json.dumps(dict(stats=stats, decisions=decisions, votes=votes),
-                                     sort_keys=True, default=str))
-    if engine.failed_rows:
-        fail(f"P14 reference: {engine.failed_rows} rows failed")
-    print("game P14 reference: " + json.dumps(dict(
-        layers=P14_DEPTH, failed_rows=engine.failed_rows, decode_steps=engine.total_decode_steps,
-        sampler_calls=[len(loop) for loop in rec.tokens], game_seconds=wall,
-        step_ms=rec.step_ms, logit_tol=P14_LOGIT_TOL)), flush=True)
-    engine.shutdown()
-    del engine
-    torch.cuda.empty_cache()
-    shutil.rmtree(P14_DIR, ignore_errors=True)
-    os.makedirs(P14_DIR)
-    forced = os.path.join(P14_DIR, "reference_tokens.pt")
-    torch.save(rec.tokens, forced)
-    counts, inputs = None, None
-    for arm, sizes in P14_ARMS.items():
-        out = os.path.join(P14_DIR, arm)
-        os.makedirs(out)
-        t0 = time.perf_counter()
-        try:
-            distributed.spawn_world("chip_smoke:p14_rank", 2, timeout_s=P14_WORLD_LIMIT_S,
-                                    args=dict(arm=arm, out=out, forced=forced),
-                                    sys_path=[root], device_ids=[0, 0])
-        except distributed.WorldFailed as exc:
-            fail(f"P14 {arm}: {exc}")
-        wall = time.perf_counter() - t0
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(out, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        errors = []
-        # The weights: each rank's leaves are the slices of the shared ones.
-        tp = sizes.get("tensor_parallel_size", 1)
-        for r, res in enumerate(ranks):
-            want = leaf_checksums({n: _p14_slice(n, t, spec, tp, r)
-                                   for n, t in ref_params.items()})
-            bad = sorted(n for n in want if want[n] != res["checksums"].get(n))
-            if bad or set(res["checksums"]) != set(want):
-                errors.append(f"rank {r}: {len(bad)} leaves differ from the shared weights' "
-                              f"slices (first {bad[:3]})")
-        # The game, fed the reference's tokens: the reference's on every
-        # rank (the exchange, the tally and the statistics), every row parsed.
-        for r, res in enumerate(ranks):
-            if res["game"] != ref_game:
-                errors.append(f"rank {r}: the game differs from the reference's "
-                              f"({_game_changes(res['game'], ref_game)})")
-            if res["failed_rows"]:
-                errors.append(f"rank {r}: {res['failed_rows']} failed rows")
-        # The logits of every held sampler call, per row, against the
-        # reference's on the same tokens.
-        worst, by_step = 0.0, {}
-        for r, res in enumerate(ranks):
-            got = torch.load(os.path.join(out, f"logits{r}.pt"))
-            for loop, steps in enumerate(got):
-                for step, logits in steps.items():
-                    n = logits.shape[0]
-                    want = rec.logits[loop][step][res["dp_rank"] * n:(res["dp_rank"] + 1) * n]
-                    rel = _rel_rows(logits, want)
-                    key = f"{loop}.{step}"
-                    by_step[key] = max(by_step.get(key, 0.0), rel)
-                    worst = max(worst, rel)
-            if not got or not all(0 in steps and 1 in steps for steps in got):
-                errors.append(f"rank {r}: a loop's prefill or first decode step was not held")
-        if worst > P14_LOGIT_TOL:
-            errors.append(f"logits: relative L2 {worst:.4g} a row (limit {P14_LOGIT_TOL}; "
-                          f"by loop.step: {by_step})")
-        for name in ("flash_prefill", "decode_attention", "guided_sampler"):
-            if arm == "sp" and name != "guided_sampler":
-                continue   # under sp the ring and the slices' merge take their place
-            if any(res["launches"][name] <= 0 for res in ranks):
-                errors.append(f"kernel {name} was never launched on a rank")
-        line = dict(
-            mesh={"dp": sizes.get("data_parallel_size", 1), "tp": tp,
-                  "sp": sizes.get("sequence_parallel_size", 1)},
-            layers=P14_DEPTH, failed_rows=sum(res["failed_rows"] for res in ranks),
-            game_equal=all(res["game"] == ref_game for res in ranks),
-            rel_l2=worst, rel_l2_by_step=by_step, logit_tol=P14_LOGIT_TOL,
-            flips_per_rank=[res["flips"] for res in ranks],
-            sampler_calls_per_rank=[res["sampler_calls"] for res in ranks],
-            launches_per_rank=[res["launches"] for res in ranks],
-            step_collectives=ranks[0]["step_collectives"], step_ms=ranks[0]["step_ms"],
-            decode_steps=[res["decode_steps"] for res in ranks],
-            peak_bytes_per_rank=[res["peak_bytes"] for res in ranks],
-            sp_bypasses=ranks[0]["sp_bypasses"], dp_bypasses=ranks[0]["dp_bypasses"],
-            wall_seconds=wall)
-        print(f"game P14 {arm}: " + json.dumps(line), flush=True)
-        if errors:
-            fail(f"P14 {arm}: " + "; ".join(errors))
-        if arm == "tp":
-            counts = ranks[0]["counts"]
-            inputs = torch.load(os.path.join(out, "captured.pt"))
-            inputs = {name: tuple(keep(a, DEVICE) for a in args) for name, args in inputs.items()}
-    return counts, inputs
+        return step
 
 
 def _rel_rows(got, want) -> float:
@@ -2280,15 +2200,477 @@ def _game_changes(game, ref):
     return out
 
 
-def _p14_slice(name, t, spec, tp, r):
-    """Rank ``r``'s slice of one shared leaf under ``tp``."""
-    from bcg_tpu_torch.parallel.sharding import leaf_dim
+class _RankMesh:
+    """What the port's slicing (``parallel.sharding.shard_leaf``) reads of
+    a mesh: the axes' sizes and one rank's coordinates."""
 
-    dim = leaf_dim(name, spec, tp)
-    if dim is None:
-        return t
-    n = t.shape[dim] // tp
-    return t.narrow(dim, r * n, n)
+    def __init__(self, dp=1, tp=1, sp=1, rank=(0, 0, 0)):
+        import numpy as np
+
+        self.mesh_dim_names = ("dp", "tp", "sp")
+        self.mesh = np.zeros((dp, tp, sp))
+        self._rank = dict(zip(self.mesh_dim_names, rank))
+
+    def get_local_rank(self, axis):
+        return self._rank[axis]
+
+    def size(self):
+        return self.mesh.size
+
+
+def part_checksums(params, chunk: int = 1 << 26):
+    """Per leaf part (``name`` or ``name.part``), an exact order-free
+    checksum of its bytes in logical order: the sum of the bytes and the
+    sum weighted by position, in int64 on the card."""
+    import torch
+
+    out = {}
+    for name, leaf in params.items():
+        for part, t in (leaf.items() if isinstance(leaf, dict) else [(None, leaf)]):
+            flat = t.contiguous().view(torch.uint8).flatten()
+            total = weighted = 0
+            for i in range(0, flat.numel(), chunk):
+                b = flat[i:i + chunk].to(torch.int64)
+                w = (torch.arange(i, i + b.numel(), device=b.device, dtype=torch.int64)
+                     % 65521 + 1)
+                total += int(b.sum())
+                weighted += int((b * w).sum())
+            out[name if part is None else f"{name}.{part}"] = [total, weighted]
+    return out
+
+
+def mesh_config(arm, seed=0, mesh=True):
+    """The arm's game config: its rounds (one, greedy), its engine knobs
+    and (``mesh``) its world's sizes."""
+    import dataclasses
+
+    from bcg_tpu_torch.config import NetworkConfig
+
+    conf = MESH_ARMS[arm]
+    sizes = next(sz for sz, arms in MESH_WORLDS.values() if arm in arms) if mesh else {}
+    cfg = game_config(conf.get("rounds", 1), greedy=True, **conf["engine"], **sizes)
+    cfg = dataclasses.replace(cfg, game=dataclasses.replace(cfg.game, seed=seed))
+    if mesh and conf.get("spmd_exchange"):
+        cfg = dataclasses.replace(cfg, network=NetworkConfig(spmd_exchange=True))
+    return cfg
+
+
+def mesh_weights(arm, mesh, dev):
+    """A rank's weights for ``arm``: bench-8b from seed 0 through
+    ``loader.init_random_params_sharded`` (its slices only), quantized
+    leaf by leaf by the sharded quantizer where the arm quantizes (each
+    full leaf quantized, then sliced), cut to ``MESH_DEPTH`` layers."""
+    import torch
+
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.loader import init_random_params_sharded
+    from bcg_tpu_torch.models.quantize import ensure_quantized_head, quantize_leaf_transform
+
+    spec = spec_for_model(MODEL)
+    mode = MESH_ARMS[arm]["engine"].get("quantization")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    full = init_random_params_sharded(
+        spec, gen, mesh, dev,
+        leaf_transform=quantize_leaf_transform(spec, mode, mesh=mesh) if mode else None)
+    if mode:
+        ensure_quantized_head(full, spec, mode)
+    cut_spec, params = cut_depth(full, MESH_DEPTH)
+    del full
+    torch.cuda.empty_cache()   # the dropped layers go back to the card the ranks share
+    return cut_spec, params
+
+
+def mesh_rank(world, out, forced):
+    """One rank of a mesh world (``parallel.distributed.spawn_world``):
+    the world's arms one after another, each on its engine over its
+    weights (the bf16 arms share one draw), fed its reference's tokens and
+    accepted counts (``forced``: a directory of ``TeacherForcing.record``
+    files), its results under ``out``.  The ``served`` arm plays two games
+    behind ``ServingEngine`` on rank 0 while rank 1 follows.  Rank 0 of
+    the tp world captures each arm's ``capture`` forms, by path."""
+    import torch
+    import torch.distributed as dist
+
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.parallel import distributed
+    from bcg_tpu_torch.parallel.mesh import mesh_from_engine_config
+    from bcg_tpu_torch.parallel.sharding import tree_bytes_per_device
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = distributed.device()
+    captures, counts = {}, {}
+    shared = None
+    for arm in MESH_WORLDS[world][1]:
+        conf = MESH_ARMS[arm]
+        t0 = time.perf_counter()
+        cfg = mesh_config(arm)
+        mesh = mesh_from_engine_config(cfg.engine)
+        quantized = "quantization" in conf["engine"]
+        if quantized or shared is None:
+            shared = None
+            torch.cuda.empty_cache()
+            spec, params = mesh_weights(arm, mesh, dev)
+            if not quantized:
+                shared = (spec, params)
+        else:
+            spec, params = shared
+        sums = part_checksums(params)
+        engine = TorchEngine(cfg.engine, device=dev, params=params, spec=spec, mesh=mesh)
+        del params
+        weight_bytes = tree_bytes_per_device(engine.params)
+        dp_rank = engine.spec.par.dp_rank
+        forced_rec = (None if arm == "served" else
+                      torch.load(os.path.join(forced, f"{conf.get('reference', arm)}.pt")))
+        cap = (Capture(conf["capture"]) if world == "tp" and rank == 0 and conf.get("capture")
+               else None)
+        rec = TeacherForcing(forced_rec, dp_rank=dp_rank)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        line = {}
+        try:
+            if arm == "served":
+                line = mesh_serve(engine, rank)
+            else:
+                stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
+                line["game"] = json.loads(json.dumps(
+                    dict(stats=stats, decisions=decisions, votes=votes), sort_keys=True,
+                    default=str))
+            torch.cuda.synchronize()
+        finally:
+            rec.restore()
+            if cap is not None:
+                cap.restore()
+        launches = launch_counts()
+        path = conf["path"]
+        counts[path] = {k: counts.get(path, {}).get(k, 0) + v for k, v in launches.items()}
+        if cap is not None:
+            captures.setdefault(path, {}).update(move_inputs({path: cap.inputs()}, "cpu")[path])
+            del cap
+        pool = engine.kv_pool_stats()
+        line.update(
+            rank=rank, arm=arm, failed_rows=engine.failed_rows,
+            total_rows=engine.total_rows, decode_steps=engine.total_decode_steps,
+            peak_bytes=torch.cuda.max_memory_allocated(), weight_bytes=weight_bytes,
+            launches={k: v for k, v in launches.items() if v}, counts=launches,
+            step_collectives=rec.collectives, step_ms=rec.step_ms, flips=rec.flips,
+            sampler_calls=[len(loop) for loop in rec.tokens],
+            sp_bypasses=engine.sp_bypasses, dp_bypasses=engine.dp_bypasses,
+            dp_rank=dp_rank, checksums=sums,
+            pool=None if pool is None else {k: pool[k] for k in (
+                "blocks_total", "blocks_free", "blocks_resident", "prefix_hit_rate")},
+            spec_drafted=engine.spec_drafted, spec_accepted=engine.spec_accepted,
+            wall_seconds=time.perf_counter() - t0)
+        if pool is not None:
+            line["pool_digest"] = pool_digest(engine)
+        with open(os.path.join(out, f"{arm}.rank{rank}.json"), "w") as f:
+            json.dump(line, f)
+        torch.save({"logits": rec.logits, **rec.record()},
+                   os.path.join(out, f"{arm}.rank{rank}.pt"))
+        engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+    if world == "tp" and rank == 0:
+        for path, got in captures.items():
+            torch.save(got, os.path.join(out, f"captured_{path}.pt"))
+        with open(os.path.join(out, "counts.json"), "w") as f:
+            json.dump(counts, f)
+
+
+def pool_digest(engine) -> str:
+    """A digest of the paged pool's contents (every layer's blocks): the
+    dp ranks' pools must be equal."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for entry in engine._paged.pool:
+        for name in sorted(entry):
+            h.update(entry[name].contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+def mesh_serve(engine, rank):
+    """The served arm on one rank: rank 0 plays ``P15_SERVED_SEEDS``'s
+    games through ``run_serving_simulations`` over ``ServingEngine`` (the
+    leader records every dispatch); rank 1 follows.  Returns the rank's
+    line: the games, the dispatches and their outputs."""
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+    from bcg_tpu_torch.serve import ServingEngine, mesh as mesh_serving, run_serving_simulations
+
+    if rank != 0:
+        outs = mesh_serving.follow(engine, record=True)
+        return dict(outputs=json.loads(json.dumps(outs, default=str)))
+
+    def game(seed):
+        def run(served):
+            sim = BCGSimulation(mesh_config("served", seed=seed), engine=served)
+            stats, decisions, votes = play_recorded(sim)
+            return json.loads(json.dumps(dict(stats=stats, decisions=decisions, votes=votes),
+                                         sort_keys=True, default=str))
+        return run
+
+    serving = ServingEngine(engine)
+    serving.leader.record = True
+    games = run_serving_simulations(engine, [game(s) for s in P15_SERVED_SEEDS],
+                                    serving=serving)
+    stats = serving.stats()
+    serving.shutdown()
+    for g in games:
+        if isinstance(g, BaseException):
+            raise g
+    log = serving.leader.log
+    return dict(games=games, dispatches=[dict(index=d["index"], method=d["method"],
+                                              args=d["args"], kwargs=d["kwargs"]) for d in log],
+                outputs=json.loads(json.dumps([d["out"] for d in log], default=str)),
+                rows_per_dispatch=[len(d["args"][0]) for d in log],
+                merged_dispatches=stats["merged_dispatches"], dispatches_n=stats["dispatches"],
+                row_cap=stats.get("row_cap"))
+
+
+def mesh_reference(arm, params):
+    """The parent's one-rank engine of the arm's config over the shared
+    weights cut to ``MESH_DEPTH``: one greedy round, its tokens, accepted
+    counts and held logits recorded."""
+    import torch
+
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+
+    spec, ref_params = cut_depth(params, MESH_DEPTH)
+    cfg = mesh_config(arm, mesh=False)
+    engine = TorchEngine(cfg.engine, device=DEVICE, params=ref_params, spec=spec)
+    rec = TeacherForcing()
+    t0 = time.perf_counter()
+    try:
+        stats, decisions, votes = play_recorded(BCGSimulation(cfg, engine=engine))
+    finally:
+        rec.restore()
+    game = json.loads(json.dumps(dict(stats=stats, decisions=decisions, votes=votes),
+                                 sort_keys=True, default=str))
+    if engine.failed_rows:
+        fail(f"{_arm_label(arm)} reference: {engine.failed_rows} rows failed")
+    info = dict(layers=MESH_DEPTH, failed_rows=engine.failed_rows,
+                decode_steps=engine.total_decode_steps,
+                sampler_calls=[len(loop) for loop in rec.tokens],
+                game_seconds=time.perf_counter() - t0, step_ms=rec.step_ms,
+                logit_tol=P14_LOGIT_TOL)
+    engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+    return game, rec, info
+
+
+def mesh_slices(arm, params, spec, tp):
+    """Each rank's expected leaf checksums: the slices of the shared
+    weights (quantized whole first where the arm quantizes)."""
+    import torch
+
+    from bcg_tpu_torch.models.quantize import weight_quantizer
+    from bcg_tpu_torch.parallel.sharding import shard_params
+
+    mode = MESH_ARMS[arm]["engine"].get("quantization")
+    _, cut = cut_depth(params, MESH_DEPTH)
+    out = []
+    for r in range(tp):
+        mine = shard_params(cut, spec, _RankMesh(tp=tp, rank=(0, r, 0)),
+                            quantize=weight_quantizer(mode) if mode else None)
+        out.append(part_checksums(mine))
+        del mine
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_logits(ranks, arm_dir, arm, ref_logits):
+    """The largest relative L2 a row of every held logits against the
+    reference's, by loop.step, and whether each loop's prefill and first
+    step were held."""
+    import torch
+
+    worst, by_step, held = 0.0, {}, True
+    for r, res in enumerate(ranks):
+        got = torch.load(os.path.join(arm_dir, f"{arm}.rank{r}.pt"))["logits"]
+        for loop, steps in enumerate(got):
+            for step, logits in steps.items():
+                n = logits.shape[0]
+                want = ref_logits[loop][step][res["dp_rank"] * n:(res["dp_rank"] + 1) * n]
+                rel = _rel_rows(logits[:want.shape[0]], want)
+                key = f"{loop}.{step}"
+                by_step[key] = max(by_step.get(key, 0.0), rel)
+                worst = max(worst, rel)
+        held = held and bool(got) and all(0 in steps and 1 in steps for steps in got)
+    return worst, by_step, held
+
+
+def mesh_replay(params, ranks, arm_dir):
+    """The served arm held the other way round: rank 0's dispatches
+    replayed in order through the parent's one-rank engine, fed the arm's
+    tokens (both dp ranks' rows), its logits kept for the arm's."""
+    import torch
+
+    from bcg_tpu_torch.engine.torch_engine import TorchEngine
+
+    spec, ref_params = cut_depth(params, MESH_DEPTH)
+    engine = TorchEngine(mesh_config("served", mesh=False).engine, device=DEVICE,
+                         params=ref_params, spec=spec)
+    recs = [torch.load(os.path.join(arm_dir, f"served.rank{r}.pt")) for r in range(len(ranks))]
+    order = sorted(range(len(ranks)), key=lambda r: ranks[r]["dp_rank"])
+    tokens = [[torch.cat([recs[r]["tokens"][loop][step] for r in order])
+               for step in range(len(recs[0]["tokens"][loop]))]
+              for loop in range(len(recs[0]["tokens"]))]
+    rec = TeacherForcing({"tokens": tokens, "accepts": None})
+    outputs = []
+    try:
+        for d in ranks[0]["dispatches"]:
+            args = [[tuple(p) if isinstance(p, list) else p for p in d["args"][0]],
+                    *d["args"][1:]]
+            outputs.append(getattr(engine, d["method"])(*args, **d["kwargs"]))
+    finally:
+        rec.restore()
+    failed = engine.failed_rows
+    engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+    return rec, json.loads(json.dumps(outputs, default=str)), failed
+
+
+def mesh_check(arm, ranks, out, ref, params, spec, tp, sizes):
+    """The arm's ranks held to ``ref`` (``(game, TeacherForcing)``; the
+    served arm: its replay): the weights, the games, the held logits,
+    the launches, the pools.  Returns the printed line and the errors."""
+    conf = MESH_ARMS[arm]
+    errors = []
+    want_sums = (mesh_slices(arm, params, spec, tp) if tp > 1
+                 else [part_checksums(cut_depth(params, MESH_DEPTH)[1])])
+    for r, res in enumerate(ranks):
+        want = want_sums[r if tp > 1 else 0]
+        bad = sorted(n for n in want if want[n] != res["checksums"].get(n))
+        if bad or set(res["checksums"]) != set(want):
+            errors.append(f"rank {r}: {len(bad)} leaf parts differ from the shared "
+                          f"weights' slices (first {bad[:3]})")
+        if res["failed_rows"]:
+            errors.append(f"rank {r}: {res['failed_rows']} failed rows")
+        for name in conf["kernels"]:
+            if res["launches"].get(name, 0) <= 0:
+                errors.append(f"rank {r}: kernel {name} was never launched")
+    extra = {}
+    if arm == "served":
+        rec, replay_out, replay_failed = mesh_replay(params, ranks, out)
+        if ranks[0]["outputs"] != ranks[1]["outputs"]:
+            errors.append("the ranks' gathered outputs differ")
+        if replay_out != ranks[0]["outputs"]:
+            errors.append("the one-rank replay's outputs differ from the arm's")
+        if replay_failed:
+            errors.append(f"the replay failed {replay_failed} rows")
+        split = [n for n in ranks[0]["rows_per_dispatch"] if n >= 2]
+        if ranks[0]["merged_dispatches"] < 1 or not split or ranks[0]["dp_bypasses"]:
+            errors.append("no dispatch merged both games' rows split over the ranks")
+        extra = dict(dispatches=ranks[0]["dispatches_n"],
+                     merged_dispatches=ranks[0]["merged_dispatches"],
+                     rows_per_dispatch=ranks[0]["rows_per_dispatch"],
+                     row_cap=ranks[0]["row_cap"], replay_flips=rec.flips,
+                     games=[{k: g["stats"].get(k) for k in ("total_rounds",
+                                                           "termination_reason")}
+                            for g in ranks[0]["games"]])
+    else:
+        ref_game, rec = ref
+        for r, res in enumerate(ranks):
+            if res["game"] != ref_game:
+                errors.append(f"rank {r}: the game differs from the reference's "
+                              f"({_game_changes(res['game'], ref_game)})")
+        extra["game_equal"] = all(res["game"] == ref_game for res in ranks)
+    worst, by_step, held = mesh_logits(ranks, out, arm, rec.logits)
+    if not held:
+        errors.append("a loop's prefill or first decode step was not held")
+    if worst > P14_LOGIT_TOL:
+        errors.append(f"logits: relative L2 {worst:.4g} a row (limit {P14_LOGIT_TOL}; "
+                      f"by loop.step: {by_step})")
+    if ranks[0].get("pool_digest") is not None and sizes.get("data_parallel_size"):
+        if ranks[0]["pool_digest"] != ranks[1]["pool_digest"]:
+            errors.append("the dp ranks' paged pools differ")
+        extra["pools_equal"] = ranks[0]["pool_digest"] == ranks[1]["pool_digest"]
+    line = dict(
+        mesh={"dp": sizes.get("data_parallel_size", 1), "tp": tp,
+              "sp": sizes.get("sequence_parallel_size", 1)},
+        layers=MESH_DEPTH, engine=conf["engine"],
+        failed_rows=sum(res["failed_rows"] for res in ranks),
+        rel_l2=worst, rel_l2_by_step=by_step, logit_tol=P14_LOGIT_TOL,
+        flips_per_rank=[res["flips"] for res in ranks],
+        sampler_calls_per_rank=[res["sampler_calls"] for res in ranks],
+        launches_per_rank=[res["launches"] for res in ranks],
+        step_collectives=ranks[0]["step_collectives"], step_ms=ranks[0]["step_ms"],
+        decode_steps=[res["decode_steps"] for res in ranks],
+        peak_bytes_per_rank=[res["peak_bytes"] for res in ranks],
+        weight_bytes_per_rank=[res["weight_bytes"] for res in ranks],
+        pool=ranks[0]["pool"],
+        spec_drafted_accepted=[ranks[0]["spec_drafted"], ranks[0]["spec_accepted"]],
+        sp_bypasses=ranks[0]["sp_bypasses"], dp_bypasses=ranks[0]["dp_bypasses"],
+        wall_seconds=max(res["wall_seconds"] for res in ranks), **extra)
+    return line, errors
+
+
+def phase_mesh(params):
+    """P14 and P15 (see the module docstring): per world, the references
+    of its arms, then the world of two ranks, each arm held to its
+    reference.  Returns, by path, rank 0 of the tp world's launch counts
+    and its captured kernel inputs."""
+    import shutil
+
+    import torch
+
+    from bcg_tpu_torch.parallel import distributed
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    forced = os.path.join(MESH_DIR, "forced")
+    os.makedirs(forced)
+    spec, _ = cut_depth(params, MESH_DEPTH)
+    refs, by_path = {}, {}
+    for world, (sizes, arms) in MESH_WORLDS.items():
+        for arm in arms:
+            key = MESH_ARMS[arm].get("reference", arm)
+            if arm == "served" or key in refs:
+                continue
+            game, rec, info = mesh_reference(arm, params)
+            refs[key] = (game, rec)
+            torch.save(rec.record(), os.path.join(forced, f"{key}.pt"))
+            label = "P14" if key == "p14" else _arm_label(arm)
+            print(f"game {label} reference: " + json.dumps(info), flush=True)
+        out = os.path.join(MESH_DIR, world)
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        try:
+            distributed.spawn_world("chip_smoke:mesh_rank", 2, timeout_s=MESH_WORLD_LIMIT_S,
+                                    args=dict(world=world, out=out, forced=forced),
+                                    sys_path=[root], device_ids=[0, 0])
+        except distributed.WorldFailed as exc:
+            fail(f"mesh world {world}: {exc}")
+        world_wall = time.perf_counter() - t0
+        tp = sizes.get("tensor_parallel_size", 1)
+        for arm in arms:
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out, f"{arm}.rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            ref = refs.get(MESH_ARMS[arm].get("reference", arm))
+            line, errors = mesh_check(arm, ranks, out, ref, params, spec, tp, sizes)
+            line["world_seconds"] = world_wall
+            print(f"game {_arm_label(arm)}: " + json.dumps(line), flush=True)
+            if errors:
+                fail(f"{_arm_label(arm)}: " + "; ".join(errors))
+        if world == "tp":
+            with open(os.path.join(out, "counts.json")) as f:
+                counts = json.load(f)
+            for path in ("P14", "P15"):
+                got = torch.load(os.path.join(out, f"captured_{path}.pt"))
+                by_path[path] = (counts[path], {name: tuple(keep(a, DEVICE) for a in args)
+                                                for name, args in got.items()})
+    return by_path
 
 
 def per_row(fn, *args):
@@ -2508,9 +2890,10 @@ def save_sampler_inputs(call, path):
     print(f"sampler inputs: P1's call {list(logits.shape)} written to {path}", flush=True)
 
 
-def phase_kernels(inputs, counts):
+def phase_kernels(inputs, counts, only=None):
     """Each kernel form against its plain version on its home path's
-    captured inputs.  ``inputs``/``counts``: per path."""
+    captured inputs.  ``inputs``/``counts``: per path.  ``only``: just the
+    entries held at that path's captured calls (``--only``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2531,7 +2914,7 @@ def phase_kernels(inputs, counts):
             src = "w4a16"
         per_path = {p: c[name] for p, c in counts.items()}
         # A form on no game path reports its launches summed over the paths.
-        launches = per_path[HOME[name]] if name in HOME else sum(per_path.values())
+        launches = per_path.get(HOME[name], 0) if name in HOME else sum(per_path.values())
         if path is not None and path != HOME.get(name):
             name, launches = f"{name}@{path}", per_path[path]
         return dict(name=name, route="cuda", source=f"bcg_tpu_torch/csrc/{src}.cu",
@@ -2618,7 +3001,8 @@ def phase_kernels(inputs, counts):
                     valid_slots=valid)
 
     def chunk():
-        q, k, v, mask, scale = inputs["P3"]["chunk_decode_attention"]
+        # The wrapper passes its split plan's shape (None on one device).
+        q, k, v, mask, scale, *_ = inputs["P3"]["chunk_decode_attention"]
         split = list(da.chunk_split_plan(q, k, mask))
         out = da.chunk_decode_attention_cuda(q, k, v, mask, scale)
         torch.cuda.synchronize()
@@ -2653,10 +3037,16 @@ def phase_kernels(inputs, counts):
                     valid_slots=slots)
 
     def int8_forms(name, path):
-        q, k, v, ks, vs, mask, scale = inputs[path][name]
-        launch = getattr(da, f"{name}_cuda")
+        # A mesh rank's call carries the split plan's shape (P15).
+        q, k, v, ks, vs, mask, scale, *plan = inputs[path][name]
+        plan = plan[0] if plan else None
+        launch0 = getattr(da, f"{name}_cuda")
+
+        def launch(*a):
+            return launch0(*a, plan)
+
         plain = getattr(da, f"{name}_plain")
-        split = list(da.int8_split_plan(q, k, mask))
+        split = list(da.int8_split_plan(q, k, mask, plan))
         out = launch(q, k, v, ks, vs, mask, scale)
         torch.cuda.synchronize()
         ref = plain(q, k, v, ks, vs, mask, scale)
@@ -2677,7 +3067,7 @@ def phase_kernels(inputs, counts):
         kv_bytes = slots * Hkv * (2 * Dh + 8)
         g_ms = cold_graph_ms(launch, (q, k, v, ks, vs, mask, scale), kv_bytes)
         bms, by = bound(kv_bytes + 2 * 2 * q.numel() + m3.numel(), 4 * Dh * H * m3.sum().item())
-        return dict(common(name),
+        return dict(common(name, path),
                     replaces=("bcg_tpu/ops/decode_attention.py:113 _decode_kernel_allheads "
                               "(pallas_call :182 of _quantized_attention :166, via "
                               + ("chunk_decode_attention :327-359)" if q.dim() == 4
@@ -2699,13 +3089,16 @@ def phase_kernels(inputs, counts):
         return dict(name="flash_prefill@P5", **check, shape=list(q.shape[:3]) + [k.shape[1]],
                     right_padded_rows=tail_pad)
 
-    def paged_inputs(name):
-        """Captured inputs of a paged form, or, for the forms no game path
-        reaches, inputs made from another form's captured pool and table."""
+    def paged_inputs(name, path=None):
+        """Captured inputs of a paged form (at ``path``'s call where given),
+        or, for the forms no game path reaches, inputs made from another
+        form's captured pool and table."""
+        if path is not None:
+            return inputs[path][name]
         if name in HOME:
             return inputs[HOME[name]][name]
         path, src = PAGED_DERIVED[name]
-        q, entry, mask, scale = inputs[path][src]
+        q, entry, mask, scale, *_ = inputs[path][src]
         if name.startswith("paged_decode"):          # the chunk's first position
             return q[:, :1].contiguous(), entry, mask[:, 0].contiguous(), scale
         # A K = 5 query over the step's pool: row k attends the step's
@@ -2722,16 +3115,22 @@ def phase_kernels(inputs, counts):
                 m[b, kk, live[len(live) - (K - 1 - kk):]] = False
         return qk, entry, m, scale
 
-    def paged(name):
+    def paged(name, path=None):
         from bcg_tpu_torch.ops import paged_attention as pa
 
         lay = FORMS[name][3]
         step = name.startswith("paged_decode")
-        q, entry, mask, scale = paged_inputs(name)
-        launch = pa.paged_decode_attention_cuda if step else pa.paged_chunk_attention_cuda
+        # A mesh rank's call carries the split plan's shape (P15).
+        q, entry, mask, scale, *plan = paged_inputs(name, path)
+        plan = plan[0] if plan else None
+        launch0 = pa.paged_decode_attention_cuda if step else pa.paged_chunk_attention_cuda
+
+        def launch(*a):
+            return launch0(*a, plan)
+
         plain = pa.paged_decode_attention_plain if step else pa.paged_chunk_attention_plain
         m3 = mask[:, None] if step else mask
-        split = list(pa.split_plan(q, entry, m3))
+        split = list(pa.split_plan(q, entry, m3, plan))
         out = launch(q, entry, mask, scale)
         torch.cuda.synchronize()
         ref = plain(q, entry, mask, scale)
@@ -2769,8 +3168,8 @@ def phase_kernels(inputs, counts):
         g_ms = cold_graph_ms(launch, (q, entry, mask, scale), kv_bytes)
         byts = kv_bytes + 2 * 2 * q.numel() + m3.numel() + 4 * tbl.numel()
         bms, by = bound(byts, 4 * Dh * H * m3.sum().item())
-        src = PAGED_DERIVED.get(name)
-        return dict(common(name),
+        src = PAGED_DERIVED.get(name) if path is None else None
+        return dict(common(name, path),
                     replaces=("bcg_tpu/ops/paged_attention.py:341 _paged_kernel (pallas_call "
                               ":507 of _paged_pallas_attention :432, via "
                               + ("paged_decode_attention :221)" if step
@@ -2779,7 +3178,7 @@ def phase_kernels(inputs, counts):
                     bound_by=by, library_ms=None, split=split, dense_ms=dense_ms,
                     dense_rel_row=dense_rel_row,
                     dense_rel_head=dense_rel_head, live_blocks=blocks,
-                    inputs_from=(f"{src[0]} {src[1]}" if src else HOME[name]),
+                    inputs_from=(f"{src[0]} {src[1]}" if src else path or HOME[name]),
                     shape=[B, Kq, H, Hkv, nblk * bs, bs])
 
     def sampler(path="P1"):
@@ -2834,27 +3233,49 @@ def phase_kernels(inputs, counts):
     def w4a16():
         return dict(common("w4a16_matmul"), **w4a16_check(inputs["P9"]))
 
-    for phase in (flash, decode, sampler, chunk,
-                  lambda: int8_forms("decode_attention_int8", "P4"),
-                  lambda: int8_forms("chunk_decode_attention_int8", "P2"),
-                  *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
-                    for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16,
-                  *[lambda f=f, p=p: f(p) for p in ("P11", "P12", "P13", "P14")
-                    for f in (flash, decode, sampler) if p in inputs]):
+    def w4a16_p15():
+        """B5 at a tp rank's sharded calls: its LM head (N = 75,968) and
+        its w_down (K = 6144), at the captured rows."""
+        cap = inputs["P15"]
+        head = w4_line(*cap["w4a16_matmul"])
+        # w_down's local shape: K 6144 packed into 3072 rows, N 4096.
+        shapes = [w4_line(*args) for key, args in cap.items()
+                  if isinstance(key, tuple) and key[1] == (3072, 4096)]
+        return dict(common("w4a16_matmul", "P15"),
+                    replaces="bcg_tpu/ops/w4_matmul.py:37 _w4_kernel (pallas_call :116 of "
+                             "_w4a16_2d :107, via w4a16_matmul :150)",
+                    **head, shapes=shapes, routes=[])
+
+    home = [flash, decode, sampler, chunk,
+            lambda: int8_forms("decode_attention_int8", "P4"),
+            lambda: int8_forms("chunk_decode_attention_int8", "P2"),
+            *[lambda n=f"paged_{form}_attention_{lay}": paged(n)
+              for form in ("decode", "chunk") for lay in PAGED_LAYOUTS], w4a16]
+    others = [(p, lambda f=f, p=p: f(p)) for p in ("P11", "P12", "P13", "P14")
+              for f in (flash, decode, sampler) if p in inputs]
+    if "P15" in inputs:
+        others += [("P15", w4a16_p15),
+                   ("P15", lambda: int8_forms("chunk_decode_attention_int8", "P15")),
+                   ("P15", lambda: paged("paged_chunk_attention_int8", "P15"))]
+    # ``only``: the entries of one path's captured calls (``--only``).
+    for phase in ([ph for p, ph in others if p == only] if only
+                  else home + [ph for _, ph in others]):
         results.append(phase())
         torch.cuda.empty_cache()
-    extra = flash_p5()
-    print(f"kernel {extra['name']}: rel_row={extra['rel_row']:.4g} (tol {ATTN_REL_ROW_TOL}) "
-          f"rel_head={extra['rel_head']:.4g} (tol {ATTN_REL_HEAD_TOL}) with {DROP_KEYS} live "
-          f"keys dropped: rel_row={extra['dropped_rel_row']:.4g} "
-          f"rel_head={extra['dropped_rel_head']:.4g} right_padded_rows="
-          f"{extra['right_padded_rows']} shape={extra['shape']}", flush=True)
-    if not extra["ok"]:
-        errors.append("flash_prefill at P5's right-padded input disagrees with its plain version")
+    if not only:
+        extra = flash_p5()
+        print(f"kernel {extra['name']}: rel_row={extra['rel_row']:.4g} (tol {ATTN_REL_ROW_TOL}) "
+              f"rel_head={extra['rel_head']:.4g} (tol {ATTN_REL_HEAD_TOL}) with {DROP_KEYS} "
+              f"live keys dropped: rel_row={extra['dropped_rel_row']:.4g} "
+              f"rel_head={extra['dropped_rel_head']:.4g} right_padded_rows="
+              f"{extra['right_padded_rows']} shape={extra['shape']}", flush=True)
+        if not extra["ok"]:
+            errors.append("flash_prefill at P5's right-padded input disagrees with its plain "
+                          "version")
     for r in results:
-        if r["name"] == "w4a16_matmul":
+        if r["name"].startswith("w4a16_matmul"):
             for e in [r] + r["shapes"]:
-                print(f"kernel w4a16_matmul: shape[M,D,F]={e['shape']} group={e['group']} "
+                print(f"kernel {r['name']}: shape[M,D,F]={e['shape']} group={e['group']} "
                       f"rel_row={e['rel_row']:.4g} (tol {W4_REL_ROW_TOL}) "
                       f"max_abs_err={e['max_abs_err']:.4g} ms={e['ms']:.4f} "
                       f"plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.4f} "
@@ -2864,7 +3285,7 @@ def phase_kernels(inputs, counts):
                       f"{e['dequantized_bf16_matmul_ms']:.4f} launches={r['launches']} "
                       f"per_path={json.dumps(r['launches_per_path'])}", flush=True)
                 if not e["ok"]:
-                    errors.append(f"w4a16_matmul at {e['shape']}: disagrees with its plain "
+                    errors.append(f"{r['name']} at {e['shape']}: disagrees with its plain "
                                   "version")
             for rt in r["routes"]:
                 # The fewest rows at which the dequantize route is faster (None: never).
@@ -2915,6 +3336,10 @@ def main() -> int:
                         help="also write P10's decode-step census to FILE (JSON), the "
                              "input of python -m bcg_tpu_torch.tools.census_gate "
                              "--update-cuda FILE")
+    parser.add_argument("--only", choices=("mesh",),
+                        help="build, make the weights and run only the mesh paths (P14, "
+                             "P15) and their kernel entries (a development loop: no ok "
+                             "line, exit 4)")
     args = parser.parse_args()
     SAVE["census"] = args.save_census
     import torch
@@ -2954,6 +3379,23 @@ def main() -> int:
     print(f"weights: {MODEL} initialised on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
     counts, inputs = {}, {}
+    if args.only:
+        t0 = time.perf_counter()
+        for path, (c, got) in phase_mesh(params).items():
+            counts[path], inputs[path] = c, got
+        print(f"phase P14 + P15: {time.perf_counter() - t0:.1f} s", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        results, errors = [], []
+        for path in ("P14", "P15"):
+            res, err = phase_kernels(inputs, counts, only=path)
+            results += res
+            errors += err
+        print(json.dumps({"kernels": results}, default=str), flush=True)
+        if errors:
+            fail("; ".join(errors))
+        print("chip_smoke --only mesh: passed (not a whole run)", flush=True)
+        return 4
     for path in PATHS:
         t0 = time.perf_counter()
         counts[path], inputs[path] = phase_path(path, params)
@@ -2976,11 +3418,13 @@ def main() -> int:
     counts["P12"], inputs["P12"] = phase_p12(params)
     print(f"phase P12: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    # The captured inputs wait in host memory while P14's ranks share the card.
+    # The captured inputs wait in host memory while P14's and P15's ranks
+    # share the card.
     inputs = move_inputs(inputs, "cpu")
-    counts["P14"], inputs["P14"] = phase_p14(params)
+    for path, (c, got) in phase_mesh(params).items():
+        counts[path], inputs[path] = c, got
     inputs = move_inputs(inputs, DEVICE)
-    print(f"phase P14: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase P14 + P15: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.save_sampler_inputs:
         save_sampler_inputs(inputs["P1"]["guided_sampler"], args.save_sampler_inputs)
     t0 = time.perf_counter()

@@ -293,3 +293,165 @@ def engine_cases(inputs, out):
             sim.close()
         engine.shutdown()
     _save(out, res)
+
+
+# ------------------------------------------------------------ engine knobs
+
+def pool_digest(engine):
+    """A digest of a paged engine's pool contents (every layer's blocks)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for entry in engine._paged.pool:
+        for name in sorted(entry):
+            h.update(entry[name].contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def knob_cases(inputs, out):
+    """Each arm of ``inputs.json`` (a model, its engine knobs and mesh
+    sizes over this world): the JAX initializer's weights (f32), then one
+    greedy ``batch_generate_json`` a round of ``rounds`` (each round's
+    prompts extend the last's); per round the results and, for a paged
+    engine, its pool statistics and a digest of its pool's contents."""
+    from bcg_tpu_torch import config as tcfg
+    from bcg_tpu_torch.engine import torch_engine as te
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.convert import params_from_numpy
+
+    with open(inputs + ".json") as f:
+        spec_all = json.load(f)
+    res = {}
+    for arm in spec_all["arms"]:
+        name, model = arm["name"], arm["model"]
+        data = np.load(f"{inputs}_{model.split('/')[-1]}.npz")
+        params = params_from_numpy([(k, data[k]) for k in data.files], spec_for_model(model),
+                                   "cpu", torch.float32)
+        engine = te.TorchEngine(tcfg.EngineConfig(backend="torch", model_name=model,
+                                                  max_model_len=2048, **arm["kw"]),
+                                device="cpu", params=params)
+        for i, prompts in enumerate(spec_all["rounds"][:arm.get("rounds", 1)]):
+            results = engine.batch_generate_json([tuple(p) for p in prompts], temperature=0.0,
+                                                 max_tokens=spec_all["max_tokens"])
+            res[f"{name}/r{i}"] = np.array(json.dumps(results))
+            pool = engine.kv_pool_stats()
+            if pool is not None:
+                res[f"{name}/pool{i}"] = np.array(json.dumps(
+                    {k: pool[k] for k in ("blocks_free", "blocks_resident",
+                                          "prefix_hit_rate")}))
+                res[f"{name}/digest{i}"] = np.array(pool_digest(engine))
+        res[f"{name}/failed"] = np.array(engine.failed_rows)
+        engine.shutdown()
+    _save(out, res)
+
+
+# ------------------------------------------------------------ serving
+
+def serve_cases(inputs, out):
+    """Each arm of ``inputs.json``: an engine of the arm's mesh sizes over
+    the JAX initializer's weights; rank 0 plays the arm's greedy games
+    behind ``ServingEngine`` (its leader recording every dispatch), every
+    other rank follows them (``serve.mesh.follow``), under the arm's
+    ``chaos`` (``BCG_TPU_CHAOS``) and watchdog.  Per arm: the games, the
+    scheduler's statistics and each rank's outputs by dispatch."""
+    from bcg_tpu_torch import config as tcfg
+    from bcg_tpu_torch.engine import torch_engine as te
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.convert import params_from_numpy
+    from bcg_tpu_torch.runtime import resilience
+    from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+    from bcg_tpu_torch.serve import ServingEngine, mesh as mesh_serving, run_serving_simulations
+
+    with open(inputs + ".json") as f:
+        spec_all = json.load(f)
+    model = spec_all["model"]
+    data = np.load(f"{inputs}_{model.split('/')[-1]}.npz")
+    params = params_from_numpy([(k, data[k]) for k in data.files], spec_for_model(model),
+                               "cpu", torch.float32)
+    res = {}
+    for arm in spec_all["arms"]:
+        name = arm["name"]
+        ecfg = tcfg.EngineConfig(backend="torch", model_name=model, max_model_len=2048,
+                                 **arm["kw"])
+        built = []
+
+        def factory(ecfg=ecfg, built=built):
+            fresh = te.TorchEngine(ecfg, device="cpu", params=params)
+            built.append(fresh)
+            return fresh
+
+        engine = te.TorchEngine(ecfg, device="cpu", params=params)
+        if arm.get("chaos"):
+            os.environ["BCG_TPU_CHAOS"] = arm["chaos"]
+        resilience.reset()
+        try:
+            if dist.get_rank() != 0:
+                outs = mesh_serving.follow(engine, factory, record=True)
+            else:
+                def game(seed):
+                    def run(served):
+                        cfg = tcfg.BCGConfig(
+                            game=tcfg.GameConfig(num_honest=2, num_byzantine=1,
+                                                 max_rounds=1, seed=seed),
+                            engine=ecfg, llm=tcfg.LLMConfig(**spec_all["llm"]),
+                            metrics=tcfg.MetricsConfig(save_results=False))
+                        sim = BCGSimulation(cfg, engine=served)
+                        stats = sim.run()
+                        decisions = [[r.round_num, dict(r.agent_values)]
+                                     for r in sim.game.rounds]
+                        sim.close()
+                        return dict(stats=stats, decisions=decisions)
+                    return run
+
+                serving = ServingEngine(engine, engine_factory=factory,
+                                        watchdog_s=arm.get("watchdog_s", 0),
+                                        max_dispatch_retries=arm.get("retries", 0),
+                                        linger_ms=arm.get("linger_ms", 50))
+                serving.leader.record = True
+                games = run_serving_simulations(engine, [game(s) for s in spec_all["seeds"]],
+                                                serving=serving)
+                stats = serving.stats()
+                serving.shutdown()
+                res[f"{name}/games"] = np.array(json.dumps(
+                    [g if isinstance(g, dict) else repr(g) for g in games],
+                    sort_keys=True, default=str))
+                res[f"{name}/stats"] = np.array(json.dumps(
+                    {k: stats.get(k) for k in ("dispatches", "merged_dispatches", "failed",
+                                               "completed", "recovery")}, default=str))
+                outs = [d["out"] for d in serving.leader.log]
+        finally:
+            os.environ.pop("BCG_TPU_CHAOS", None)
+            resilience.reset()
+        res[f"{name}/outputs"] = np.array(json.dumps(outs, default=repr))
+        res[f"{name}/rebuilt"] = np.array(len(built))
+        res[f"{name}/failed"] = np.array(sum(e.failed_rows for e in [engine] + built))
+        for e in [engine] + built:
+            e.shutdown()
+    _save(out, res)
+
+
+# ------------------------------------------------------------ row-parallel products
+
+def row_parallel_cases(inputs, out):
+    """``quantize.dense_row_parallel`` on this rank's tp slice of each
+    case's activation and weight (the weight quantized whole, then sliced
+    by ``parallel.sharding.shard_leaf``), beside the one-device
+    ``dense`` of the whole weight."""
+    from bcg_tpu_torch.models.configs import DenseRoute, spec_for_model
+    from bcg_tpu_torch.models.quantize import dense, dense_row_parallel, weight_quantizer
+    from bcg_tpu_torch.parallel.sharding import shard_leaf
+
+    mesh = _mesh(tp=2)
+    data = np.load(inputs + ".npz")
+    spec = spec_for_model("bcg-tpu/tiny-dh128")
+    res = {}
+    for mode in ("int8", "int4"):
+        for route in (DenseRoute(), DenseRoute(w8a16_rows=4)):
+            x, w = torch.from_numpy(data["x"]), torch.from_numpy(data["w"])
+            full = weight_quantizer(mode)(w)
+            local = shard_leaf("layers.0.w_down", full, spec, mesh, tuple(w.shape))
+            xs = _block(x, mesh, "tp", x.dim() - 1)
+            key = f"{mode}_{route.w8a16_rows}"
+            res[key + "/mesh"] = dense_row_parallel(xs, local, mesh, route=route).numpy()
+            res[key + "/one"] = dense(x, full, torch.float32, route=route).numpy()
+    _save(out, res)

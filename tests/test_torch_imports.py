@@ -181,25 +181,26 @@ def test_engine_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(paged_kv=True, quantization="int8", tensor_parallel_size=2), "A13b"),
-    (dict(quantization="int8", data_parallel_size=2), "A13b"),
-    (dict(quantization="int4", sequence_parallel_size=2), "A13b"),
-    (dict(kv_cache_dtype="int4", quantization="int4", tensor_parallel_size=2), "A13b"),
-    (dict(paged_kv=True, tensor_parallel_size=2), "A13b"),
-    (dict(kv_cache_dtype="int4", paged_kv=True, data_parallel_size=2), "A13b"),
-    # The default engine over a mesh is ported (A13a): without a world of
-    # the mesh's size it says so.
+    # Every knob the port serves on one device is served over a mesh too
+    # (A13a, A13b items 1-5): without a world of the mesh's size it says so.
+    (dict(paged_kv=True, quantization="int8", tensor_parallel_size=2), None),
+    (dict(quantization="int8", data_parallel_size=2), None),
+    (dict(quantization="int4", sequence_parallel_size=2), None),
+    (dict(kv_cache_dtype="int4", quantization="int4", tensor_parallel_size=2), None),
+    (dict(paged_kv=True, tensor_parallel_size=2), None),
+    (dict(kv_cache_dtype="int4", paged_kv=True, data_parallel_size=2), None),
     (dict(tensor_parallel_size=2), None),
     (dict(data_parallel_size=2), None),
     (dict(sequence_parallel_size=2), None),
+    # The JAX engine's two refusals under sp, in its words.
+    (dict(kv_cache_dtype="int4", sequence_parallel_size=2),
+     "kv_cache_dtype='int4' does not compose with sequence parallelism"),
+    (dict(paged_kv=True, sequence_parallel_size=2),
+     "paged_kv does not compose with sequence parallelism"),
 ])
 def test_unported_knobs_raise(knob, item):
     cfg = EngineConfig(backend="torch", model_name="bcg-tpu/tiny-test", **knob)
-    if item is None:
-        with pytest.raises(ValueError, match="needs a world of 2 ranks, have 1"):
-            TorchEngine(cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item or "needs a world of 2 ranks, have 1"):
         TorchEngine(cfg, device="cpu")
 
 

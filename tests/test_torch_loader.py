@@ -295,7 +295,7 @@ def int8_artifact(hf_checkpoint, tmp_path_factory):
     out = str(tmp_path_factory.mktemp("art") / "bcg-hf--tiny")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("BCG_TPU_CHECKPOINT_DIR", os.path.dirname(hf_checkpoint))
-        artifact.convert_checkpoint(TINY, "int8", out)
+        artifact.convert_checkpoint(TINY, "int8", out, device="cpu")
     return out
 
 
@@ -326,7 +326,7 @@ def test_artifact_mode_must_match_the_config(int8_artifact):
 
 def test_convert_checkpoint_cli_writes_a_bootable_artifact(hf_env, tmp_path, capsys):
     out = str(tmp_path / "cli")
-    artifact.main(["--model", TINY, "--mode", "int4", "--out", out])
+    artifact.main(["--model", TINY, "--mode", "int4", "--out", out, "--device", "cpu"])
     assert "saved int4 artifact" in capsys.readouterr().out
     assert artifact.artifact_mode(out) == "int4"
     assert "tokenizer.json" in os.listdir(out) and "config.json" in os.listdir(out)

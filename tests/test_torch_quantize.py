@@ -421,7 +421,7 @@ def test_tied_embeddings_gain_a_quantized_head(mode):
     q = tq.quantize_params(params, spec, mode=mode)
     assert tq.is_quantized(q["lm_head"]) and tq.is_int4(q["lm_head"]) == (mode == "int4")
     assert q["embed"].dtype == torch.bfloat16 and "layers.0.wq" in params
-    ref = tq._quantizer(mode)(params["embed"].T)
+    ref = tq.weight_quantizer(mode)(params["embed"].T)
     for part in ref:
         assert torch.equal(ref[part], q["lm_head"][part])
     # A leaf-transform tree gets its head afterwards, in place.

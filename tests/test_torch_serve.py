@@ -87,14 +87,17 @@ def _jax_state():
 # Module -> the functions, methods and docstrings where the port's copy
 # may differ from its original: the sweep builds its engines on a torch
 # device and its cooperative and multi-process arms ride
-# parallel/distributed.py (A13b); the serving proxy refuses an engine on
-# a mesh (A13b).  The fake engine is held whole.
+# parallel/distributed.py (A13b); over an engine on a mesh the serving
+# proxy leads from rank 0 and the other ranks follow (serve/mesh.py): its
+# constructor, shutdown and run_serving_simulations.  The fake
+# engine is held whole.
 COPIES = {
     "engine/fault.py": (),
     "engine/fake.py": (),
     "engine/collective.py": (),
     "serve/__init__.py": (),
-    "serve/engine.py": ("ServingEngine.__init__",),
+    "serve/engine.py": ("ServingEngine.__init__", "ServingEngine.shutdown",
+                        "run_serving_simulations"),
     "serve/scheduler.py": (),
     "sweep/__init__.py": (),
     "sweep/spec.py": (),

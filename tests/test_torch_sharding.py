@@ -12,8 +12,10 @@ object names it.
   ``tree_bytes_per_device``; the boot report's final bytes equal the JAX
   report's.
 * ``init_random_params_sharded`` equals slices of ``init_params`` for one
-  generator and seed, and a checkpoint read under a mesh equals slices of
-  the whole read.
+  generator and seed (quantized by the sharded quantizer: slices of the
+  one-device quantized tree), and a checkpoint read under a mesh equals
+  slices of the whole read.  A row-parallel int4 weight is held as the
+  contiguous slice of its unpacked rows, where XLA splits the packed rows.
 """
 
 import jax
@@ -105,14 +107,45 @@ def test_rank_slices_equal_jax_shards(model, tp, quant):
         device = jmesh.devices[0, r, 0]
         mine = sharding.shard_params(full, spec, StandInMesh(tp=tp, rank=(0, r, 0)))
         for name, arr in _flat(sharded):
-            shard = next(s for s in arr.addressable_shards if s.device == device)
             got = _port_leaf(mine, name)
+            base, _, part = name.rpartition(".")
+            if part in ("q4", "gscale") and sharding.leaf_dim(f"{base}.q4", spec, tp) == 0:
+                # A row-parallel int4 weight: the port holds the contiguous
+                # slice of the unpacked input rows (repacked locally) where
+                # XLA splits the packed rows — the same global leaf.
+                _assert_int4_row_slice(mine[base], np.asarray(jp_leaf(jp, base, "q4")),
+                                       np.asarray(jp_leaf(jp, base, "gscale")), tp, r, name)
+                split += 1
+                continue
+            shard = next(s for s in arr.addressable_shards if s.device == device)
             want = np.asarray(shard.data)
             if got.dtype == torch.bfloat16:
                 got, want = got.float(), want.astype(np.float32)
             np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
             split += tuple(got.shape) != tuple(arr.shape)
     assert split > 0
+
+
+def jp_leaf(tree, base, part):
+    """A part of a quantized leaf of a JAX param tree by logical name."""
+    return dict(_flat(tree))[f"{base}.{part}"]
+
+
+def _assert_int4_row_slice(local, q4, gscale, tp, r, name):
+    """``local`` (a rank's ``{"q4", "gscale"}``) unpacks to rows ``[r K/tp,
+    (r+1) K/tp)`` of the global packed weight ``q4`` ``[K/2, N]``, each
+    local row reading its global row's scale."""
+    from bcg_tpu_torch.ops.w4_matmul import unpack_int4
+
+    rows = unpack_int4(torch.from_numpy(q4)).numpy()
+    K = rows.shape[0]
+    n = K // tp
+    np.testing.assert_array_equal(unpack_int4(local["q4"]).numpy(), rows[r * n:(r + 1) * n],
+                                  err_msg=name)
+    per_row = np.repeat(gscale.astype(np.float32), K // gscale.shape[0], axis=0)
+    got = local["gscale"].float().numpy()
+    got = np.repeat(got, n // got.shape[0], axis=0)
+    np.testing.assert_array_equal(got, per_row[r * n:(r + 1) * n], err_msg=name)
 
 
 @pytest.mark.parametrize("model,tp,heads", [
@@ -128,7 +161,8 @@ def test_head_guards_and_local_heads(model, tp, heads):
     assert (sharding.leaf_dim("layers.0.wq", spec, tp) is None) == (spec.num_heads % tp != 0)
     assert (sharding.leaf_dim("layers.0.wk", spec, tp) is None) == (spec.num_kv_heads % tp != 0)
     assert sharding.leaf_dim("layers.0.wo.scale", spec, tp) is None
-    assert sharding.leaf_dim("layers.0.w_down.gscale", spec, tp) is None
+    # A row-parallel int4 weight's scales follow its own rows' groups.
+    assert sharding.leaf_dim("layers.0.w_down.gscale", spec, tp) == 0
     assert sharding.leaf_dim("layers.0.w_up.gscale", spec, tp) == 1
     g = spec.num_heads // spec.num_kv_heads
     for r in range(tp):
@@ -200,10 +234,28 @@ def test_sharded_init_equals_slices_of_init_params(model, tp):
 
 
 def test_sharded_init_refuses_quantization_and_checkpoint_reads_slices(tmp_path):
+    """A leaf transform that does not shard is refused under tp (it would
+    quantize a slice); the sharded quantizer's transform loads each rank's
+    slices of the one-device quantized tree, drawn or read."""
+    from bcg_tpu_torch.models.quantize import quantize_leaf_transform, quantize_params
+
     spec = spec_for_model("bcg-tpu/tiny-test")
-    with pytest.raises(NotImplementedError, match="A13b"):
+    with pytest.raises(ValueError, match="must take full leaves"):
         loader.init_random_params_sharded(spec, torch.Generator(), StandInMesh(tp=2), "cpu",
                                           leaf_transform=lambda n, t: t)
+    one = quantize_params(init_params(spec, torch.Generator().manual_seed(3), "cpu"), spec,
+                          mode="int8")
+    for r in range(2):
+        mesh = StandInMesh(tp=2, rank=(0, r, 0))
+        got = loader.init_random_params_sharded(
+            spec, torch.Generator().manual_seed(3), mesh, "cpu",
+            leaf_transform=quantize_leaf_transform(spec, "int8", mesh=mesh))
+        want = sharding.shard_params(one, spec, mesh)
+        assert set(got) == set(want)
+        for name, leaf in want.items():
+            for part, t in (leaf.items() if isinstance(leaf, dict) else [(None, leaf)]):
+                g = got[name][part] if part else got[name]
+                assert torch.equal(g, t), (name, part)
     full = init_params(spec, torch.Generator().manual_seed(3), "cpu")
     tensors = {}
     for name, t in full.items():
