@@ -38,14 +38,26 @@ Rule catalog (the JAX package's stable IDs):
                         registered namespaces
 * ``BCG-OBS-BUCKET``    histogram bucket lists drifting from the shared
                         bound constants
+* ``BCG-SHARD-AXIS``    a string literal used as a mesh axis (a
+                        collective's ``axis``, ``get_group``,
+                        ``get_local_rank``, a ``mesh_shape`` key) that is
+                        not one of ``parallel/mesh.AXES``
+* ``BCG-SHARD-DIVISOR`` a division by a raw device or rank count
+                        (``mesh.size()``, ``dist.get_world_size()``,
+                        ``torch.cuda.device_count()``, ``len`` of a
+                        device list) where per-rank bytes need the
+                        engaged axes (``parallel/sharding``'s helpers)
+* ``BCG-JIT-OUTSHARD``  in ``models/``/``parallel/``, a full freshly
+                        made tensor stored into a mesh function's tree
+                        without ``shard_leaf``
 
 Whole-program rules (``interproc.py``): ``BCG-LOCK-ORDER``,
 ``BCG-LOCK-BLOCK``, ``BCG-SHARED-MUT``.  The same pass lifts capture
 regions across module boundaries (``propagate_capture_regions``).
 
-The JAX package's BCG-JIT-OUTSHARD, BCG-JIT-DONATE, BCG-SHARD-AXIS and
-BCG-SHARD-DIVISOR are not rules here yet: their torch constructs
-(``parallel/``) wait for their retargeting (ROADMAP A13b).
+The JAX package's BCG-JIT-DONATE is not a rule here: torch has no
+buffer donation (``rules.py``'s docstring says why, and what holds the
+boot peak instead).
 
 Suppression: the port's baseline (``bcg_tpu_torch/analysis/
 baseline.json``) parks deliberate findings with a one-line

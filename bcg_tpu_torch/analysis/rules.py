@@ -10,15 +10,37 @@ soundness; deliberate violations are parked in the port's baseline
 
 The three traced-region rules keep their IDs and apply to **capture
 regions** (``core.CAPTURE_ROOTS`` and their callees): BCG-HOST-SYNC,
-BCG-JIT-NP and BCG-JIT-BRANCH.  The four sharding rules of the JAX
-package (BCG-JIT-OUTSHARD, BCG-JIT-DONATE, BCG-SHARD-AXIS,
-BCG-SHARD-DIVISOR) have no torch construct until the port has a mesh
-and are not in :data:`ALL_RULES`.  The rest are copies.
+BCG-JIT-NP and BCG-JIT-BRANCH.  Three of the JAX package's four mesh
+rules keep their IDs and are retargeted to the port's mesh code
+(``parallel/``: a ``DeviceMesh`` of ranks, explicit collectives, plain
+local tensors a rank):
+
+* BCG-SHARD-AXIS: a string literal used as a mesh axis — the ``axis``
+  of ``parallel/collectives``, the ``axis_name`` of ``parallel/
+  game_step``, a ``DeviceMesh``'s ``get_group`` / ``get_local_rank``, a
+  key of ``mesh_shape(...)`` — must be one of ``parallel/mesh.AXES``;
+* BCG-SHARD-DIVISOR: a division by a raw device or rank count;
+* BCG-JIT-OUTSHARD: in ``models/`` and ``parallel/``, a function that
+  takes a ``mesh`` and stores a freshly made tensor (a ``torch``
+  factory's draw or fill, or a name bound to one) into the tree it
+  builds, with no ``shard_leaf`` / sharding transform between them: the
+  full leaf on every rank (torch has no ``out_shardings``; the leaf is
+  whole unless the code slices it).
+
+BCG-JIT-DONATE has no torch construct and is not in :data:`ALL_RULES`:
+torch updates tensors in place and has no buffer donation, so no call
+holds a source and its result alive for want of one.  What the rule
+guarded, the boot peak, is the port's design: each rank draws a full
+leaf and then slices it, and ``models/loader.boot_peak_report`` counts
+that transient (final tree + the largest full leaf), which
+``tools/boot_smoke`` checks for every preset and the card script holds
+against ``torch.cuda.max_memory_allocated``.  The rest are copies.
 """
 
 from __future__ import annotations
 
 import ast
+import os
 import re
 from typing import Iterable, List, Optional, Sequence, Set
 
@@ -26,6 +48,7 @@ from bcg_tpu_torch.analysis.core import (
     Finding,
     ModuleContext,
     _call_name,
+    repo_root,
 )
 
 # Env-flag name shapes owned by this repo (see runtime/envflags.py).
@@ -1052,6 +1075,193 @@ def rule_shared_mut(prog) -> Iterable[Finding]:
         )
 
 
+# ------------------------------------------------------------ mesh rules
+_MESH_AXES_MEMO: Optional[Set[str]] = None
+
+
+def _mesh_axes() -> Set[str]:
+    """The axis names ``parallel/mesh.py`` defines (its ``AXES``), parsed
+    from source once per process."""
+    global _MESH_AXES_MEMO
+    if _MESH_AXES_MEMO is None:
+        _MESH_AXES_MEMO = {"dp", "tp", "sp"}
+        try:
+            with open(os.path.join(repo_root(), "bcg_tpu_torch", "parallel", "mesh.py")) as fh:
+                tree = ast.parse(fh.read())
+        except (OSError, SyntaxError):
+            tree = None
+        for node in ast.walk(tree) if tree is not None else ():
+            if (isinstance(node, ast.Assign)
+                    and any(isinstance(t, ast.Name) and t.id == "AXES" for t in node.targets)
+                    and isinstance(node.value, (ast.Tuple, ast.List))):
+                names = {e.value for e in node.value.elts
+                         if isinstance(e, ast.Constant) and isinstance(e.value, str)}
+                if names:
+                    _MESH_AXES_MEMO = names
+    return _MESH_AXES_MEMO
+
+
+# Functions taking a mesh axis name: the argument's position and keyword.
+_AXIS_ARGS = {
+    "all_reduce": (2, "axis"), "broadcast": (2, "axis"), "all_gather": (2, "axis"),
+    "ring_shift": (2, "axis"), "axis_size": (1, "axis"), "axis_rank": (1, "axis"),
+    "tally_votes": (2, "axis_name"), "shard_agents": (2, "axis_name"),
+    "exchange_values": (3, "axis_name"), "exchange_proposals": (3, "axis_name"),
+    # DeviceMesh methods
+    "get_group": (0, "mesh_dim"), "get_local_rank": (0, "mesh_dim"),
+}
+
+
+def _axis_literals(node: ast.Call) -> Iterable[ast.Constant]:
+    """The string literals a call passes where a mesh axis goes."""
+    short = _call_name(node.func).rsplit(".", 1)[-1]
+    if short in _AXIS_ARGS:
+        pos, kw = _AXIS_ARGS[short]
+        args = [node.args[pos]] if len(node.args) > pos else []
+        args += [k.value for k in node.keywords if k.arg == kw]
+        yield from (a for a in args if isinstance(a, ast.Constant) and isinstance(a.value, str))
+    if (isinstance(node.func, ast.Attribute) and node.func.attr == "get"
+            and isinstance(node.func.value, ast.Call)
+            and _call_name(node.func.value.func).rsplit(".", 1)[-1] == "mesh_shape"
+            and node.args and isinstance(node.args[0], ast.Constant)
+            and isinstance(node.args[0].value, str)):
+        yield node.args[0]
+
+
+@_rule("BCG-SHARD-AXIS")
+def rule_shard_axis(ctx: ModuleContext) -> Iterable[Finding]:
+    """A string literal used as a mesh axis must be an axis
+    ``parallel/mesh.py`` defines: a typo'd axis is a size-1 axis to
+    ``mesh_shape(...).get`` and the collectives, so the collective sums
+    nothing and the tensor silently replicates."""
+    if ctx.rel_path.endswith("parallel/mesh.py"):
+        return  # the definition site itself
+    axes = _mesh_axes()
+    for node in ast.walk(ctx.tree):
+        lits: List[ast.Constant] = []
+        if isinstance(node, ast.Call):
+            lits = list(_axis_literals(node))
+        elif (isinstance(node, ast.Subscript) and isinstance(node.value, ast.Call)
+              and _call_name(node.value.func).rsplit(".", 1)[-1] == "mesh_shape"
+              and isinstance(node.slice, ast.Constant) and isinstance(node.slice.value, str)):
+            lits = [node.slice]
+        for c in lits:
+            if c.value not in axes:
+                yield ctx.finding(
+                    "BCG-SHARD-AXIS", c,
+                    f"mesh axis {c.value!r} is not a mesh axis (defined: "
+                    f"{sorted(axes)}) — silently replicates",
+                )
+
+
+# Calls whose result is a raw device or rank count.
+_RAW_COUNT_CALLS = {"dist.get_world_size", "torch.distributed.get_world_size",
+                    "distributed.world_size", "world_size", "torch.cuda.device_count",
+                    "cuda.device_count"}
+
+
+def _raw_count(node: ast.AST) -> Optional[str]:
+    """The text of ``node`` when it is a raw device or rank count."""
+    if not isinstance(node, ast.Call):
+        return None
+    name = _call_name(node.func)
+    if name in _RAW_COUNT_CALLS:
+        return name + "()"
+    if name.endswith(".size") and re.search(r"mesh", name, re.I) and not node.args:
+        return name + "()"
+    if name == "len" and node.args:
+        inner = node.args[0]
+        target = _call_name(inner.func) if isinstance(inner, ast.Call) else _call_name(inner)
+        if re.search(r"device", target, re.I):
+            return f"len({target}{'()' if isinstance(inner, ast.Call) else ''})"
+    return None
+
+
+@_rule("BCG-SHARD-DIVISOR")
+def rule_shard_divisor(ctx: ModuleContext) -> Iterable[Finding]:
+    """Per-rank byte accounting must divide by the mesh axes that
+    ENGAGE, not by a raw device or rank count: an axis that fails its
+    divisibility guard replicates instead of sharding, and dividing by
+    the world then undercounts a rank's bytes by that axis's factor.
+    Route through ``parallel/sharding.kv_cache_bytes_per_device`` /
+    ``tree_bytes_per_device`` (or the engine's ``cap_for``)."""
+    for node in ast.walk(ctx.tree):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, (ast.Div, ast.FloorDiv)):
+            desc = _raw_count(node.right)
+            if desc:
+                yield ctx.finding(
+                    "BCG-SHARD-DIVISOR", node,
+                    f"division by a raw device count ({desc}) — divide by the "
+                    "engaged mesh axes (parallel/sharding per-device helpers) or "
+                    "replication overcommits device memory",
+                )
+
+
+def _in_param_scope(ctx: ModuleContext) -> bool:
+    rel = ctx.rel_path
+    return "/models/" in rel or "/parallel/" in rel or rel.startswith(("models/", "parallel/"))
+
+
+# torch calls that make a tensor of the shape they are given (a full leaf).
+_FACTORY_RE = re.compile(r"^torch\.(randn|rand|randint|empty|zeros|ones|full|normal|"
+                         r"tensor|as_tensor|from_numpy)$")
+# Calls that give a rank its part of a leaf.
+_SHARDING_RE = re.compile(r"(^|\.)(shard_leaf|shard_params|_read_slice|\w*transform)$")
+
+
+def _made_full(expr: ast.AST, bound) -> bool:
+    """Whether ``expr`` is a freshly made full tensor: a factory call, a
+    method chained on one (``.to``, ``.mul_``), a name ``bound`` to one,
+    or a conditional either arm of which is one."""
+    if isinstance(expr, ast.IfExp):
+        return _made_full(expr.body, bound) or _made_full(expr.orelse, bound)
+    if isinstance(expr, ast.Name):
+        return bound.get(expr.id, False)
+    if isinstance(expr, ast.Call):
+        name = _call_name(expr.func)
+        if _SHARDING_RE.search(name):
+            return False
+        if _FACTORY_RE.match(name):
+            return True
+        if isinstance(expr.func, ast.Attribute) and not name.startswith("torch."):
+            return _made_full(expr.func.value, bound)
+    return False
+
+
+@_rule("BCG-JIT-OUTSHARD")
+def rule_jit_outshard(ctx: ModuleContext) -> Iterable[Finding]:
+    """In parameter-making modules (``models/``, ``parallel/``): a
+    function that takes a ``mesh`` and stores a freshly made tensor into
+    the tree it builds (``tree[name] = ...``) without a ``shard_leaf`` /
+    sharding transform between the two keeps the FULL leaf on every rank
+    — the unsharded materialization the JAX rule's ``out_shardings``
+    guards (the boot OOM class).  Slice the leaf (or baseline a
+    deliberately replicated one)."""
+    if not _in_param_scope(ctx):
+        return
+    for fn in ast.walk(ctx.tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if "mesh" not in [a.arg for a in fn.args.args + fn.args.kwonlyargs]:
+            continue
+        # Names in source order: whether their latest binding is a full
+        # leaf (a branch's rebinding through shard_leaf clears it).
+        bound = {}
+        stmts = sorted((n for n in ast.walk(fn) if isinstance(n, ast.Assign)),
+                       key=lambda n: (n.lineno, n.col_offset))
+        for st in stmts:
+            full = _made_full(st.value, bound)
+            for tgt in st.targets:
+                if isinstance(tgt, ast.Name):
+                    bound[tgt.id] = full
+                elif isinstance(tgt, ast.Subscript) and full:
+                    yield ctx.finding(
+                        "BCG-JIT-OUTSHARD", st,
+                        "a full leaf stored into a mesh function's tree without "
+                        "shard_leaf — every rank holds it whole",
+                    )
+
+
 ALL_RULES: Sequence = (
     rule_host_sync,
     rule_jit_np,
@@ -1068,6 +1278,9 @@ ALL_RULES: Sequence = (
     rule_lock_order,
     rule_lock_block,
     rule_shared_mut,
+    rule_shard_axis,
+    rule_shard_divisor,
+    rule_jit_outshard,
 )
 
 RULE_IDS: List[str] = [r.rule_id for r in ALL_RULES]

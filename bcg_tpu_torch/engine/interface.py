@@ -141,8 +141,10 @@ def create_engine(engine_config, llm_config=None, device=None) -> InferenceEngin
     device; ``None`` means CUDA), ``"fake"`` the deterministic
     :class:`FakeEngine`; a fault rate wraps either in
     :class:`FaultInjectingEngine`.  A mesh (``tensor_/sequence_/
-    data_parallel_size``) serves the default engine only; with any other
-    knob :class:`TorchEngine` refuses it (ROADMAP A13b)."""
+    data_parallel_size``) serves every engine :class:`TorchEngine` serves
+    on one device but two, which it refuses with the JAX engine's
+    ``ValueError``: a paged pool with ``sp`` and a dense int4 cache with
+    ``sp``."""
     from bcg_tpu_torch.runtime import envflags
 
     # Env overrides (BCG_TPU_FAULT_RATE / BCG_TPU_FAULT_SEED) win over

@@ -88,11 +88,14 @@ Serving design, as in the JAX engine:
   and its done polls read every rank's rows, so the ranks' pools stay
   equal and their loops take the same steps.
 
-Ported: bf16, int8 and int4 weights, a dense or paged bf16, int8 or int4
-KV cache, the plain, fast-forward and speculative loops, the fused
-mega-round, and the mesh above (the fused round on one device only).
-Every knob outside that raises ``NotImplementedError`` naming the
-ROADMAP item that brings it; none is ignored.
+Served: bf16, int8 and int4 weights, a dense or paged bf16, int8 or int4
+KV cache, the plain, fast-forward and speculative loops and the fused
+mega-round, each on one device and each but the fused round under the
+mesh above.  Under a mesh the engine refuses what the JAX engine
+refuses, with its ``ValueError``: a paged pool with ``sp`` and a dense
+int4 cache with ``sp`` (and the fused round raises
+``MegaroundUnsupported``, so the orchestrator plays lockstep).  No knob
+is ignored.
 """
 
 from __future__ import annotations
@@ -193,12 +196,6 @@ def _pad_rows(*lists, multiple: int = 1):
     real_B = len(lists[0])
     B = _pad_batch(real_B, multiple)
     return (real_B, B) + tuple(l + [l[0]] * (B - real_B) for l in lists)
-
-
-def _not_ported(knob: str, item: str):
-    return NotImplementedError(
-        f"{knob}: not ported to the PyTorch engine yet (ROADMAP {item})"
-    )
 
 
 def _resolve_device(device) -> torch.device:
@@ -331,8 +328,10 @@ class TorchEngine(InferenceEngine):
         self.spec = dataclasses.replace(self.spec, dense_route=route, par=par)
         self._dp, self._sp = (par.dp, par.sp) if par is not None else (1, 1)
         # Rows the dp split could not take (a row cap below dp): each such
-        # batch runs whole on every dp rank.
+        # batch runs whole on every dp rank.  ``dp_batches`` counts the
+        # batches that ran split over dp.
         self.dp_bypasses = 0
+        self.dp_batches = 0
         self.sp_bypasses = 0
         self.params = self._load_params(params)
         # Compute dtype follows the weights (bf16 served; the CPU parity
@@ -1490,6 +1489,7 @@ class TorchEngine(InferenceEngine):
         all_parts, all_budgets = parts, budgets
         if dp_rows is not None:
             parts, temps, budgets = parts[dp_rows], temps[dp_rows], budgets[dp_rows]
+            self.dp_batches += 1
         B = len(parts)
         use_spec = self.spec_decode
         use_ff = not use_spec and self.fast_forward and not free
@@ -2019,7 +2019,7 @@ class TorchEngine(InferenceEngine):
             )
         if self.mesh is not None:
             raise MegaroundUnsupported(
-                f"multi-device mesh ({self.mesh.size()} ranks; ROADMAP A13b)")
+                f"multi-device mesh ({self.mesh.size()} ranks)")
 
         def chat_parts(system: str, user: str):
             return format_chat_parts(

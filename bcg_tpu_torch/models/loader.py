@@ -173,6 +173,7 @@ def boot_peak_report(spec: ModelSpec, mesh=None, quantization: Optional[str] = N
     directly).  The port keeps no stacked layout, so there is no
     stacking phase."""
     from bcg_tpu_torch.models.convert import _quantized_shapes
+    from bcg_tpu_torch.models.quantize import is_quant_leaf
     from bcg_tpu_torch.models.transformer import param_plan
     from bcg_tpu_torch.parallel.mesh import mesh_shape
     from bcg_tpu_torch.parallel.sharding import leaf_dim
@@ -190,14 +191,17 @@ def boot_peak_report(spec: ModelSpec, mesh=None, quantization: Optional[str] = N
     max_leaf = None
     for name, kind, shape in param_plan(spec):
         full = int(np.prod(shape, dtype=np.int64))
-        if kind == "dense" and quantization is not None:
+        # The quantizer takes the blocks' dense weights and the LM head;
+        # the embedding stays bf16 (``quantize.is_quant_leaf``).
+        quantized = kind == "dense" and quantization is not None and is_quant_leaf(name)
+        if quantized:
             parts = ("q", "scale") if quantization == "int8" else ("q4", "gscale")
             out_b = sum(shard(f"{name}.{p}", shp, parts_bytes[p])
                         for p, shp in _quantized_shapes(parts, shape).items())
         else:
             out_b = shard(name, shape, itemsize)
         transient = full * (4 + itemsize) if kind == "dense" else full * itemsize
-        if kind == "dense" and quantization is not None and tp > 1:
+        if quantized and tp > 1:
             # The sharded quantizer quantizes the whole leaf before slicing it.
             transient += sum(int(np.prod(shp, dtype=np.int64)) * parts_bytes[p]
                              for p, shp in _quantized_shapes(parts, shape).items())

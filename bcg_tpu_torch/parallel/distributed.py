@@ -31,6 +31,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import uuid
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -213,7 +214,8 @@ def spawn_world(target: str, nprocs: int, *, timeout_s: float, args: Optional[di
     cores), joins the
     world through a ``FileStore`` in a private temporary directory (no
     port, so concurrent worlds cannot collide) and calls
-    ``function(**args)``.  ``device_type``: the ranks' device type
+    ``function(**args)``.  Every rank shares one ``BCG_TPU_RUN_ID`` (the
+    parent's, else a fresh one).  ``device_type``: the ranks' device type
     (:func:`initialize`'s); ``device_ids``: each rank's CUDA device
     (default ``LOCAL_RANK`` modulo the cards).  The world has a hard wall
     limit of ``timeout_s``: past it, or as soon as one rank fails, every
@@ -221,6 +223,10 @@ def spawn_world(target: str, nprocs: int, *, timeout_s: float, args: Optional[di
     the failing rank's output."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     tmp = tempfile.mkdtemp(prefix="bcg_world_")
+    # One run id for every rank of the world (the fleet identity, which
+    # the cooperative sweep matches rank 0's plan by), unless the parent
+    # set one.
+    run_id = uuid.uuid4().hex[:12]
     procs, logs = [], []
     # Each rank holds the write end of a pipe it never writes: the read end
     # turns readable (EOF) when the rank exits, so the parent waits on the
@@ -229,6 +235,7 @@ def spawn_world(target: str, nprocs: int, *, timeout_s: float, args: Optional[di
     try:
         for rank in range(nprocs):
             rank_env = dict(os.environ)
+            rank_env.setdefault("BCG_TPU_RUN_ID", run_id)
             rank_env.update(
                 RANK=str(rank), WORLD_SIZE=str(nprocs), LOCAL_RANK=str(rank),
                 LOCAL_WORLD_SIZE=str(nprocs), OMP_NUM_THREADS="1",
@@ -283,7 +290,12 @@ def _rank_main() -> None:
     initialize(coordinator_address=f"file://{store}", device_type=device_type,
                local_device_ids=None if dev is None else [dev])
     try:
-        module, fn = target.split(":")
-        getattr(importlib.import_module(module), fn)(**json.loads(args))
+        resolve(target)(**json.loads(args))
     finally:
         shutdown()
+
+
+def resolve(target: str):
+    """The function a ``"module:function"`` name names."""
+    module, fn = target.split(":")
+    return getattr(importlib.import_module(module), fn)

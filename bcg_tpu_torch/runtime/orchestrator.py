@@ -124,7 +124,14 @@ class BCGSimulation:
 
             self.config = apply_scenario(self.config, scenario_name)
         # Every rank of a mesh plays the same game; rank 0 alone writes.
-        self._writer = obs_fleet.process_index() == 0
+        # A game on one device is this rank's own (a partitioned sweep's
+        # rank plays its own jobs), and writes on every rank.
+        eng_cfg = self.config.engine
+        mesh = getattr(engine, "mesh", None)
+        on_mesh = (max(eng_cfg.tensor_parallel_size, eng_cfg.sequence_parallel_size,
+                       eng_cfg.data_parallel_size) > 1
+                   or (mesh is not None and mesh.size() > 1))
+        self._writer = obs_fleet.process_index() == 0 or not on_mesh
         if not self._writer:
             self.config = dataclasses.replace(self.config, metrics=dataclasses.replace(
                 self.config.metrics, save_results=False, generate_plots=False,
@@ -225,6 +232,9 @@ class BCGSimulation:
         # SPMD value-exchange path (NetworkConfig.spmd_exchange): the
         # static topology mask, built lazily.
         self._spmd_mask_np = None
+        # The exchange's mesh by its shape (``.shape``: axis -> size), set
+        # at the first SPMD exchange (the sweep records its dp).
+        self._spmd_mesh = None
         # Host-protocol-equivalent message accounting of the exchanges
         # that bypass the host protocol (the fused round's deliveries).
         self._spmd_message_count = 0
@@ -874,6 +884,12 @@ class BCGSimulation:
         ids = sorted(self.agents)
         n = len(ids)
         mesh = getattr(self.engine, "mesh", None)
+        if self._spmd_mesh is None:
+            from types import SimpleNamespace
+
+            from bcg_tpu_torch.parallel.mesh import mesh_shape
+
+            self._spmd_mesh = SimpleNamespace(shape=mesh_shape(mesh))
         if self._spmd_mask_np is None:
             # Receiver view: row i holds the senders whose OUT-edges
             # reach i — the transpose of neighbor_mask()'s mask[s, adj[s]]

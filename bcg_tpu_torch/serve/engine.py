@@ -49,11 +49,14 @@ class ServingEngine(InferenceEngine):
                  **scheduler_kwargs):
         # Over an engine on a mesh of ranks, rank 0 leads: its scheduler's
         # every engine call goes to the other ranks first, which follow
-        # (serve/mesh.py); shutdown() ends their loops.
+        # (serve/mesh.py); shutdown() ends their loops.  A proxy over a
+        # scheduler its caller built leads nothing: that caller keeps the
+        # ranks in step (the cooperative sweep, where every rank plays the
+        # one game through its own scheduler).
         from bcg_tpu_torch.serve import mesh as mesh_serving
 
         self.leader = None
-        if mesh_serving.spans_world(engine):
+        if scheduler is None and mesh_serving.spans_world(engine):
             if not mesh_serving.is_leader():
                 raise ValueError(
                     "ServingEngine over a mesh engine runs on rank 0; the other ranks "
@@ -62,6 +65,12 @@ class ServingEngine(InferenceEngine):
             scheduler_kwargs["engine_factory"] = self.leader.wrap_factory(
                 scheduler_kwargs.get("engine_factory"))
         self._engine = engine
+        if scheduler is not None:
+            # Standing in for the engine in a game that every rank plays:
+            # the orchestrator's SPMD exchange runs over the engine's mesh
+            # and device.
+            self.mesh = getattr(engine, "mesh", None)
+            self.device = getattr(engine, "device", None)
         self._owns_inner = owns_inner
         self._tenant = tenant
         if defer_wait_ceiling_s is None:

@@ -11,13 +11,17 @@ behind (completed jobs are skipped from the sweep manifest /
 ``game_end`` records; interrupted games continue from their newest
 round checkpoint when ``BCG_TPU_SERVE_CHECKPOINT_EVERY`` is set).
 
-Multi-host: pass --coordinator/--num-processes/--process-id (or run
-under Cloud TPU auto-detect with --distributed) and every rank runs its
-``jobs[rank::world]`` partition; a single-job spec instead runs
-cooperatively on the dp-across-hosts mesh.  In the PyTorch port both
-ride the process group of ``parallel/distributed.py``, which the sweep
-does not use yet (ROADMAP A13b): they raise.  ``run --device cpu`` runs the
-torch engines on the CPU (default: the CUDA card).
+Multi-process: every rank runs the same command and joins one
+``torch.distributed`` world through ``parallel/distributed.initialize``:
+``--coordinator`` (``host:port``, or a ``tcp://`` / ``file://`` init
+method) with ``--num-processes`` and ``--process-id``, or ``--distributed``
+alone, which reads the world from ``env://`` (``torchrun --nproc-per-node
+N -m bcg_tpu_torch.sweep run ... --distributed``).  Every rank then runs
+its ``jobs[rank::world]`` partition; a single-job spec instead runs
+cooperatively: every rank plays the one game (its SPMD exchange and its
+``dp`` batches span the world) and rank 0 alone records it.  ``run
+--device cpu`` runs the torch engines on the CPU and joins the world over
+gloo (default: the CUDA card).
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     run_p.add_argument("--json", action="store_true", dest="as_json",
                        help="print the rank summary as JSON")
     run_p.add_argument("--distributed", action="store_true",
-                       help="join the multi-host process group "
-                       "(auto-detect topology; Cloud TPU)")
+                       help="join the multi-process group from env:// "
+                       "(torchrun sets it)")
     run_p.add_argument("--coordinator", default=None,
                        help="coordinator address for a manual cluster")
     run_p.add_argument("--num-processes", type=int, default=None)
@@ -94,9 +98,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # run
     if args.distributed or args.coordinator is not None:
-        raise NotImplementedError(
-            "--distributed/--coordinator: the multi-process group "
-            "(parallel/distributed.py) is not ported to the sweep yet (ROADMAP A13b)"
+        from bcg_tpu_torch.parallel import distributed
+
+        distributed.initialize(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device_type=args.device,
         )
     spec = sweep_spec.load_spec(args.spec)
     out_dir = args.out

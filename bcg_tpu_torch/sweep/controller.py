@@ -123,9 +123,16 @@ class SweepController:
     engine for every job (tests); by default engines are created per
     distinct :meth:`~bcg_tpu_torch.sweep.spec.JobSpec.engine_key` on
     ``device`` (the torch device; ``None`` means CUDA) and owned (shut
-    down) by the controller.  The cooperative single-job mode rides the
-    multi-process mesh, which the sweep does not use yet (ROADMAP A13b): it
-    raises.
+    down) by the controller.
+
+    In the cooperative single-job mode every rank plays the one game
+    through its own scheduler over its own engine (whose ``dp`` batches
+    and SPMD exchange are collectives over the world), so every rank must
+    make the same engine calls in the same order.  One game makes them
+    one at a time; what could part the ranks is a retry, a supervisor
+    rebuild or a requeued job on one rank alone, so the dispatch retries,
+    the hang watchdog and the job retries are off in this mode (a warning
+    names any that was asked for).
     """
 
     def __init__(
@@ -169,10 +176,21 @@ class SweepController:
         # merged report counts the game once.
         self.cooperative = self.world > 1 and len(self.jobs) == 1
         if self.cooperative:
-            raise NotImplementedError(
-                "cooperative sweep: one game across ranks rides the "
-                "multi-process mesh, which is not ported yet (ROADMAP A13b)"
-            )
+            import warnings
+
+            asked = [name for name, value in (
+                ("max_job_retries", self.max_job_retries),
+                ("BCG_TPU_SERVE_MAX_DISPATCH_RETRIES",
+                 envflags.get_int("BCG_TPU_SERVE_MAX_DISPATCH_RETRIES")),
+                ("BCG_TPU_SERVE_WATCHDOG_S",
+                 envflags.get_int("BCG_TPU_SERVE_WATCHDOG_S")),
+            ) if value]
+            if asked:
+                warnings.warn(
+                    f"cooperative sweep: {', '.join(asked)} turned off — a "
+                    "retry or rebuild on one rank alone would part the "
+                    "ranks at the next collective", stacklevel=2)
+            self.max_job_retries = 0
         self._man_lock = threading.Lock()
         self._engines_lock = threading.Lock()
         # engine_key -> (inner engine, shared Scheduler); booted under
@@ -227,6 +245,8 @@ class SweepController:
                 kwargs["slo_ms"] = self.slo_ms
             if self.linger_ms is not None:
                 kwargs["linger_ms"] = self.linger_ms
+            if self.cooperative:
+                kwargs.update(max_dispatch_retries=0, watchdog_s=0)
             pair = (engine, Scheduler(engine, **kwargs))
             with self._engines_lock:
                 self._groups[key] = pair

@@ -28,9 +28,11 @@ Where the port measures a metric another way, the scenario says so:
   engine's decode loops, and counts the wrapper's calls;
 * ``hlo`` runs :mod:`bcg_tpu_torch.tools.census_gate` in a subprocess.
 
-The fleet scenario and its ``straggler-off`` injection are not here: its
-worker joins a two-process cluster through the port's
-``parallel/distributed.py``; it waits for ROADMAP A13b.
+* ``fleet`` runs a real two-rank CPU world (``parallel/distributed.
+  spawn_world``, gloo) whose ranks are :mod:`bcg_tpu_torch.tools.
+  fleet_probe`, and merges their metric shards through
+  ``scripts/fleet_report.py`` (the port's fleet report,
+  :mod:`bcg_tpu_torch.tools.reports`).
 
 Exit status: 0 green, 2 findings (a metric outside its band, a measured
 metric with no entry, a stale entry), 1 usage.  The baseline is
@@ -60,11 +62,11 @@ from bcg_tpu_torch.tools import gate_baseline
 # "alerts" stays LAST: its oracle arm resets the counter registry to
 # kill absolute-gauge leftovers that earlier scenarios leave behind.
 SCENARIOS = ("serve", "engine", "paged", "sampler", "int4", "consensus",
-             "hostsync", "megaround", "compile", "sweep", "chaos",
+             "fleet", "hostsync", "megaround", "compile", "sweep", "chaos",
              "scenarios", "hlo", "alerts")
 REGRESSIONS = ("none", "spec-off", "fail-rows", "events-off",
-               "hostsync-off", "compile-off", "fairness-off", "chaos-off",
-               "scenarios-off", "alerts-off")
+               "straggler-off", "hostsync-off", "compile-off", "fairness-off",
+               "chaos-off", "scenarios-off", "alerts-off")
 
 MODEL = "bcg-tpu/tiny-test"
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -517,6 +519,87 @@ def run_consensus_scenario(inject: str = "none") -> Dict[str, float]:
         "consensus.events_dropped": float(
             obs_counters.value("game.events_dropped") - drops_before),
         "consensus.histogram_quantile_sanity": sane,
+    }
+
+
+def run_fleet_scenario(inject: str = "none") -> Dict[str, float]:
+    """The distributed observability plane (``obs/fleet.py`` +
+    ``scripts/fleet_report.py``) on a real two-rank CPU world: each rank
+    (:func:`bcg_tpu_torch.tools.fleet_probe.rank_main`) plays a fake-engine
+    consensus game with metric shards and game events on, and the last
+    rank runs with a frozen fleet watermark.  Gated, as the JAX scenario:
+
+    * ``shard_completeness`` — every rank's shard present for the shared
+      run id;
+    * ``merged_p50_rel_err`` / ``merged_p95_rel_err`` — the report's
+      bucket-wise merge of the ranks' ``fleet.probe_ms`` histograms
+      against a single-stream oracle over the union of the same values;
+    * ``counter_merge_error`` — the merged ``fleet.probe`` counter against
+      the exact cross-rank sum;
+    * ``events_dropped`` — the bounded event sinks shed nothing;
+    * ``straggler_flagged`` — rank 0's runtime straggler pass flagged the
+      frozen rank.  ``--inject-regression straggler-off`` turns detection
+      off (``BCG_TPU_FLEET_STRAGGLER_FACTOR=0``) and the gate must fail
+      naming this metric."""
+    import shutil
+    import uuid
+
+    from bcg_tpu_torch.obs.counters import Histogram
+    from bcg_tpu_torch.parallel import distributed
+    from bcg_tpu_torch.tools import fleet_probe
+
+    tmp = tempfile.mkdtemp(prefix="bcg-fleet-gate-")
+    shard_dir = os.path.join(tmp, "shards")
+    run = uuid.uuid4().hex[:12]
+    nproc = 2
+    try:
+        with env_vars(BCG_TPU_RUN_ID=run, BCG_TPU_METRICS_SHARD_DIR=shard_dir,
+                      BCG_TPU_METRICS_SHARD_MS="100", BCG_TPU_GAME_EVENTS=None,
+                      BCG_TPU_FLEET_STRAGGLER_FACTOR=(
+                          "0" if inject == "straggler-off" else "3")):
+            distributed.spawn_world("bcg_tpu_torch.tools.fleet_probe:rank_main", nproc,
+                                    timeout_s=240, device_type="cpu",
+                                    args=dict(events_dir=tmp))
+        fr = load_report("fleet_report")
+        problems: List[str] = []
+        records = [r for r in fr.load_shards([shard_dir], problems)
+                   if (r.get("identity") or {}).get("run_id") == run]
+        merged_counters = fr.merge_counters(records)
+        merged_hists = fr.merge_histograms(records, problems)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for problem in problems:
+        print(f"perf_gate[fleet]: {problem}", file=sys.stderr)
+    ranks = {(r.get("identity") or {}).get("process_index") for r in records}
+
+    # Single-stream oracle: the union of every rank's probe values through
+    # one histogram, against the report's merged quantiles.
+    oracle = Histogram("fleet.probe_oracle", fleet_probe.PROBE_BOUNDS)
+    for pid in range(nproc):
+        for value in fleet_probe.probe_values(pid):
+            oracle.observe(value)
+    oq = oracle.quantiles()
+    merged_probe = merged_hists.get("fleet.probe_ms")
+    if merged_probe is not None and merged_probe["count"]:
+        mq = fr.histogram_quantiles(merged_probe)
+        p50_err = abs(mq["p50"] - oq["p50"]) / max(1e-9, oq["p50"])
+        p95_err = abs(mq["p95"] - oq["p95"]) / max(1e-9, oq["p95"])
+    else:
+        p50_err = p95_err = 1.0
+    probe_total = merged_counters.get("fleet.probe", {}).get("total", 0)
+    drops = (merged_counters.get("game.events_dropped", {}).get("total", 0)
+             + merged_counters.get("serve.events_dropped", {}).get("total", 0))
+    flagged = 0.0
+    for rec in records:
+        if (rec.get("identity") or {}).get("process_index") == 0:
+            flagged = float((rec.get("gauges") or {}).get("fleet.stragglers", 0) >= 1)
+    return {
+        "fleet.shard_completeness": len(ranks) / nproc,
+        "fleet.merged_p50_rel_err": p50_err,
+        "fleet.merged_p95_rel_err": p95_err,
+        "fleet.counter_merge_error": abs(probe_total - sum(100 + p for p in range(nproc))),
+        "fleet.events_dropped": float(drops),
+        "fleet.straggler_flagged": flagged,
     }
 
 
@@ -1084,6 +1167,7 @@ RUNNERS = {
     "sampler": run_sampler_scenario,
     "int4": run_int4_scenario,
     "consensus": run_consensus_scenario,
+    "fleet": run_fleet_scenario,
     "hostsync": run_hostsync_scenario,
     "megaround": run_megaround_scenario,
     "compile": run_compile_scenario,

@@ -19,7 +19,7 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    then the same with int8 and int4 weights over a bf16 cache (int4
    through B5, held to the CPU run with bf16 leaves).
 4. Nine game paths on ``bcg-tpu/bench-8b`` (Qwen3-8B widths, 36 layers
-   (P2, P5, P9: 12; P3, P4, P6-P8: 4), random weights made once on the
+   (P9: 12; P2-P8 but P9: 4), random weights made once on the
    card from a seed and
    shared by every engine through ``TorchEngine(params=...)``), each a
    full 8 honest + 2 Byzantine game through
@@ -50,9 +50,9 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    * P9: int4 weights (W4A16 through B5), bf16 cache, plain loop, 1
      round, timed, then profiled with B5's inputs captured in the
      profiled round.
-   P8 and P9 quantize their own copies of the shared bf16 weights.  P2,
-   P5 and P9 run the first 12 of 36 layers, P3, P4, P6, P7 and P8 the
-   first 4 (the script's time limit; their lines print ``layers``).
+   P8 and P9 quantize their own copies of the shared bf16 weights.  P9
+   runs the first 12 of 36 layers, P2-P8 the first 4 (the script's time
+   limit; their lines print ``layers``).
    The paged paths' lines add the pool's block counts and prefix hit
    rate and the private KV bytes of the largest batch; every line has the
    KV bytes of its largest batch (P1's: the dense cache at the same game).
@@ -219,9 +219,9 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    ``dp=2`` (2x1x1).  Each world runs its arms one after another
    (``MESH_WORLDS``):
 
-   * P14 (A13a), the default engine: ``P14 tp``, ``P14 sp`` and ``P14 dp``
+   * P14, the default engine: ``P14 tp``, ``P14 sp`` and ``P14 dp``
      (``spmd_exchange`` on);
-   * P15 (A13b items 1-5), every other engine the port serves on one
+   * P15, every other engine the port serves on one
      device, each the engine of the path it mirrors: ``tp-w8-ff`` (P8:
      W8A8 weights, int8 cache, fast-forward, compact JSON), ``tp-w4-paged-
      spec`` (P9 x P7: W4A16 weights through B5, a paged int8 pool,
@@ -266,7 +266,33 @@ What it does, in order (any failure exits non-zero; nothing is skipped):
    collectives by kind, how many were staged and its time, peak memory and
    weight bytes per rank, the arm's wall).  A rank's failure or a world
    past its limit fails the run with the rank's output.
-12. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+12. P16 (after the mesh paths, before the kernel phase; the shared
+   weights freed first): the cooperative scale sweep through its own entry
+   point, ``tools.scale_sweep.run`` with ``--device cuda --ranks 2
+   --agents 10 --rounds 1 --seed 0 --model bcg-tpu/bench-8b
+   --max-model-len 0 --decide-tokens 0 --vote-tokens 0``: a world of two
+   ranks on ``cuda:0`` over gloo (dp 2, 5 agents' rows a rank, the SPMD
+   exchange one staged ``all_gather`` a round), each rank making
+   bench-8b's whole tree at full width and depth from seed 0 and playing
+   the one 8H+2B game through the sweep's cooperative mode, rank 0
+   recording it.  Each rank runs under ``p16_probe`` (the kernels' counts
+   set to 0 before its sweep and read after, around
+   ``tools.coop_probe.probe``).  Held: both ranks exit 0; the JSON line
+   has exactly the JAX script's keys, ``devices``, ``dp`` and
+   ``spmd_mesh_dp`` 2, one round, ``dp_batches`` >= 1 and rates above 0;
+   0 failed rows on each rank; one manifest (rank 0's) with the fleet
+   identity in its header and one completed ``job_end``; one ``game_end``;
+   the ranks' game digests, engine calls and weights checksums equal; the
+   recorded deliveries equal the dense ``parallel.game_step.masked_exchange``
+   over the recorded proposals and the topology; B1, B3a and B2 launched
+   on each rank; each rank's ``torch.cuda.max_memory_allocated`` from its
+   engine's boot until its weights are made at most 1.02x
+   ``loader.boot_peak_report``'s peak for bench-8b on the dp-2 mesh.
+   Prints ``game P16:`` (rounds, decisions/s and wall, rows and failed
+   rows, launches a rank, a round's collectives by kind and how many were
+   staged, the exchange check, peak and weight GB a rank) and ``boot
+   P16:`` (the measured boot peaks beside the report's).
+13. Prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.
 """
 
@@ -795,23 +821,22 @@ def game_config(max_rounds: int, greedy: bool = False, **engine_kw):
 # ``capture_forms``: the ones captured, if not all; ``capture=False``:
 # none; ``depth``: the layers kept, if not all).  P1 and P2 play one
 # round, P5 two (its second extends the first's radix chains).  P9 runs a
-# third of the layers, and so do P2 and P5, the costliest of the rest
-# (100-124 s each at 36 layers), since P14 joined; P3, P4, P6 and P7 (the
-# untimed paths: their kernels' calls have the same shapes at any depth)
-# and P8 run 4 since P15 joined: the script's time limit is shared by all
-# its paths.
+# third of the layers, since P14 joined; P3, P4, P6 and P7 (the untimed
+# paths: their kernels' calls have the same shapes at any depth) and P8
+# run 4 since P15 joined, and P2 and P5 (12 from P14's slice) since P16
+# joined: the script's time limit is shared by all its paths.
 PATHS = {
     "P1": dict(engine={}, rounds=1, timed=True,
                kernels=("flash_prefill", "decode_attention", "guided_sampler")),
     "P2": dict(engine=dict(kv_cache_dtype="int8", decode_fast_forward=True,
-                           guided_compact_json=True), rounds=1, timed=True, depth=12,
+                           guided_compact_json=True), rounds=1, timed=True, depth=4,
                kernels=("flash_prefill", "chunk_decode_attention_int8", "guided_sampler")),
     "P3": dict(engine=dict(spec_decode=True), rounds=1, timed=False, depth=4,
                kernels=("flash_prefill", "chunk_decode_attention", "guided_sampler")),
     "P4": dict(engine=dict(kv_cache_dtype="int8"), rounds=1, timed=False, depth=4,
                kernels=("flash_prefill", "decode_attention_int8", "guided_sampler")),
     "P5": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS), rounds=2,
-               timed=True, depth=12,
+               timed=True, depth=4,
                kernels=("flash_prefill", "paged_decode_attention_bf16", "guided_sampler")),
     "P6": dict(engine=dict(paged_kv=True, kv_pool_blocks=PAGED_POOL_BLOCKS,
                            kv_cache_dtype="int4", decode_fast_forward=True,
@@ -2006,8 +2031,8 @@ P14_TIMED_STEP = 5
 MESH_WORLD_LIMIT_S = 480
 MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh")
 # One world a mesh shape, its arms one after another (a world starts
-# once).  P14: the default engine under tp, sp and dp (A13a).  P15: every
-# other engine the port serves on one device (A13b items 1-5), each arm
+# once).  P14: the default engine under tp, sp and dp.  P15: every
+# other engine the port serves on one device, each arm
 # the engine of the one-device path it mirrors.
 MESH_WORLDS = {
     "tp": (dict(tensor_parallel_size=2), ("p14-tp", "tp-w8-ff", "tp-w4-paged-spec")),
@@ -2218,27 +2243,6 @@ class _RankMesh:
         return self.mesh.size
 
 
-def part_checksums(params, chunk: int = 1 << 26):
-    """Per leaf part (``name`` or ``name.part``), an exact order-free
-    checksum of its bytes in logical order: the sum of the bytes and the
-    sum weighted by position, in int64 on the card."""
-    import torch
-
-    out = {}
-    for name, leaf in params.items():
-        for part, t in (leaf.items() if isinstance(leaf, dict) else [(None, leaf)]):
-            flat = t.contiguous().view(torch.uint8).flatten()
-            total = weighted = 0
-            for i in range(0, flat.numel(), chunk):
-                b = flat[i:i + chunk].to(torch.int64)
-                w = (torch.arange(i, i + b.numel(), device=b.device, dtype=torch.int64)
-                     % 65521 + 1)
-                total += int(b.sum())
-                weighted += int((b * w).sum())
-            out[name if part is None else f"{name}.{part}"] = [total, weighted]
-    return out
-
-
 def mesh_config(arm, seed=0, mesh=True):
     """The arm's game config: its rounds (one, greedy), its engine knobs
     and (``mesh``) its world's sizes."""
@@ -2297,6 +2301,7 @@ def mesh_rank(world, out, forced):
     from bcg_tpu_torch.parallel.mesh import mesh_from_engine_config
     from bcg_tpu_torch.parallel.sharding import tree_bytes_per_device
     from bcg_tpu_torch.runtime.orchestrator import BCGSimulation
+    from bcg_tpu_torch.tools import coop_probe
 
     rank = dist.get_rank()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2317,7 +2322,7 @@ def mesh_rank(world, out, forced):
                 shared = (spec, params)
         else:
             spec, params = shared
-        sums = part_checksums(params)
+        sums = coop_probe.part_checksums(params)
         engine = TorchEngine(cfg.engine, device=dev, params=params, spec=spec, mesh=mesh)
         del params
         weight_bytes = tree_bytes_per_device(engine.params)
@@ -2472,6 +2477,7 @@ def mesh_slices(arm, params, spec, tp):
 
     from bcg_tpu_torch.models.quantize import weight_quantizer
     from bcg_tpu_torch.parallel.sharding import shard_params
+    from bcg_tpu_torch.tools import coop_probe
 
     mode = MESH_ARMS[arm]["engine"].get("quantization")
     _, cut = cut_depth(params, MESH_DEPTH)
@@ -2479,7 +2485,7 @@ def mesh_slices(arm, params, spec, tp):
     for r in range(tp):
         mine = shard_params(cut, spec, _RankMesh(tp=tp, rank=(0, r, 0)),
                             quantize=weight_quantizer(mode) if mode else None)
-        out.append(part_checksums(mine))
+        out.append(coop_probe.part_checksums(mine))
         del mine
         torch.cuda.empty_cache()
     return out
@@ -2542,10 +2548,12 @@ def mesh_check(arm, ranks, out, ref, params, spec, tp, sizes):
     """The arm's ranks held to ``ref`` (``(game, TeacherForcing)``; the
     served arm: its replay): the weights, the games, the held logits,
     the launches, the pools.  Returns the printed line and the errors."""
+    from bcg_tpu_torch.tools import coop_probe
+
     conf = MESH_ARMS[arm]
     errors = []
     want_sums = (mesh_slices(arm, params, spec, tp) if tp > 1
-                 else [part_checksums(cut_depth(params, MESH_DEPTH)[1])])
+                 else [coop_probe.part_checksums(cut_depth(params, MESH_DEPTH)[1])])
     for r, res in enumerate(ranks):
         want = want_sums[r if tp > 1 else 0]
         bad = sorted(n for n in want if want[n] != res["checksums"].get(n))
@@ -2671,6 +2679,150 @@ def phase_mesh(params):
                 by_path[path] = (counts[path], {name: tuple(keep(a, DEVICE) for a in args)
                                                 for name, args in got.items()})
     return by_path
+
+
+# P16: the cooperative scale sweep (the sweep's single-job mode over a
+# world of ranks) through its own entry point: bench-8b at full width and
+# depth, 8 honest + 2 Byzantine agents, dp 2 (two ranks on cuda:0 over
+# gloo, 5 agents' rows a rank), the SPMD exchange on, one round.
+P16_ARGS = ["--device", "cuda", "--ranks", "2", "--agents", "10", "--rounds", "1",
+            "--seed", "0", "--model", MODEL, "--max-model-len", "0", "--decide-tokens", "0",
+            "--vote-tokens", "0"]
+P16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "p16")
+P16_LIMIT_S = 600
+# The JAX script's key set (scripts/scale_sweep.py's JSON line).
+P16_KEYS = {"agents", "devices", "dp", "model", "rounds", "rounds_per_sec",
+            "decisions_per_sec", "dp_batches", "dp_bypasses", "sp_bypasses", "spmd_mesh_dp",
+            "consensus"}
+# The measured boot peak may exceed loader.boot_peak_report's by this much.
+BOOT_PEAK_SLACK = 1.02
+
+
+def p16_probe(run, out_dir):
+    """A P16 rank's hook (``tools/scale_sweep``): the kernels' counts set to
+    0 before the rank's sweep and read after it, around the cooperative
+    probe (``tools/coop_probe.probe``); writes ``p16-r<rank>.json``."""
+    import torch
+
+    from bcg_tpu_torch.obs import fleet
+    from bcg_tpu_torch.tools import coop_probe
+
+    zero_counts()
+    summary = coop_probe.probe(run, out_dir)
+    torch.cuda.synchronize()
+    with open(os.path.join(out_dir, f"p16-r{fleet.process_index()}.json"), "w") as f:
+        json.dump(dict(launches=launch_counts(), peak_bytes=torch.cuda.max_memory_allocated()),
+                  f)
+    return summary
+
+
+def phase_p16():
+    """P16 (see the module docstring): the cooperative scale sweep over a
+    two-rank dp world, held to the JAX script's key set, one game on both
+    ranks (digests, engine calls, weights), one record, the dense exchange
+    and the boot-peak report."""
+    import glob
+    import shutil
+
+    from bcg_tpu_torch.models.configs import spec_for_model
+    from bcg_tpu_torch.models.loader import boot_peak_report
+    from bcg_tpu_torch.tools import coop_probe, scale_sweep
+    from bcg_tpu_torch.tools.boot_smoke import ShapeMesh
+
+    shutil.rmtree(P16_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        row = scale_sweep.run(P16_ARGS + ["--sweep-dir", P16_DIR], hook="chip_smoke:p16_probe",
+                              limit_s=P16_LIMIT_S)
+    except RuntimeError as exc:   # a failed job, or the world's WorldFailed
+        fail(f"P16: {exc}")
+    wall = time.perf_counter() - t0
+    errors = []
+    if set(row) != P16_KEYS:
+        errors.append(f"key set {sorted(row)}")
+    if (row["devices"], row["dp"], row["spmd_mesh_dp"], row["rounds"]) != (2, 2, 2, 1):
+        errors.append(f"layout {row}")
+    if not (row["dp_batches"] >= 1 and row["rounds_per_sec"] > 0
+            and row["decisions_per_sec"] > 0):
+        errors.append(f"rates {row}")
+    probes = coop_probe.read_probes(P16_DIR)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(P16_DIR, f"p16-r{r}.json")) as f:
+            ranks.append(json.load(f))
+    if [p["rank"] for p in probes] != [0, 1]:
+        errors.append(f"probes of ranks {[p['rank'] for p in probes]}")
+    else:
+        for p, extra in zip(probes, ranks):
+            if p["failed_rows"] or not p["rows"]:
+                errors.append(f"rank {p['rank']}: {p['failed_rows']} of {p['rows']} rows failed")
+            for k in _P1_KERNELS:
+                if not extra["launches"][k]:
+                    errors.append(f"rank {p['rank']}: {k} never launched")
+        if probes[0]["game_digest"] != probes[1]["game_digest"]:
+            errors.append("the ranks' games differ")
+        if probes[0]["dispatches"] != probes[1]["dispatches"]:
+            errors.append("the ranks' engine calls differ")
+        if probes[0]["weights"]["checksum"] != probes[1]["weights"]["checksum"]:
+            errors.append("the ranks' weights differ")
+    manifests = glob.glob(os.path.join(P16_DIR, "sweep-manifest-r*.jsonl"))
+    records = []
+    if manifests != [os.path.join(P16_DIR, "sweep-manifest-r0.jsonl")]:
+        errors.append(f"manifests {manifests}")
+    else:
+        with open(manifests[0]) as f:
+            records = [json.loads(line) for line in f]
+    header = next((r for r in records if r["event"] == "manifest"), {})
+    if not (header.get("process_count") == 2 and header.get("cooperative") is True
+            and all(k in header for k in ("run_id", "host", "process_index"))):
+        errors.append(f"manifest header {header}")
+    ends = [r for r in records if r["event"] == "job_end"]
+    if len(ends) != 1 or ends[0].get("status") != "completed":
+        errors.append(f"job_end records {ends}")
+    events = glob.glob(os.path.join(P16_DIR, "events-*.jsonl"))
+    game_ends = sum(1 for path in events for line in open(path)
+                    if json.loads(line).get("event") == "game_end")
+    if game_ends != 1:
+        errors.append(f"{game_ends} game_end records in {events}")
+    exchange = (0, 0, 0)
+    if len(events) == 1 and probes and probes[0]["game"]:
+        exchange = coop_probe.exchange_mismatches(events[0], probes[0]["game"]["decisions"])
+    if exchange[0] < 1 or exchange[1] != 10 * exchange[0] or exchange[2]:
+        errors.append(f"exchange (rounds, receivers, mismatches) {exchange}")
+    # The world's mesh by its shape (what the report reads).
+    report = boot_peak_report(spec_for_model(MODEL), ShapeMesh(dp=2), None)
+    boots = [p["boot"] for p in probes]
+    for p, boot in zip(probes, boots):
+        if boot is None or boot["predicted_bytes"] != report["peak_bytes_per_device"]:
+            errors.append(f"rank {p['rank']}: boot record {boot}")
+        elif boot["peak_bytes"] > boot["predicted_bytes"] * BOOT_PEAK_SLACK:
+            errors.append(f"rank {p['rank']}: boot peak {boot['peak_bytes']} past "
+                          f"{BOOT_PEAK_SLACK} x the report's {boot['predicted_bytes']}")
+    gb = 1e-9
+    line = dict(
+        rounds=row["rounds"], decisions_per_sec=row["decisions_per_sec"],
+        rounds_per_sec=row["rounds_per_sec"], sweep_wall_seconds=ends[0].get("wall_s") if ends
+        else None, p16_wall_seconds=wall, consensus=row["consensus"],
+        dp_batches=row["dp_batches"], dp_bypasses=row["dp_bypasses"],
+        rows=[p["rows"] for p in probes], failed_rows=[p["failed_rows"] for p in probes],
+        launches=[{k: r["launches"][k] for k in _P1_KERNELS} for r in ranks],
+        collectives=[p["collectives"] for p in probes],
+        engine_calls=len(probes[0]["dispatches"]) if probes else None,
+        exchange_rounds_receivers_mismatches=list(exchange),
+        peak_gb=[r["peak_bytes"] * gb for r in ranks],
+        weight_gb=[p["weights"]["bytes"] * gb for p in probes],
+        games_equal=bool(probes) and probes[0]["game_digest"] == probes[-1]["game_digest"],
+        layers=spec_for_model(MODEL).num_layers)
+    print("game P16: " + json.dumps(line), flush=True)
+    print("boot P16: " + json.dumps(dict(
+        measured_gb=[b and b["peak_bytes"] * gb for b in boots],
+        predicted_gb=report["peak_bytes_per_device"] * gb,
+        final_tree_gb=report["final_bytes_per_device"] * gb,
+        ratio=[b and b["peak_bytes"] / b["predicted_bytes"] for b in boots])), flush=True)
+    if errors:
+        fail("P16: " + "; ".join(errors))
+
+
 
 
 def per_row(fn, *args):
@@ -3336,10 +3488,10 @@ def main() -> int:
                         help="also write P10's decode-step census to FILE (JSON), the "
                              "input of python -m bcg_tpu_torch.tools.census_gate "
                              "--update-cuda FILE")
-    parser.add_argument("--only", choices=("mesh",),
-                        help="build, make the weights and run only the mesh paths (P14, "
-                             "P15) and their kernel entries (a development loop: no ok "
-                             "line, exit 4)")
+    parser.add_argument("--only", choices=("mesh", "p16"),
+                        help="mesh: build, make the weights and run only the mesh paths "
+                             "(P14, P15) and their kernel entries; p16: build and run only "
+                             "P16 (development loops: no ok line, exit 4)")
     args = parser.parse_args()
     SAVE["census"] = args.save_census
     import torch
@@ -3366,6 +3518,12 @@ def main() -> int:
     print(card, flush=True)
     t_start = time.perf_counter()
     phase_build()
+    if args.only == "p16":
+        t0 = time.perf_counter()
+        phase_p16()
+        print(f"phase P16: {time.perf_counter() - t0:.1f} s", flush=True)
+        print("chip_smoke --only p16: passed (not a whole run)", flush=True)
+        return 4
     t0 = time.perf_counter()
     phase_small_reference()
     print(f"phase small reference: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3418,13 +3576,20 @@ def main() -> int:
     counts["P12"], inputs["P12"] = phase_p12(params)
     print(f"phase P12: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    # The captured inputs wait in host memory while P14's and P15's ranks
-    # share the card.
+    # The captured inputs wait in host memory while P14's, P15's and P16's
+    # ranks share the card.
     inputs = move_inputs(inputs, "cpu")
     for path, (c, got) in phase_mesh(params).items():
         counts[path], inputs[path] = c, got
-    inputs = move_inputs(inputs, DEVICE)
     print(f"phase P14 + P15: {time.perf_counter() - t0:.1f} s", flush=True)
+    # P16's two ranks each make the whole tree on the card: the shared
+    # weights, which no later phase reads, go first.
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_p16()
+    print(f"phase P16: {time.perf_counter() - t0:.1f} s", flush=True)
+    inputs = move_inputs(inputs, DEVICE)
     if args.save_sampler_inputs:
         save_sampler_inputs(inputs["P1"]["guided_sampler"], args.save_sampler_inputs)
     t0 = time.perf_counter()

@@ -29,6 +29,7 @@ NAMESPACE_OWNERS = {
     "serve": "tests/test_torch_perf_gate.py",
     "engine": "tests/test_torch_perf_gate.py",
     "consensus": "tests/test_torch_perf_gate.py",
+    "fleet": "tests/test_torch_perf_gate.py",
     "paged": "tests/test_torch_perf_gate_paged.py",
     "int4": "tests/test_torch_perf_gate_paged.py",
     "hostsync": "tests/test_torch_perf_gate_paged.py",
@@ -43,7 +44,8 @@ NAMESPACE_OWNERS = {
 }
 # The scenarios whose engine is the copied fake engine: they pass the JAX
 # package's entries with no "differs" reason.
-FAKE_ENGINE_NAMESPACES = ("serve", "sweep", "chaos", "scenarios", "alerts", "consensus")
+FAKE_ENGINE_NAMESPACES = ("serve", "sweep", "chaos", "scenarios", "alerts", "consensus",
+                          "fleet")
 
 
 def baseline():

@@ -5,7 +5,10 @@ Four layers:
 1. fixture tests — every rule of the port's ``ALL_RULES`` fires on its
    seeded-violation fixture and stays quiet on the clean-idiom twin
    (``tests/torch_analysis_fixtures/``, torch idioms; the capture rules
-   run under roots the tests declare for the fixtures);
+   run under roots the tests declare for the fixtures; the three mesh
+   rules retargeted to ``parallel/`` included), and the catalog is the
+   JAX package's less the one rule the rules module documents as having
+   no torch construct (BCG-JIT-DONATE);
 2. capture regions — the ``obs_hostsync.expected()`` exemption, the
    per-step loop body as a root, the cross-module lift, and the lift
    refusing attribute calls it can only resolve by a unique name;
@@ -59,6 +62,9 @@ RULE_FIXTURES = {
     "BCG-LOCK-ORDER": ("bad_lock_order.py", "good_lock_order.py"),
     "BCG-LOCK-BLOCK": ("bad_lock_block.py", "good_lock_block.py"),
     "BCG-SHARED-MUT": ("bad_shared_mut.py", "good_shared_mut.py"),
+    "BCG-SHARD-AXIS": ("bad_shard_axis.py", "good_shard_axis.py"),
+    "BCG-SHARD-DIVISOR": ("bad_shard_divisor.py", "good_shard_divisor.py"),
+    "BCG-JIT-OUTSHARD": ("models/bad_jit_outshard.py", "models/good_jit_outshard.py"),
 }
 
 # The capture roots of the fixtures (the repo's own are core.CAPTURE_ROOTS).
@@ -77,10 +83,12 @@ FIXTURE_ROOTS = [
     CaptureRoot(f"{FIX_REL}/xmod/entry.py", "fused_scale"),
 ]
 
-# The JAX package's rules the port leaves out until they are retargeted to its
-# mesh code (A13b).
+# The JAX package's four mesh rules: three retargeted to the port's mesh
+# code, and the one the rules module documents as having no torch construct.
 MESH_RULES = {"BCG-JIT-OUTSHARD", "BCG-JIT-DONATE", "BCG-SHARD-AXIS",
               "BCG-SHARD-DIVISOR"}
+NO_TORCH_CONSTRUCT = {"BCG-JIT-DONATE"}
+RETARGETED = MESH_RULES - NO_TORCH_CONSTRUCT
 CAPTURE_RULES = {"BCG-HOST-SYNC", "BCG-JIT-NP", "BCG-JIT-BRANCH"}
 # The JAX registry's TPU-only flags the port's registry leaves out.
 TPU_ONLY_FLAGS = ("BCG_TPU_ALLOW_PADDED_GROUP_KERNEL", "BCG_TPU_DISABLE_INT8_DECODE_KERNEL",
@@ -112,8 +120,13 @@ class TestRuleFixtures:
     def test_catalog_is_the_jax_catalog_less_the_mesh_rules(self):
         from bcg_tpu.analysis import RULE_IDS as J_RULE_IDS
 
-        assert set(RULE_IDS) == set(J_RULE_IDS) - MESH_RULES
-        assert len(RULE_IDS) == 15
+        assert set(RULE_IDS) == set(J_RULE_IDS) - NO_TORCH_CONSTRUCT
+        assert len(RULE_IDS) == 18
+        # Each rule left out says why, rule by rule, in the rules module.
+        from bcg_tpu_torch.analysis import rules
+
+        for rule_id in NO_TORCH_CONSTRUCT:
+            assert f"{rule_id} has no torch construct" in rules.__doc__
 
     @pytest.mark.parametrize("rule_id", sorted(RULE_FIXTURES))
     def test_rule_fires_on_seeded_violation(self, rule_id):
@@ -146,6 +159,9 @@ class TestRuleFixtures:
         ("BCG-LOCK-ORDER", 1),
         ("BCG-LOCK-BLOCK", 3),
         ("BCG-SHARED-MUT", 1),
+        ("BCG-SHARD-AXIS", 6),
+        ("BCG-SHARD-DIVISOR", 5),
+        ("BCG-JIT-OUTSHARD", 2),
     ])
     def test_expected_finding_counts_on_bad_fixtures(self, rule_id, want):
         # The bad fixtures seed a known number of violations each — a
@@ -341,7 +357,7 @@ class TestRepoClean:
         # (all but the capture rules) finds the same (rule, path,
         # content) keys as the JAX package's own.
         jax_run = j_analyze_paths(paths=default_paths(), baseline=None)
-        copied = set(RULE_IDS) - CAPTURE_RULES
+        copied = set(RULE_IDS) - CAPTURE_RULES - RETARGETED
         mine = sorted(f.key() for f in full_tree_raw.findings if f.rule in copied)
         theirs = sorted(f.key() for f in jax_run.findings if f.rule in copied)
         assert mine == theirs

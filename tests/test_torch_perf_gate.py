@@ -1,7 +1,8 @@
 """The port's hermetic perf gate (``bcg_tpu_torch/tools/perf_gate.py`` +
-``tools/perf_baseline.json``): the serve, engine and consensus scenarios,
-and the gate's own contracts (``tests/test_perf_gate.py``'s, over the
-port):
+``tools/perf_baseline.json``): the serve, engine, consensus and fleet
+scenarios (fleet: a two-rank CPU world, its shards merged by the fleet
+report, the straggler-off injection named), and the gate's own
+contracts (``tests/test_perf_gate.py``'s, over the port):
 
 * green at head;
 * an injected regression fails with its metric and band named;
@@ -27,7 +28,7 @@ import torch
 import _torch_gate_contract as contract
 from bcg_tpu_torch.tools import gate_baseline, perf_gate
 
-NAMESPACES = ("serve", "engine", "consensus")
+NAMESPACES = ("serve", "engine", "consensus", "fleet")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -66,6 +67,12 @@ class TestGreenAtHead:
         assert gate["consensus.events_dropped"] == 0
         assert gate["consensus.histogram_quantile_sanity"] == 1.0
 
+    def test_fleet_world_merges_every_rank_and_flags_the_straggler(self, gate):
+        assert gate["fleet.shard_completeness"] == 1.0
+        assert gate["fleet.counter_merge_error"] == 0
+        assert gate["fleet.merged_p50_rel_err"] == gate["fleet.merged_p95_rel_err"] == 0
+        assert gate["fleet.straggler_flagged"] == 1.0
+
     def test_steady_state_notes_no_signature(self, gate):
         assert gate["engine.steady_state_retraces"] == 0
 
@@ -82,6 +89,11 @@ class TestInjectedRegression:
     def test_failing_rows_fail_the_gate(self, gate):
         contract.assert_injection_named(perf_gate.run_serve_scenario(inject="fail-rows"),
                                         ["serve.error_row_fraction"])
+
+    def test_straggler_off_fails_naming_the_flag(self, gate):
+        contract.assert_injection_named(
+            perf_gate.run_fleet_scenario(inject="straggler-off"),
+            ["fleet.straggler_flagged"])
 
     def test_events_off_fails_rather_than_passing_vacuously(self, gate):
         contract.assert_injection_named(
@@ -170,8 +182,16 @@ class TestScriptExitCodes:
         assert proc.returncode == 2, proc.stdout + proc.stderr
         assert "PERF REGRESSION: serve.spec_acceptance_rate" in proc.stderr
 
+    def test_fleet_scenario_exits_zero_and_straggler_off_two(self):
+        proc = subprocess.run(
+            [sys.executable, "-m", "bcg_tpu_torch.tools.perf_gate", "--scenarios", "fleet",
+             "--inject-regression", "straggler-off"],
+            cwd=contract.REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 2, proc.stdout + proc.stderr
+        assert "PERF REGRESSION: fleet.straggler_flagged" in proc.stderr
+
     def test_unknown_scenario_is_a_usage_error(self):
         proc = subprocess.run(
-            [sys.executable, "-m", "bcg_tpu_torch.tools.perf_gate", "--scenarios", "fleet"],
+            [sys.executable, "-m", "bcg_tpu_torch.tools.perf_gate", "--scenarios", "nccl"],
             cwd=contract.REPO, capture_output=True, text=True, timeout=120)
         assert proc.returncode == 1, proc.stdout + proc.stderr

@@ -86,9 +86,10 @@ def _jax_state():
 
 # Module -> the functions, methods and docstrings where the port's copy
 # may differ from its original: the sweep builds its engines on a torch
-# device and its cooperative and multi-process arms ride
-# parallel/distributed.py (A13b); over an engine on a mesh the serving
-# proxy leads from rank 0 and the other ranks follow (serve/mesh.py): its
+# device, joins its multi-process world through parallel/distributed.py
+# and keeps a cooperative game's ranks in step; over an engine on a mesh
+# the serving proxy leads from rank 0 and the other ranks follow
+# (serve/mesh.py), unless its caller built the scheduler: its
 # constructor, shutdown and run_serving_simulations.  The fake
 # engine is held whole.
 COPIES = {

@@ -7,10 +7,13 @@ package's.
   reads alike), and the same manifests again under an injected job crash
   that the retry budget absorbs.
 * ``python -m bcg_tpu_torch.sweep``: ``list`` and ``expand`` print what
-  the JAX package prints, ``run --device cpu`` builds its engines on that
-  device, and the arms that ride the multi-process group
-  (``--distributed``, ``--coordinator``, the cooperative single-job mode)
-  raise, naming ROADMAP A13b.
+  the JAX package prints, and ``run --device cpu`` builds its engines on
+  that device.
+* Over a world of ranks (the process identity set by hand here; the real
+  worlds are ``tests/test_torch_sweep_cluster.py``'s): several jobs stay a
+  strided partition, and one job runs cooperatively with the retry,
+  watchdog and job-retry budgets off (a retry on one rank alone would part
+  the ranks).
 * One greedy ``bcg-tpu/tiny-test`` job on an injected
   ``TorchEngine(device="cpu")`` completes.
 """
@@ -125,22 +128,32 @@ def test_sweep_cli_run_builds_engines_on_the_named_device(tmp_path, monkeypatch,
     assert "2 job(s), 0 failed" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--distributed"], ["--coordinator", "localhost:1234"]])
-def test_sweep_cli_multi_process_arms_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A13b"):
-        t_main.main(["run", "smoke", "--out", str(tmp_path), *flags])
-
-
-def test_cooperative_single_job_sweep_raises(tmp_path):
+def test_several_jobs_over_two_ranks_stay_a_strided_partition(tmp_path):
     from bcg_tpu_torch.obs import fleet
 
+    fleet.set_process_provider(lambda: (1, 2))
+    try:
+        ctl = t_controller.SweepController(SPEC, str(tmp_path))
+        assert (ctl.rank, ctl.world, ctl.cooperative) == (1, 2, False)
+        assert [j.job_id for j in ctl.jobs[ctl.rank::ctl.world]] == [ctl.jobs[1].job_id]
+    finally:
+        fleet.reset()
+
+
+def test_cooperative_single_job_turns_the_retry_budgets_off(tmp_path, monkeypatch):
+    from bcg_tpu_torch.obs import fleet
+
+    monkeypatch.setenv("BCG_TPU_SERVE_WATCHDOG_S", "30")
     fleet.set_process_provider(lambda: (0, 2))
     try:
-        with pytest.raises(NotImplementedError, match="A13b"):
-            t_controller.run_sweep({"name": "one", "base": {"agents": 3}}, str(tmp_path))
-        # Several jobs over two ranks stay a strided partition.
-        ctl = t_controller.SweepController(SPEC, str(tmp_path))
-        assert (ctl.rank, ctl.world, ctl.cooperative) == (0, 2, False)
+        with pytest.warns(UserWarning, match="max_job_retries, BCG_TPU_SERVE_WATCHDOG_S"):
+            ctl = t_controller.SweepController({"name": "one", "base": {"agents": 3}},
+                                               str(tmp_path), max_job_retries=2)
+        assert ctl.cooperative and ctl.max_job_retries == 0
+        (job,) = ctl.jobs
+        _, scheduler = ctl._group_for(job)
+        assert scheduler._watchdog_s == 0 and scheduler._max_retries == 0
+        ctl._close_groups()
     finally:
         fleet.reset()
 
